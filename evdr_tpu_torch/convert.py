@@ -1,0 +1,44 @@
+"""Carry an index built by the JAX package over to the port, bit for bit.
+
+The state a retrieval deployment carries is its index: the padded token
+arrays, the mask, the int8 scales and the doc ids. Taken from a JAX
+``ShardedIndex`` as numpy arrays (``np.asarray(eng.index.P)`` etc.; a bf16
+index arrives as an ml_dtypes bf16 array and is reinterpreted, not
+converted), :func:`index_from_numpy` places the same bytes on the port's
+device, so both packages score the same stored index.
+
+    idx = jax_engine.index
+    eng = RetrievalEngine.from_index(
+        np.asarray(idx.P), np.asarray(idx.pmask), idx.n_docs,
+        scales=None if idx.scales is None else np.asarray(idx.scales),
+        docids=idx.docids, dtype=jax_engine.dtype)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from evdr_tpu_torch.parallel.sharded_index import ShardedIndex, as_tensor
+
+
+def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
+                     device="cuda") -> ShardedIndex:
+    """Arrays (or tensors) of an existing padded index -> a ShardedIndex on
+    ``device`` with the same element types and values. ``P`` is float32,
+    bfloat16 or int8 (then ``scales`` are its per-token f32 scales)."""
+    P = as_tensor(P, device)
+    if P.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise TypeError(f"unsupported index element type {P.dtype}")
+    if (P.dtype == torch.int8) != (scales is not None):
+        raise ValueError("int8 codes come with scales, float tokens without")
+    if not 0 <= int(n_docs) <= P.shape[0]:
+        raise ValueError(f"n_docs={n_docs} outside [0, {P.shape[0]}]")
+    return ShardedIndex(
+        P=P.contiguous(),
+        pmask=as_tensor(pmask, device, torch.bool).contiguous(),
+        n_docs=int(n_docs),
+        docids=None if docids is None else np.asarray(docids, dtype=object),
+        scales=(None if scales is None
+                else as_tensor(scales, device, torch.float32).contiguous()),
+    )

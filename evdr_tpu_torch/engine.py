@@ -1,0 +1,209 @@
+"""RetrievalEngine — the user-facing multi-vector retrieval API on a GPU.
+
+Loads (or receives) a page-embedding index, places it on one device, and
+serves MaxSim top-k queries through the fused CUDA kernels:
+
+    engine = RetrievalEngine.from_npz("features/tabfquad_dump_all.npz")
+    docids, scores = engine.search(query_token_arrays, k=10)
+
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU present it raises instead of carrying on on the CPU. On the CPU every
+kernel is replaced by its plain PyTorch version (``impl`` reports which).
+
+Storage dtypes of this slice: float32, bfloat16 and int8. A float32 engine
+scores through the bf16 kernel, like the TPU engine's Pallas path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from evdr_tpu_torch.data.npz_io import load_payload
+from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
+                                         preprocess_queries)
+from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
+                                                   build_sharded_index)
+from evdr_tpu_torch.parallel.topk import sharded_maxsim, sharded_topk
+
+DTYPES = (None, "float32", "bfloat16", "int8")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU. Asking for a GPU where there is none raises:
+    nothing falls back to the CPU unless the caller asked for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path on the host")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class RetrievalEngine:
+    def __init__(self, dtype: Optional[str] = "bfloat16", impl: str = "auto",
+                 normalize: bool = True, prune_centroids: int = 0,
+                 quantize_queries: bool = False, device=None):
+        """``dtype='int8'`` stores the index quantized (ops/quantize.py,
+        half the bytes of bf16); adding ``quantize_queries=True`` also
+        quantizes queries on the device so scoring runs int8 x int8
+        (impl 'cuda_q8').
+
+        ``impl`` is 'auto' or the name it resolves to: 'cuda' on a GPU,
+        'plain' (the kernels' plain versions) on the CPU, with '_q8' for
+        int8 x int8 scoring."""
+        if dtype not in DTYPES:
+            raise NotImplementedError(
+                f"dtype={dtype!r} is not ported to evdr_tpu_torch yet "
+                "(int4 and pq arrive with later slices)")
+        if prune_centroids:
+            raise NotImplementedError(
+                "pruned search (prune_centroids>0) is not ported yet")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.normalize = normalize
+        base = "cuda" if self.device.type == "cuda" else "plain"
+        if impl not in ("auto", base):
+            raise ValueError(f"impl={impl!r} on {self.device}: use 'auto' "
+                             f"or {base!r}")
+        q8 = quantize_queries and dtype == "int8"
+        self.impl = base + ("_q8" if q8 else "")
+        self.index: Optional[ShardedIndex] = None
+
+    # ------------------------------------------------------------------ build
+    def build(self, P, pmask, docids: Optional[Sequence[str]] = None,
+              normalize: Optional[bool] = None) -> "RetrievalEngine":
+        """Index dense padded page embeddings ``(N, Lp, D)`` + bool mask.
+
+        ``P`` may be a numpy array or a tensor (normalized where it lies).
+        ``normalize`` overrides the engine default for THIS build only."""
+        normalize = self.normalize if normalize is None else normalize
+        if isinstance(P, torch.Tensor):
+            pmask = as_tensor(pmask, P.device, torch.bool)
+            if normalize:
+                P = l2_normalize(P.float() * pmask[..., None])
+        else:
+            P = np.asarray(P, dtype=np.float32)
+            pmask = np.asarray(pmask, dtype=bool)
+            if normalize:
+                P = np.asarray(l2_normalize(P * pmask[..., None]),
+                               dtype=np.float32)
+        self.index = build_sharded_index(P, pmask, self.device,
+                                         dtype=self.dtype,
+                                         docids=_ids(docids))
+        return self
+
+    def build_from_codes(self, codes, scales, pmask,
+                         docids: Optional[Sequence[str]] = None
+                         ) -> "RetrievalEngine":
+        """Index pre-quantized int8 codes + per-token scales directly (no
+        dequantize/renormalize/requantize round trip). Codes must come from
+        normalized embeddings (packed files written with --normalize)."""
+        if self.dtype != "int8":
+            raise ValueError("build_from_codes requires dtype='int8'")
+        self.index = build_sharded_index(codes, pmask, self.device,
+                                         dtype="int8", scales=scales,
+                                         docids=_ids(docids))
+        return self
+
+    def build_from_ragged(self, documents_obj, doc_attnmask=None,
+                          doc_imgmask=None, docids=None) -> "RetrievalEngine":
+        P, pmask, _ = preprocess_docs(documents_obj, doc_attnmask, doc_imgmask)
+        return self.build(P, pmask, docids)
+
+    @classmethod
+    def from_index(cls, P, pmask, n_docs: int, scales=None, docids=None,
+                   **kw) -> "RetrievalEngine":
+        """Serve an index that already exists as arrays: the (padded)
+        arrays of a JAX ``ShardedIndex`` (``np.asarray(eng.index.P)``, ...)
+        or tensors, used as stored (see ``evdr_tpu_torch.convert``)."""
+        from evdr_tpu_torch.convert import index_from_numpy
+
+        eng = cls(**kw)
+        eng.index = index_from_numpy(P, pmask, n_docs, scales=scales,
+                                     docids=docids, device=eng.device)
+        return eng
+
+    @classmethod
+    def from_npz(cls, npz_path, **kw) -> "RetrievalEngine":
+        """Accepts the reference's pickled-object interchange npz or the
+        packed dense format (tools/convert_packed.py, float32 / bfloat16 /
+        int8 storage, written by either package)."""
+        from evdr_tpu_torch.tools.convert_packed import (is_packed,
+                                                         load_packed_payload)
+
+        eng = cls(**kw)
+        if is_packed(npz_path):
+            payload = load_packed_payload(npz_path)
+            normalized = bool(payload.get("doc_normalized", False))
+            docids = payload.get("docid")
+            if eng.dtype == "int8" and "P_codes" in payload and normalized:
+                return eng.build_from_codes(
+                    payload["P_codes"], payload["P_scale"], payload["pmask"],
+                    docids=docids)
+            eng.build(payload["P_pad"], payload["pmask"], docids=docids,
+                      # stored normalized: skip the renorm for THIS build
+                      normalize=False if normalized else None)
+        else:
+            payload = load_payload(npz_path)
+            eng.build_from_ragged(
+                payload["documents"], payload.get("doc_attnmask"),
+                payload.get("doc_imgmask"), docids=payload.get("docid"))
+        return eng
+
+    # ----------------------------------------------------------------- search
+    def _queries(self, Q, qmask):
+        if self.index is None:
+            raise RuntimeError("engine has no index; call build() first")
+        return (as_tensor(Q, self.device, torch.float32),
+                as_tensor(qmask, self.device, torch.bool))
+
+    def search_dense(self, Q, qmask, k: int = 10,
+                     n_candidates: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(nq, Lq, D) normalized queries + mask -> (scores, doc indices),
+        both (nq, min(k, n_docs)) numpy arrays."""
+        if n_candidates:
+            raise ValueError(
+                "n_candidates requires a pruning summary index, which the "
+                "torch port does not build yet")
+        Qd, qmd = self._queries(Q, qmask)
+        vals, idx = sharded_topk(Qd, qmd, self.index, k=k, impl=self.impl)
+        k_out = min(k, self.n_docs)
+        return vals[:, :k_out].cpu().numpy(), idx[:, :k_out].cpu().numpy()
+
+    def ids_for(self, idx) -> List[List[str]]:
+        """Doc-index matrix -> per-query docid string lists."""
+        ids = None if self.index is None else self.index.docids
+        return [[str(ids[int(j)]) if ids is not None else str(int(j))
+                 for j in row] for row in np.asarray(idx)]
+
+    def search(self, queries, query_attnmask=None, k: int = 10
+               ) -> Tuple[List[List[str]], np.ndarray]:
+        """Ragged query token arrays -> (per-query docid lists, scores)."""
+        Q, qmask = preprocess_queries(queries, query_attnmask)
+        vals, idx = self.search_dense(Q, qmask, k=k)
+        return self.ids_for(idx), vals
+
+    def score_all(self, Q, qmask) -> np.ndarray:
+        """Full (nq, N) score matrix (eval / reranking use)."""
+        Qd, qmd = self._queries(Q, qmask)
+        return sharded_maxsim(Qd, qmd, self.index, impl=self.impl
+                              ).cpu().numpy()
+
+    @property
+    def n_docs(self) -> int:
+        return 0 if self.index is None else self.index.n_docs
+
+    @property
+    def dim(self) -> int:
+        if self.index is None:
+            raise RuntimeError("engine has no index; call build() first")
+        return int(self.index.P.shape[-1])
+
+
+def _ids(docids):
+    return None if docids is None else np.asarray(docids, dtype=object)

@@ -1,0 +1,159 @@
+"""Convert interchange (pickled-object) feature npz -> dense packed npz.
+
+The packed format is dense ``P_pad (N, L, D) float32`` (or bf16 bits, or
+int8 codes + scales) ``+ pmask (N, L) bool`` plus the query side and the
+eval maps, with no object dtype. Files are interchangeable with
+``evdr_tpu.tools.convert_packed`` for the float32, bfloat16 and int8
+storage types.
+
+    python -m evdr_tpu_torch.tools.convert_packed --in_npz dump_all.npz \
+        --out_npz dump_all.packed.npz [--length_multiple 16] \
+        [--dtype float32|bfloat16|int8] [--normalize]
+
+The int4 and PQ storage types belong to later slices of the port and raise
+``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from evdr_tpu_torch.data.npz_io import load_payload
+from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
+                                         preprocess_queries)
+from evdr_tpu_torch.ops.quantize import dequantize_int8, quantize_tokens_int8
+
+PACKED_DTYPES = ("float32", "bfloat16", "int8")
+_LATER = {"int4": "the int4 tier (ROADMAP queue 1, item 7)",
+          "pq": "the PQ tier (ROADMAP queue 1, item 8)"}
+
+
+def _not_ported(dtype: str):
+    return NotImplementedError(
+        f"{dtype} storage is not ported to evdr_tpu_torch yet; it arrives "
+        f"with {_LATER[dtype]}")
+
+
+def bf16_bits(P: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 bit pattern as uint16 (round to nearest even, the
+    same bits ml_dtypes writes)."""
+    t = torch.from_numpy(np.ascontiguousarray(P, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
+    t = torch.from_numpy(np.ascontiguousarray(bits).view(np.int16))
+    return t.view(torch.bfloat16).float().numpy()
+
+
+def convert_payload_to_packed(payload: dict, length_multiple: int = 1,
+                              dtype: str = "float32",
+                              normalize: bool = False) -> dict:
+    """``normalize=True`` stores doc tokens masked + L2-normalized and marks
+    the file, which lets int8 serving consume ``P_codes`` directly instead
+    of dequantize -> normalize -> requantize."""
+    if dtype in _LATER:
+        raise _not_ported(dtype)
+    if dtype not in PACKED_DTYPES:
+        raise ValueError(f"dtype must be one of {PACKED_DTYPES}, got {dtype!r}")
+    out = {}
+    if payload.get("documents") is not None:
+        P, pmask, _ = preprocess_docs(
+            payload["documents"], payload.get("doc_attnmask"),
+            payload.get("doc_imgmask"), length_multiple=length_multiple)
+        if normalize:
+            P = np.asarray(
+                l2_normalize(P * pmask[..., None].astype(np.float32)),
+                dtype=np.float32)
+            out["doc_normalized"] = np.asarray(True)
+        if dtype == "int8":
+            out["P_codes"], out["P_scale"] = quantize_tokens_int8(P, pmask)
+        elif dtype == "bfloat16":
+            # np.load round-trips bf16 arrays as raw void: store the uint16
+            # bit pattern under a marker key instead
+            out["P_pad_bf16"] = bf16_bits(P)
+        else:
+            out["P_pad"] = P.astype(np.float32)
+        out["pmask"] = pmask
+    if payload.get("query") is not None:
+        Q, qmask = preprocess_queries(
+            payload["query"], payload.get("query_attnmask"),
+            length_multiple=length_multiple)
+        out["Q_norm"] = Q.astype(np.float32)
+        out["qmask"] = qmask
+    for key in ("docid", "qid", "qsidx_2_query"):
+        if payload.get(key) is not None:
+            out[key] = np.asarray([str(x) for x in payload[key]])
+    # dict-valued maps ride as JSON strings (no pickling)
+    for key in ("relevant_docs", "docidx_2_docid"):
+        if payload.get(key) is not None:
+            out[f"{key}_json"] = np.asarray(json.dumps(payload[key]))
+    return out
+
+
+def load_packed_payload(npz_path) -> dict:
+    """Packed npz -> a payload-like dict with DENSE arrays.
+
+    Returns keys: P_pad/pmask, Q_norm/qmask (dense, pre-normalized), plus the
+    usual id/map keys decoded from JSON. bf16-stored docs are upcast to f32
+    (exact); int8-stored docs are dequantized to ``P_pad`` while the raw
+    ``P_codes``/``P_scale`` ride along for engines that consume codes
+    directly.
+    """
+    out = {}
+    with np.load(str(npz_path)) as z:  # no allow_pickle needed
+        for k in z.files:
+            if not k.endswith("_json"):
+                out[k] = z[k]
+        decoded_json = {k: str(z[k]) for k in z.files if k.endswith("_json")}
+    if "P_codes4" in out:
+        raise _not_ported("int4")
+    if "P_pq_codes" in out:
+        raise _not_ported("pq")
+    if "P_pad" in out and out["P_pad"].dtype != np.float32:
+        out["P_pad"] = out["P_pad"].astype(np.float32)
+    if "P_pad_bf16" in out:
+        out["P_pad"] = bf16_bits_to_float32(out.pop("P_pad_bf16"))
+    if "P_codes" in out and "P_pad" not in out:
+        out["P_pad"] = dequantize_int8(out["P_codes"], out["P_scale"])
+    for key in ("relevant_docs", "docidx_2_docid"):
+        jk = f"{key}_json"
+        if jk in decoded_json:
+            out[key] = json.loads(decoded_json[jk])
+    return out
+
+
+def is_packed(npz_path) -> bool:
+    with np.load(str(npz_path), allow_pickle=True) as z:
+        return ("P_pad" in z.files or "Q_norm" in z.files
+                or "P_codes" in z.files or "P_pad_bf16" in z.files
+                or "P_pq_codes" in z.files or "P_codes4" in z.files)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--in_npz", required=True)
+    p.add_argument("--out_npz", required=True)
+    p.add_argument("--length_multiple", type=int, default=1,
+                   help="round padded lengths up (e.g. 16 for kernel tiles)")
+    p.add_argument("--dtype", choices=PACKED_DTYPES, default="float32",
+                   help="doc-token storage dtype (bfloat16 halves, int8 "
+                        "quarters the file vs float32)")
+    p.add_argument("--normalize", action="store_true",
+                   help="store doc tokens masked + L2-normalized (enables "
+                        "direct int8-code serving without requantization)")
+    a = p.parse_args(argv)
+    packed = convert_payload_to_packed(load_payload(a.in_npz),
+                                       a.length_multiple, a.dtype,
+                                       normalize=a.normalize)
+    np.savez(a.out_npz, **packed)
+    shapes = {k: getattr(v, "shape", None) for k, v in packed.items()}
+    print(f"[packed] {a.out_npz}: {shapes}")
+
+
+if __name__ == "__main__":
+    main()

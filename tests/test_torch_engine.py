@@ -1,0 +1,248 @@
+"""The torch port's RetrievalEngine against the JAX package's, on the CPU.
+
+The same synthetic corpus (numpy, seeded) goes into ``evdr_tpu``'s engine
+(``impl='xla'``, f32 scoring) and into the port's engine on ``device='cpu'``,
+which runs the CUDA kernels' plain versions with the kernels' numerics
+(bf16 queries and pages for float indexes, int8 queries for
+``quantize_queries``). Rankings are compared tie-tolerantly: where the two
+packages order two docs differently, the reference's scores of those docs
+must lie within the stated tolerance of each other.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from evdr_tpu.data.packing import preprocess_queries
+from evdr_tpu.data.synthetic import make_synthetic_corpus, save_synthetic_npz
+from evdr_tpu.engine import RetrievalEngine as JaxEngine
+from evdr_tpu.ops.pallas_maxsim import maxsim_pallas_int8full
+from evdr_tpu.parallel.mesh import make_mesh
+from evdr_tpu.tools.convert_packed import (
+    convert_payload_to_packed as jax_convert_payload)
+from evdr_tpu_torch import RetrievalEngine
+from evdr_tpu_torch.convert import index_from_numpy
+from evdr_tpu_torch.parallel.sharded_index import build_sharded_index
+from evdr_tpu_torch.tools.convert_packed import (convert_payload_to_packed,
+                                                 load_packed_payload)
+
+# Score tolerance of the port (kernel numerics) against the reference's f32
+# scores: bf16 keeps 8 bits of mantissa, so each unit-norm token similarity
+# moves by <= ~4e-3 and a query sums <= 14 of them (query_len_range); the
+# int8 query codes move each similarity by <= ~sq/2 * ||p||_1 ~ 5e-3.
+TOL = {None: 6e-2, "float32": 6e-2, "bfloat16": 6e-2, "int8": 6e-2,
+       "int8_q8": 8e-2}
+K = 8
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    c = make_synthetic_corpus(n_docs=45, n_queries=12, dim=32, seed=3)
+    Q, qm = preprocess_queries(c["query"], c["query_attnmask"])
+    return c, Q, qm
+
+
+def _engines(c, dtype, q8):
+    # the JAX engine runs on one device, as the port's index lives on one GPU
+    jax_eng = JaxEngine(mesh=make_mesh(1), dtype=dtype, impl="xla")
+    jax_eng.build_from_ragged(c["documents"], c["doc_attnmask"],
+                              c["doc_imgmask"], docids=c["docid"])
+    eng = RetrievalEngine(dtype=dtype, quantize_queries=q8, device="cpu")
+    eng.build_from_ragged(c["documents"], c["doc_attnmask"],
+                          c["doc_imgmask"], docids=c["docid"])
+    return jax_eng, eng
+
+
+def assert_same_ranking(ids, vals, ref_ids, ref_vals, ref_scores, tol):
+    """``ids``/``vals`` (port) against the reference's top-k and its full
+    score matrix: values within ``tol``; at every rank either the same doc,
+    or two docs whose reference scores are within ``tol``."""
+    ids, ref_ids = np.asarray(ids), np.asarray(ref_ids)
+    assert ids.shape == ref_ids.shape
+    np.testing.assert_allclose(vals, ref_vals, atol=tol)
+    for q in range(ids.shape[0]):
+        for a, b in zip(ids[q], ref_ids[q]):
+            assert a == b or abs(ref_scores[q, a] - ref_scores[q, b]) <= tol
+
+
+@pytest.mark.parametrize("dtype,q8", [("float32", False), ("bfloat16", False),
+                                      ("int8", False), ("int8", True)])
+def test_engine_matches_jax_engine(corpus, dtype, q8):
+    c, Q, qm = corpus
+    jax_eng, eng = _engines(c, dtype, q8)
+    assert eng.impl == ("plain_q8" if q8 else "plain")
+    tol = TOL["int8_q8" if q8 else dtype]
+    ref_vals, ref_idx = jax_eng.search_dense(Q, qm, k=K)
+    ref_scores = np.asarray(jax_eng.score_all(Q, qm))
+    vals, idx = eng.search_dense(Q, qm, k=K)
+    assert_same_ranking(idx, vals, ref_idx, ref_vals, ref_scores, tol)
+    np.testing.assert_allclose(eng.score_all(Q, qm), ref_scores, atol=tol)
+    # top-1 is well separated on this corpus: identical
+    np.testing.assert_array_equal(idx[:, 0], np.asarray(ref_idx)[:, 0])
+    ids, _ = eng.search(c["query"], c["query_attnmask"], k=K)
+    assert [r[0] for r in ids] == [r[0] for r in jax_eng.ids_for(ref_idx)]
+    assert eng.n_docs == jax_eng.n_docs and eng.dim == jax_eng.dim
+
+
+def _assert_same_index(mine, ji):
+    jP = np.asarray(ji.P)
+    if jP.dtype.name == "bfloat16":
+        np.testing.assert_array_equal(mine.P.view(torch.int16).numpy(),
+                                      jP.view(np.int16))
+    else:
+        np.testing.assert_array_equal(mine.P.numpy(), jP)
+    np.testing.assert_array_equal(mine.pmask.numpy(), np.asarray(ji.pmask))
+    assert mine.n_pad == ji.n_pad and mine.n_docs == ji.n_docs
+    assert (mine.scales is None) == (ji.scales is None)
+    if ji.scales is not None:
+        np.testing.assert_array_equal(mine.scales.numpy(),
+                                      np.asarray(ji.scales))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_index_is_bit_identical_and_carries_over(corpus, dtype):
+    """The port builds the same stored index as the JAX package (bf16 round
+    to nearest even, the same int8 codes); index_from_numpy carries a JAX
+    index over unchanged, and both engines then score the same bytes."""
+    c, Q, qm = corpus
+    jax_eng, eng = _engines(c, dtype, False)
+    ji = jax_eng.index
+    jP = np.asarray(ji.P)
+    _assert_same_index(eng.index, ji)
+
+    carried = RetrievalEngine.from_index(
+        jP, np.asarray(ji.pmask), ji.n_docs,
+        scales=None if ji.scales is None else np.asarray(ji.scales),
+        docids=ji.docids, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(carried.score_all(Q, qm),
+                                  eng.score_all(Q, qm))
+    v1, i1 = carried.search_dense(Q, qm, k=K)
+    v2, i2 = eng.search_dense(Q, qm, k=K)
+    np.testing.assert_array_equal(i1, i2)
+    np.testing.assert_array_equal(v1, v2)
+    assert carried.ids_for(i1) == jax_eng.ids_for(i1)
+
+
+def test_carried_int8_index_scores_as_the_pallas_int8full_kernel(corpus):
+    # the q8 engine on a JAX int8 index vs the TPU kernel in interpret mode
+    # on the same arrays: identical codes, exact int dots -> 1e-5
+    c, Q, qm = corpus
+    ji = JaxEngine(mesh=make_mesh(1), dtype="int8", impl="xla").build_from_ragged(
+        c["documents"], c["doc_attnmask"], c["doc_imgmask"]).index
+    arrs = [np.asarray(a) for a in (ji.P, ji.scales, ji.pmask)]
+    eng = RetrievalEngine.from_index(arrs[0], arrs[2], ji.n_docs,
+                                     scales=arrs[1], dtype="int8",
+                                     quantize_queries=True, device="cpu")
+    want = np.asarray(maxsim_pallas_int8full(
+        jnp.asarray(Q), *[jnp.asarray(a) for a in arrs[:2]], jnp.asarray(qm),
+        jnp.asarray(arrs[2]), interpret=True))[:, :ji.n_docs]
+    np.testing.assert_allclose(eng.score_all(Q, qm), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,normalize", [("bfloat16", False),
+                                             ("int8", True), ("int8", False),
+                                             ("float32", True)])
+def test_from_npz_reads_files_of_both_packages(tmp_path, corpus, dtype,
+                                               normalize):
+    c, Q, qm = corpus
+    obj = tmp_path / "obj.npz"
+    save_synthetic_npz(obj, c)
+    jax_file = tmp_path / "jax.packed.npz"
+    np.savez(jax_file, **jax_convert_payload(c, dtype=dtype,
+                                             normalize=normalize))
+    port_file = tmp_path / "port.packed.npz"
+    np.savez(port_file, **convert_payload_to_packed(c, dtype=dtype,
+                                                    normalize=normalize))
+    # the port writes the same bytes as the JAX package
+    with np.load(jax_file) as a, np.load(port_file) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    ref = RetrievalEngine(dtype=dtype, device="cpu").build_from_ragged(
+        c["documents"], c["doc_attnmask"], c["doc_imgmask"],
+        docids=c["docid"])
+    want = ref.score_all(Q, qm)
+    for path in (obj, jax_file, port_file):
+        eng = RetrievalEngine.from_npz(path, dtype=dtype, device="cpu")
+        # both packages load a file into the same stored index
+        _assert_same_index(eng.index, JaxEngine.from_npz(
+            path, mesh=make_mesh(1), dtype=dtype, impl="xla").index)
+        # an int8 file of unnormalized tokens is dequantized, normalized and
+        # quantized again on load (two roundings, ~scale/2 per element ->
+        # 2e-2 on these sums); every other load keeps the direct build's
+        # values up to f32 normalization order (1e-5)
+        tol = 2e-2 if (dtype == "int8" and not normalize
+                       and path != obj) else 1e-5
+        np.testing.assert_allclose(eng.score_all(Q, qm), want, atol=tol)
+        ids, _ = eng.search(c["query"], c["query_attnmask"], k=3)
+        assert ids[0][0] == ref.search(c["query"], c["query_attnmask"],
+                                       k=3)[0][0][0]
+    payload = load_packed_payload(jax_file)
+    assert payload["P_pad"].dtype == np.float32
+
+
+def test_padding_never_returned_and_empty_doc_scores_zero():
+    rng = np.random.default_rng(11)
+    nd, lp, d = 37, 5, 16          # 37 docs pad to 64
+    P = rng.normal(size=(nd, lp, d)).astype(np.float32)
+    pm = np.ones((nd, lp), bool)
+    pm[5] = False                  # a real doc with no valid token
+    Q = -np.abs(rng.normal(size=(3, 4, d))).astype(np.float32)
+    P = np.abs(P)                  # every real similarity is negative
+    qm = np.ones((3, 4), bool)
+    for dtype in ("bfloat16", "int8"):
+        eng = RetrievalEngine(dtype=dtype, device="cpu").build(P, pm)
+        assert eng.index.n_pad == 64
+        vals, idx = eng.search_dense(Q, qm, k=100)
+        assert vals.shape == (3, nd) and idx.max() < nd
+        assert np.isfinite(vals).all()
+        # the empty doc (score 0) outranks every negative-scoring doc
+        np.testing.assert_array_equal(idx[:, 0], 5)
+        np.testing.assert_array_equal(vals[:, 0], 0.0)
+
+
+def test_ties_rank_lower_index_first_like_lax_top_k():
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(6, 4, 16)).astype(np.float32)
+    P = np.concatenate([base, base, base[:3]])  # exact duplicate docs
+    pm = np.ones(P.shape[:2], bool)
+    Q = rng.normal(size=(4, 3, 16)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((4, 3), bool)
+    qm[3] = False                                 # all-tied query: zeros
+    jax_eng = JaxEngine(mesh=make_mesh(1), dtype=None, impl="xla").build(P, pm)
+    for k in (1, 5, 15):
+        _, ref_idx = jax_eng.search_dense(Q, qm, k=k)
+        eng = RetrievalEngine(dtype="float32", device="cpu").build(P, pm)
+        _, idx = eng.search_dense(Q, qm, k=k)
+        np.testing.assert_array_equal(idx, np.asarray(ref_idx))
+    np.testing.assert_array_equal(idx[3], np.arange(15))
+
+
+def test_build_sharded_index_quantizes_tensors_like_arrays():
+    rng = np.random.default_rng(13)
+    P = rng.normal(size=(5, 7, 16)).astype(np.float32)
+    pm = rng.random((5, 7)) > 0.3
+    a = build_sharded_index(P, pm, "cpu", dtype="int8", pad_docs_to=4)
+    b = build_sharded_index(torch.from_numpy(P), torch.from_numpy(pm), "cpu",
+                            dtype="int8", pad_docs_to=4)
+    assert a.n_pad == 8 and a.n_docs == 5
+    np.testing.assert_array_equal(a.P.numpy(), b.P.numpy())
+    np.testing.assert_allclose(a.scales.numpy(), b.scales.numpy(), rtol=1e-7)
+    with pytest.raises(ValueError):
+        index_from_numpy(a.P, a.pmask, 5, device="cpu")  # codes w/o scales
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        RetrievalEngine(dtype="int4", device="cpu")
+    with pytest.raises(NotImplementedError):
+        RetrievalEngine(dtype="pq", device="cpu")
+    with pytest.raises(NotImplementedError):
+        RetrievalEngine(prune_centroids=4, device="cpu")
+    with pytest.raises(ValueError):
+        RetrievalEngine(impl="cuda", device="cpu")
+    with pytest.raises(NotImplementedError):
+        convert_payload_to_packed({}, dtype="int4")
