@@ -7,11 +7,12 @@
 // queries x 32 tokens against pages of 768 tokens, D = 128) every page
 // element meets all 8192 query-token rows: 8192 operations per byte, far
 // above the ~295 per byte where bf16 tensor cores stop waiting on memory.
-// The design keeps the similarity tensor out of device memory entirely (running
-// max in registers, see maxsim_tile.cuh) and feeds the tensor cores through
-// WMMA bf16 fragments with f32 accumulation. It does not yet use wgmma,
-// TMA or a multi-stage pipeline: tile loads and MMAs alternate within a
-// CTA, and only the other CTAs on the SM hide the load latency.
+// The design keeps the similarity tensor out of device memory entirely (the
+// masked running max stays in the accumulator registers, see
+// maxsim_tile.cuh) and feeds the tensor cores with mma.sync m16n8k16 bf16
+// instructions (f32 accumulation) from ldmatrix, while cp.async brings the
+// next page tile. It does not yet use wgmma or TMA, the only way to the
+// card's full bf16 rate.
 //
 // C interface (loaded with ctypes; every pointer and the stream is a
 // void*): q (nq, lq, d) bf16, qw (nq, lq) f32 query-token weights (the

@@ -7,11 +7,12 @@
 //
 // Two entry points share one tile loop (maxsim_tile.cuh):
 // - evdr_maxsim_int8full: int8 queries (quantized per token on the device
-//   before the launch) x int8 codes on the int8 tensor cores, int32
-//   accumulation converted to f32. The page scale multiplies each
-//   similarity before the max; the query scale rides in qw, after it.
+//   before the launch) x int8 codes on the int8 tensor cores (mma.sync
+//   m16n8k32 s8), int32 accumulation converted to f32. The page scale
+//   multiplies each similarity before the max; the query scale rides in
+//   qw, after it.
 // - evdr_maxsim_int8: bf16 queries x codes widened to bf16 in shared
-//   memory (exact), bf16 tensor cores with f32 accumulation.
+//   memory (exact), bf16 tensor cores (m16n8k16) with f32 accumulation.
 // A scale is read only for a valid token (pmask); an invalid token is the
 // -1 sentinel of pallas_maxsim.py:650-654, and a valid token with scale 0
 // scores 0 and still takes part in the max.
@@ -20,8 +21,8 @@
 // bf16 form 989 TFLOP/s) at the serving shape, where each code byte meets
 // all 8192 query-token rows (16384 operations per byte). The int8 index
 // halves the bytes against bf16, which matters only once the kernel runs
-// near the tensor-core rate; this first version uses WMMA fragments
-// without wgmma, TMA or a load pipeline.
+// near the tensor-core rate; this version uses mma.sync with a two-buffer
+// cp.async page pipeline, not yet wgmma or TMA.
 //
 // C interface: q (nq, lq, d) int8 or bf16, qw (nq, lq) f32, p (nd, lp, d)
 // int8, scales (nd, lp) f32, pmask (nd, lp) bool as bytes, out (nq, nd)

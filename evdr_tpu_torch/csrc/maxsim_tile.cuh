@@ -8,24 +8,25 @@
 //   valid token) contributes 0. qw is the query-token mask, times the query
 //   token's scale when the queries were quantized.
 //
-// Design (a first, simple and correct version):
+// Design:
 // - One CTA of 256 threads owns kRows = 128 query-token rows: the
 //   floor(128 / Lq) whole queries starting at blockIdx.x * qb, staged once
 //   in shared memory. It walks db docs (blockIdx.y), and each doc's Lp
 //   tokens in tiles of kCols = 64.
-// - Each tile's 128 x 64 similarity block comes from WMMA 16x16x16
-//   fragments (bf16 x bf16 -> f32, or int8 x int8 -> int32): 8 warps in a
-//   4 x 2 grid, 32 x 32 outputs each, D / 16 steps.
-// - Operands sit in shared memory "k-chunked": element (row, k) lives at
-//   (k / 16) * rows * 16 + row * 16 + k % 16, so every fragment is one
-//   contiguous 256- or 512-byte block (aligned, ldm = 16).
-// - The block goes through shared memory once; each (row, half-tile) thread
-//   applies the column's scale/mask and folds it into a running max held in
-//   a register across the Lp loop. The (nq, nd, Lq, Lp) similarity tensor
-//   never reaches device memory.
-// - At each doc's end: the two half-row maxima combine, the no-valid-token
-//   rule and the qw weight apply, and one thread per query sums its Lq rows
-//   (in order) and writes out[q, d].
+// - Each tile's 128 x 64 similarity block comes from mma.sync tensor-core
+//   instructions (m16n8k16 bf16 -> f32, or m16n8k32 s8 -> s32): 8 warps in
+//   a 4 x 2 grid, 32 x 32 outputs each, fed by ldmatrix. Operand rows sit
+//   in shared memory as 16-byte units with an odd row stride (units + 1),
+//   so the 8 rows an ldmatrix phase reads hit 32 distinct banks.
+// - The masked, scaled running max is taken straight from the accumulator
+//   registers (each thread holds 4 rows x 8 columns of a tile) and kept in
+//   registers across the doc's Lp loop: the (nq, nd, Lq, Lp) similarity
+//   tensor never leaves the registers.
+// - Page tiles arrive by cp.async into two buffers: the next tile (which
+//   may belong to the next doc) loads while this one multiplies.
+// - At each doc's end the four threads of a quad and the two column warps
+//   combine their maxima, the no-valid-token rule and the qw weight apply,
+//   and one thread per query sums its Lq rows (in order) into out[q, d].
 // - blockIdx.x (the query block) varies fastest, so the CTAs that are in
 //   flight together share a few docs and read their pages from L2: device
 //   memory streams the index about once per call.
@@ -33,17 +34,13 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace evdr {
 
-using namespace nvcuda;
-
 constexpr int kRows = 128;         // query-token rows per CTA
 constexpr int kCols = 64;          // doc tokens per tile
 constexpr int kThreads = 256;      // 8 warps: 4 (rows) x 2 (cols), 32 x 32 each
-constexpr int kSimLd = kCols + 4;  // row stride of the staged f32/int32 tile
 constexpr int kMaxGridY = 65535;
 constexpr float kNegInit = -1e30f;    // pallas_maxsim.py NEG_INIT
 constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
@@ -55,86 +52,144 @@ enum Mode { kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2 };
 
 template <int MODE> struct Traits;
 template <> struct Traits<kBf16> {
-  using TQ = __nv_bfloat16; using TP = __nv_bfloat16;
-  using TS = __nv_bfloat16; using TAcc = float;
+  using TQ = __nv_bfloat16; using TP = __nv_bfloat16; using TAcc = float;
 };
 template <> struct Traits<kInt8Bf16> {
-  using TQ = __nv_bfloat16; using TP = signed char;
-  using TS = __nv_bfloat16; using TAcc = float;
+  using TQ = __nv_bfloat16; using TP = signed char; using TAcc = float;
 };
 template <> struct Traits<kInt8Int8> {
-  using TQ = signed char; using TP = signed char;
-  using TS = signed char; using TAcc = int;
+  using TQ = signed char; using TP = signed char; using TAcc = int;
 };
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
 }
 
-// Shared-memory carve-up, in bytes from the dynamic base.
+// 16-byte units per operand row as the MMA reads it: one k-step takes two
+// units (bf16 k16, s8 k32), so an int8 row pads to an even count with zeros.
+template <int MODE> __host__ __device__ inline int mma_units(int d) {
+  return MODE == kInt8Int8 ? (d / 16 + 1) / 2 * 2 : d / 8;
+}
+
+// Shared-memory carve-up, in bytes from the dynamic base. Row strides are
+// (units + 1) * 16 bytes.
 template <int MODE> struct Smem {
-  using TS = typename Traits<MODE>::TS;
-  size_t a, b, sim, colscale, qw, part, red, total;
+  int units, raw_units;
+  size_t a, b, raw, colscale, qw, part, red, total;
   __host__ __device__ explicit Smem(int d) {
+    units = mma_units<MODE>(d);
+    raw_units = d / 16;  // int8 page units staged before widening
+    const size_t row = (size_t)(units + 1) * 16;
     a = 0;
-    b = align128(a + sizeof(TS) * kRows * d);
-    sim = align128(b + sizeof(TS) * kCols * d);
-    colscale = align128(sim + sizeof(float) * kRows * kSimLd);
-    qw = align128(colscale + sizeof(float) * kCols);
+    b = align128(a + row * kRows);
+    raw = align128(b + row * kCols * (MODE == kInt8Bf16 ? 1 : 2));
+    colscale = align128(
+        raw + (MODE == kInt8Bf16 ? (size_t)(raw_units + 1) * 16 * kCols * 2
+                                 : 0));
+    qw = align128(colscale + sizeof(float) * kCols * 2);
     part = align128(qw + sizeof(float) * kRows);
     red = align128(part + sizeof(float) * 2 * kRows);
     total = align128(red + sizeof(float) * kRows);
   }
 };
 
-// Copy `rows` rows of a row-major (*, d) operand into the k-chunked layout;
-// rows at or past `valid` are zero. T is the element type in both places.
-template <typename T>
-__device__ inline void stage_rows(T* dst, const T* src, int rows, int valid,
-                                  int d, int tid) {
-  constexpr int kVec = sizeof(T) * 16 / 16;  // uint4s per 16-element chunk
-  const int chunks = d / 16;
-  const int total = rows * chunks * kVec;
-  for (int i = tid; i < total; i += kThreads) {
-    const int v = i % kVec;
-    const int c = (i / kVec) % chunks;
-    const int r = i / (kVec * chunks);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid)
-      val = reinterpret_cast<const uint4*>(src + (size_t)r * d + c * 16)[v];
-    reinterpret_cast<uint4*>(dst + ((size_t)c * rows + r) * 16)[v] = val;
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ inline void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ inline void mma(float (&c)[4], const uint32_t (&a)[4],
+                           uint32_t b0, uint32_t b1, __nv_bfloat16) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ inline void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                           uint32_t b1, signed char) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy `rows` rows of `gunits` 16-byte units from a row-major global
+// operand to shared memory (row stride (units + 1) * 16); rows at or past
+// `valid` and units at or past `gunits` are zero.
+__device__ inline void stage_sync(unsigned char* dst, const unsigned char* src,
+                                  int rows, int valid, int gunits, int units,
+                                  int tid) {
+  const size_t stride = (size_t)(units + 1) * 16;
+  for (int i = tid; i < rows * units; i += kThreads) {
+    const int r = i / units, u = i % units;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < valid && u < gunits)
+      v = *reinterpret_cast<const uint4*>(src + ((size_t)r * gunits + u) * 16);
+    *reinterpret_cast<uint4*>(dst + r * stride + u * 16) = v;
   }
 }
 
-// int8 codes -> bf16 operand (exact: |code| <= 127 fits bf16's mantissa).
-__device__ inline void stage_rows_widen(__nv_bfloat16* dst,
-                                        const signed char* src, int rows,
-                                        int valid, int d, int tid) {
-  const int chunks = d / 16;
-  const int total = rows * chunks;
-  for (int i = tid; i < total; i += kThreads) {
-    const int c = i % chunks;
-    const int r = i / chunks;
-    __nv_bfloat16* out = dst + ((size_t)c * rows + r) * 16;
-    uint4* out4 = reinterpret_cast<uint4*>(out);
-    if (r < valid) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + (size_t)r * d + c * 16);
-      const signed char* b = reinterpret_cast<const signed char*>(&raw);
-      uint32_t w[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __nv_bfloat162 h =
-            __floats2bfloat162_rn((float)b[2 * j], (float)b[2 * j + 1]);
-        w[j] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      out4[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      out4[1] = make_uint4(w[4], w[5], w[6], w[7]);
+// The same for a page tile, through cp.async (pad units stored directly).
+__device__ inline void stage_async(unsigned char* dst,
+                                   const unsigned char* src, int valid,
+                                   int gunits, int units, int tid) {
+  const size_t stride = (size_t)(units + 1) * 16;
+  for (int i = tid; i < kCols * units; i += kThreads) {
+    const int r = i / units, u = i % units;
+    unsigned char* to = dst + r * stride + u * 16;
+    if (u < gunits) {
+      const bool ok = r < valid;
+      cp_async16(to, ok ? src + ((size_t)r * gunits + u) * 16 : src, ok);
     } else {
-      out4[0] = make_uint4(0, 0, 0, 0);
-      out4[1] = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
     }
   }
+}
+
+// int8 codes (raw layout) -> bf16 operand (exact: |code| <= 127).
+__device__ inline void widen_tile(unsigned char* dst, const unsigned char* raw,
+                                  int raw_units, int units, int tid) {
+  const size_t rs = (size_t)(raw_units + 1) * 16, ds = (size_t)(units + 1) * 16;
+  for (int i = tid; i < kCols * raw_units; i += kThreads) {
+    const int r = i / raw_units, u = i % raw_units;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * rs + u * 16);
+    const signed char* b = reinterpret_cast<const signed char*>(&v);
+    uint32_t w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      __nv_bfloat162 h =
+          __floats2bfloat162_rn((float)b[2 * j], (float)b[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    uint4* o = reinterpret_cast<uint4*>(dst + r * ds + u * 32);
+    o[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    o[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+__device__ inline float masked(float s, float cs) {
+  return cs >= 0.f ? s * cs : kNegInit;
 }
 
 template <int MODE>
@@ -145,121 +200,155 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ scales,
               const uint8_t* __restrict__ pmask, float* __restrict__ out,
               int nq, int lq, int nd, int lp, int d, int qb, int db) {
-  using TS = typename Traits<MODE>::TS;
+  using TQ = typename Traits<MODE>::TQ;
+  using TP = typename Traits<MODE>::TP;
   using TAcc = typename Traits<MODE>::TAcc;
+  // the MMA operand type: bf16 unless both sides are int8
+  using TS = typename Traits<MODE>::TQ;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<MODE> lay(d);
-  TS* As = reinterpret_cast<TS*>(smem + lay.a);
-  TS* Bs = reinterpret_cast<TS*>(smem + lay.b);
-  TAcc* Ss = reinterpret_cast<TAcc*>(smem + lay.sim);
+  const int units = lay.units;
+  const size_t stride = (size_t)(units + 1) * 16;
+  unsigned char* As = smem + lay.a;
+  unsigned char* Bs = smem + lay.b;
+  unsigned char* Braw = smem + lay.raw;
   float* colscale = reinterpret_cast<float*>(smem + lay.colscale);
   float* qw_s = reinterpret_cast<float*>(smem + lay.qw);
   float* part = reinterpret_cast<float*>(smem + lay.part);
   float* red = reinterpret_cast<float*>(smem + lay.red);
 
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
   const int warp = tid / 32;
   const int wm = warp % 4;  // rows wm*32 .. +32
   const int wn = warp / 4;  // cols wn*32 .. +32
+  const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * qb;
   const int nq_here = min(qb, nq - q0);
   const int nrows = nq_here * lq;
   const size_t row0 = (size_t)q0 * lq;
+  const int p_units = d * (int)sizeof(TP) / 16;
 
   // the query block: staged once, reused for every doc token
-  stage_rows<TS>(As, reinterpret_cast<const TS*>(q) + row0 * d, kRows, nrows,
-                 d, tid);
+  stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d), kRows,
+             nrows, d * (int)sizeof(TQ) / 16, units, tid);
   for (int r = tid; r < kRows; r += kThreads)
     qw_s[r] = r < nrows ? qw[row0 + r] : 0.f;
 
-  const int r_own = tid % kRows;        // row this thread reduces
-  const int h_own = tid / kRows;        // which half of the tile's columns
-  const int chunks = d / 16;
   const int d_begin = blockIdx.y * db;
-  const int d_end = min(nd, d_begin + db);
+  const int n_tiles = (lp + kCols - 1) / kCols;
+  const int total = (min(nd, d_begin + db) - d_begin) * n_tiles;
 
-  for (int dd = d_begin; dd < d_end; ++dd) {
-    float mx = kNegInit;
-    const size_t tok0 = (size_t)dd * lp;
-    for (int l0 = 0; l0 < lp; l0 += kCols) {
-      const int ntok = min(kCols, lp - l0);
-      __syncthreads();  // the previous tile's readers are done
-      if constexpr (MODE == kInt8Bf16) {
-        stage_rows_widen(reinterpret_cast<__nv_bfloat16*>(Bs),
-                         reinterpret_cast<const signed char*>(p) +
-                             (tok0 + l0) * d,
-                         kCols, ntok, d, tid);
-      } else {
-        stage_rows<TS>(Bs, reinterpret_cast<const TS*>(p) + (tok0 + l0) * d,
-                       kCols, ntok, d, tid);
+  // issue the loads of tile `it` (doc d_begin + it / n_tiles) into `buf`
+  auto issue = [&](int it, int buf) {
+    const int dd = d_begin + it / n_tiles;
+    const int l0 = (it % n_tiles) * kCols;
+    const int ntok = min(kCols, lp - l0);
+    const size_t tok0 = (size_t)dd * lp + l0;
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(p + tok0 * d);
+    if constexpr (MODE == kInt8Bf16)
+      stage_async(Braw + buf * (size_t)(lay.raw_units + 1) * 16 * kCols, src,
+                  ntok, p_units, lay.raw_units, tid);
+    else
+      stage_async(Bs + buf * stride * kCols, src, ntok, p_units, units, tid);
+    if (tid < kCols) {
+      float cs = -1.f;  // the invalid-token sentinel
+      if (tid < ntok && pmask[tok0 + tid]) {
+        if constexpr (MODE == kBf16) cs = 1.f;
+        else cs = scales[tok0 + tid];
       }
-      if (tid < kCols) {
-        float cs = -1.f;  // the invalid-token sentinel
-        if (tid < ntok && pmask[tok0 + l0 + tid]) {
-          if constexpr (MODE == kBf16) cs = 1.f;
-          else cs = scales[tok0 + l0 + tid];
+      colscale[buf * kCols + tid] = cs;
+    }
+  };
+
+  float mx[2][2];  // running max of rows wm*32 + i*16 + h*8 + g
+#pragma unroll
+  for (int i = 0; i < 2; ++i) mx[i][0] = mx[i][1] = kNegInit;
+
+  if (total > 0) issue(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) issue(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait1();  // tile `it` has landed (only `it + 1` may be in flight)
+    __syncthreads();
+    const unsigned char* B = Bs + buf * stride * kCols;
+    if constexpr (MODE == kInt8Bf16) {
+      widen_tile(Bs, Braw + buf * (size_t)(lay.raw_units + 1) * 16 * kCols,
+                 lay.raw_units, units, tid);
+      __syncthreads();
+      B = Bs;
+    }
+
+    TAcc acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    const unsigned char* a_row = As + (wm * 32 + lane % 16) * stride;
+    const unsigned char* b_row =
+        B + (wn * 32 + lane % 8 + (lane / 16) * 8) * stride;
+    for (int k = 0; k < units; k += 2) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(a[i], a_row + i * 16 * stride + (k + lane / 16) * 16);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        ldsm_x4(b[jj], b_row + jj * 16 * stride + (k + (lane / 8) % 2) * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1],
+              TS());
+    }
+
+    // masked, scaled max of this tile's 8 columns per thread
+    const float* cs = colscale + buf * kCols + wn * 32 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float c0 = cs[j * 8], c1 = cs[j * 8 + 1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i][0] = fmaxf(mx[i][0], fmaxf(masked((float)acc[i][j][0], c0),
+                                         masked((float)acc[i][j][1], c1)));
+        mx[i][1] = fmaxf(mx[i][1], fmaxf(masked((float)acc[i][j][2], c0),
+                                         masked((float)acc[i][j][3], c1)));
+      }
+    }
+
+    if (it % n_tiles == n_tiles - 1) {
+      // doc epilogue: combine the quad and the two column warps, apply the
+      // no-valid-token rule and the weight, sum each query's Lq rows
+      const int dd = d_begin + it / n_tiles;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = mx[i][h];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (t == 0) part[wn * kRows + wm * 32 + i * 16 + h * 8 + g] = m;
+          mx[i][h] = kNegInit;
         }
-        colscale[tid] = cs;
+      __syncthreads();
+      if (tid < kRows) {
+        const float m = fmaxf(part[tid], part[kRows + tid]);
+        red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
       }
       __syncthreads();
-
-      wmma::fragment<wmma::accumulator, 16, 16, 16, TAcc> acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], (TAcc)0);
-      for (int c = 0; c < chunks; ++c) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, TS, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, TS, wmma::col_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              a[i], As + ((size_t)c * kRows + wm * 32 + i * 16) * 16, 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              b[j], Bs + ((size_t)c * kCols + wn * 32 + j * 16) * 16, 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(
-              Ss + (wm * 32 + i * 16) * kSimLd + wn * 32 + j * 16, acc[i][j],
-              kSimLd, wmma::mem_row_major);
-      __syncthreads();
-
-      // masked, scaled running max over this tile's half-row; the column
-      // order is rotated by the row so a warp's 32 rows hit 32 banks
-      const TAcc* srow = Ss + r_own * kSimLd + h_own * 32;
-      const float* crow = colscale + h_own * 32;
-#pragma unroll 8
-      for (int i = 0; i < 32; ++i) {
-        const int c = (i + r_own) & 31;
-        const float cs = crow[c];
-        const float v = cs >= 0.f ? (float)srow[c] * cs : kNegInit;
-        mx = fmaxf(mx, v);
+      if (tid < nq_here) {
+        float s = 0.f;
+        for (int r = 0; r < lq; ++r) s += red[tid * lq + r];
+        out[(size_t)(q0 + tid) * nd + dd] = s;
       }
     }
-
-    // doc epilogue: combine halves, no-valid-token rule, weight, Lq sum
-    part[h_own * kRows + r_own] = mx;
-    __syncthreads();
-    if (tid < kRows) {
-      const float m = fmaxf(part[tid], part[kRows + tid]);
-      red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
-    }
-    __syncthreads();
-    if (tid < nq_here) {
-      float s = 0.f;
-      for (int t = 0; t < lq; ++t) s += red[tid * lq + t];
-      out[(size_t)(q0 + tid) * nd + dd] = s;
-    }
+    __syncthreads();  // buffer `buf` is free for tile it + 2
   }
 }
 
