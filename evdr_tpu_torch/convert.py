@@ -1,4 +1,6 @@
-"""Carry an index built by the JAX package over to the port, bit for bit.
+"""Carry an index built by the JAX package over to the port, bit for bit,
+and a training state (student parameter + Adam moments) so that a JAX
+checkpoint resumes in the port (:func:`train_state_from_numpy`).
 
 The state a retrieval deployment carries is its index: the padded token
 arrays, the mask, the int8 scales and the doc ids. Taken from a JAX
@@ -42,3 +44,27 @@ def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
         scales=(None if scales is None
                 else as_tensor(scales, device, torch.float32).contiguous()),
     )
+
+
+def train_state_from_numpy(param, mu, nu, count, device="cuda"):
+    """A JAX student parameter and its optax ``ScaleByAdamState`` (``mu``,
+    ``nu``, ``count``, as numpy) -> (the port's parameter, a leaf f32 tensor
+    on ``device`` that requires grad; its ``torch.optim.AdamW`` per-parameter
+    state ``{"step", "exp_avg", "exp_avg_sq"}``). optax's moments are
+    torch's ``exp_avg`` / ``exp_avg_sq`` under the same update rule, and its
+    count is the step; the step stays a CPU f32 tensor, as AdamW keeps it.
+    Load the state with ``opt.load_state_dict({"state": {0: state},
+    "param_groups": opt.state_dict()["param_groups"]})``."""
+    p = torch.tensor(np.asarray(param, dtype=np.float32), device=device)
+    shape = tuple(p.shape)
+    mu = np.asarray(mu, dtype=np.float32)
+    nu = np.asarray(nu, dtype=np.float32)
+    if mu.shape != shape or nu.shape != shape:
+        raise ValueError(f"moments {mu.shape} / {nu.shape} do not match the "
+                         f"parameter {shape}")
+    state = {
+        "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+        "exp_avg": torch.tensor(mu, device=device),
+        "exp_avg_sq": torch.tensor(nu, device=device),
+    }
+    return p.requires_grad_(True), state

@@ -23,6 +23,6 @@
 extern "C" int evdr_maxsim_bf16(const void* q, const void* qw, const void* p,
                                 const void* pmask, void* out, int nq, int lq,
                                 int nd, int lp, int d, void* stream) {
-  return evdr::launch<evdr::kBf16>(q, qw, p, nullptr, pmask, out, nq, lq, nd,
-                                   lp, d, stream);
+  return evdr::launch<evdr::kBf16>(q, qw, p, nullptr, pmask, out, nullptr,
+                                   nq, lq, nd, lp, d, stream);
 }

@@ -1,5 +1,8 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
-// maxsim_bf16.cu (K1) and maxsim_int8.cu (K2).
+// maxsim_bf16.cu (K1, bf16), maxsim_f32.cu (K1, float32), maxsim_int8.cu
+// (K2) and maxsim_train.cu (K5, which also stores the per-row max M; K6
+// recomputes the same similarity tiles through tile_mma below, a copy of
+// the kernel's k-loop).
 //
 // score[q, d] = sum_t qw[q, t] * f(max_m sim[q, t, d, m]), with
 //   sim = <Q[q, t], P[d, m]> * s[d, m] for a valid doc token (s = 1 for a
@@ -14,10 +17,12 @@
 //   in shared memory. It walks db docs (blockIdx.y), and each doc's Lp
 //   tokens in tiles of kCols = 64.
 // - Each tile's 128 x 64 similarity block comes from mma.sync tensor-core
-//   instructions (m16n8k16 bf16 -> f32, or m16n8k32 s8 -> s32): 8 warps in
-//   a 4 x 2 grid, 32 x 32 outputs each, fed by ldmatrix. Operand rows sit
-//   in shared memory as 16-byte units with an odd row stride (units + 1),
-//   so the 8 rows an ldmatrix phase reads hit 32 distinct banks.
+//   instructions (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, or three
+//   m16n8k8 tf32 products per k-step for float32, see mma() below): 8 warps
+//   in a 4 x 2 grid, 32 x 32 outputs each, fed by ldmatrix. Operand rows
+//   sit in shared memory as 16-byte units with an odd row stride
+//   (units + 1), so the 8 rows an ldmatrix phase reads hit 32 distinct
+//   banks.
 // - The masked, scaled running max is taken straight from the accumulator
 //   registers (each thread holds 4 rows x 8 columns of a tile) and kept in
 //   registers across the doc's Lp loop: the (nq, nd, Lq, Lp) similarity
@@ -47,8 +52,9 @@ constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 
 // kBf16: bf16 Q x bf16 P (K1). kInt8Bf16: bf16 Q x int8 codes widened to
 // bf16 in shared memory (K2, int8 mode). kInt8Int8: int8 Q x int8 codes,
-// int32 accumulation (K2, int8full mode).
-enum Mode { kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2 };
+// int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P by split
+// TF32 products (K1, compute_dtype float32).
+enum Mode { kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2, kF32 = 3 };
 
 template <int MODE> struct Traits;
 template <> struct Traits<kBf16> {
@@ -60,15 +66,20 @@ template <> struct Traits<kInt8Bf16> {
 template <> struct Traits<kInt8Int8> {
   using TQ = signed char; using TP = signed char; using TAcc = int;
 };
+template <> struct Traits<kF32> {
+  using TQ = float; using TP = float; using TAcc = float;
+};
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
 }
 
 // 16-byte units per operand row as the MMA reads it: one k-step takes two
-// units (bf16 k16, s8 k32), so an int8 row pads to an even count with zeros.
+// units (bf16 k16, s8 k32, tf32 k8), so an int8 row pads to an even count
+// with zeros.
 template <int MODE> __host__ __device__ inline int mma_units(int d) {
-  return MODE == kInt8Int8 ? (d / 16 + 1) / 2 * 2 : d / 8;
+  if (MODE == kInt8Int8) return (d / 16 + 1) / 2 * 2;
+  return MODE == kF32 ? d / 4 : d / 8;
 }
 
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
@@ -134,6 +145,41 @@ __device__ inline void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi): 21 of float32's 24
+// significand bits survive the pair.
+__device__ inline void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(f));
+  const float r = f - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// float32 (3xTF32): a.b ~ ahi.bhi + ahi.blo + alo.bhi, the small terms
+// first, all accumulated in f32; only the alo.blo term (~2^-22 relative)
+// is dropped. ldmatrix's b16 fragments of a row of f32 values are exactly
+// the tf32 m16n8k8 fragments (thread (g, t) holds row g, element t of
+// each 16-byte unit), so the operand staging is K1's.
+__device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                           uint32_t b1, float) {
+  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
 // Copy `rows` rows of `gunits` 16-byte units from a row-major global
 // operand to shared memory (row stride (units + 1) * 16); rows at or past
 // `valid` and units at or past `gunits` are zero.
@@ -192,18 +238,63 @@ __device__ inline float masked(float s, float cs) {
   return cs >= 0.f ? s * cs : kNegInit;
 }
 
+// One 128 x 64 similarity tile for K6's recompute: acc[i][j] receives rows
+// wm*32 + i*16 + {g, g+8} and columns wn*32 + j*8 + 2t + {0, 1} of As
+// (kRows query-token rows) against B (kCols doc-token rows), summed over D
+// in k-steps of two units, in order. It is maxsim_kernel's k-loop below,
+// instruction for instruction (the same ldmatrix fragments, operand roles,
+// MMA shape and k order), so each similarity K6 recomputes is bit-identical
+// to the one K5 took the max of, which K6's (sim == M) indicator needs.
+// Keep the two loops identical. The kernel does not call this function:
+// doing so cost K2's int8 mode 4% on the H100 (more registers, another
+// schedule; scripts/torch_kernel_ab.py, PERF.md).
 template <int MODE>
+__device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
+                                const unsigned char* As,
+                                const unsigned char* B, int units,
+                                size_t stride, int lane, int wm, int wn) {
+  using TS = typename Traits<MODE>::TQ;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  const unsigned char* a_row = As + (wm * 32 + lane % 16) * stride;
+  const unsigned char* b_row =
+      B + (wn * 32 + lane % 8 + (lane / 16) * 8) * stride;
+  for (int k = 0; k < units; k += 2) {
+    uint32_t a[2][4], b[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ldsm_x4(a[i], a_row + i * 16 * stride + (k + lane / 16) * 16);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      ldsm_x4(b[jj], b_row + jj * 16 * stride + (k + (lane / 8) % 2) * 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1],
+            TS());
+  }
+}
+
+// STORE_M: K5, which also stores each row's max in m_out. A template flag,
+// so the serving kernels compile without that store.
+template <int MODE, bool STORE_M>
 __global__ void __launch_bounds__(kThreads)
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ qw,
               const typename Traits<MODE>::TP* __restrict__ p,
               const float* __restrict__ scales,
               const uint8_t* __restrict__ pmask, float* __restrict__ out,
-              int nq, int lq, int nd, int lp, int d, int qb, int db) {
+              float* __restrict__ m_out, int nq, int lq, int nd, int lp,
+              int d, int qb, int db) {
   using TQ = typename Traits<MODE>::TQ;
   using TP = typename Traits<MODE>::TP;
   using TAcc = typename Traits<MODE>::TAcc;
-  // the MMA operand type: bf16 unless both sides are int8
+  // the MMA operand type: bf16 unless both sides are int8 (f32 for kF32)
   using TS = typename Traits<MODE>::TQ;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<MODE> lay(d);
@@ -255,7 +346,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     if (tid < kCols) {
       float cs = -1.f;  // the invalid-token sentinel
       if (tid < ntok && pmask[tok0 + tid]) {
-        if constexpr (MODE == kBf16) cs = 1.f;
+        if constexpr (MODE == kBf16 || MODE == kF32) cs = 1.f;
         else cs = scales[tok0 + tid];
       }
       colscale[buf * kCols + tid] = cs;
@@ -282,6 +373,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       B = Bs;
     }
 
+    // the tile's similarities; tile_mma above repeats this loop for K6
     TAcc acc[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -339,6 +431,11 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       __syncthreads();
       if (tid < kRows) {
         const float m = fmaxf(part[tid], part[kRows + tid]);
+        // K5: the row's raw max (before the no-valid-token rule), the
+        // residual K6 compares recomputed similarities against
+        if constexpr (STORE_M) {
+          if (tid < nrows) m_out[(row0 + tid) * nd + dd] = m;
+        }
         red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
       }
       __syncthreads();
@@ -354,28 +451,32 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 
 // Host launcher: validates what the kernel cannot take, sizes shared
 // memory, launches on `stream` and returns cudaGetLastError().
-template <int MODE>
+// ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
+// unused (null) otherwise.
+template <int MODE, bool STORE_M = false>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
-           const void* pmask, void* out, int nq, int lq, int nd, int lp,
-           int d, void* stream) {
+           const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
+           int lp, int d, void* stream) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || d < 16 ||
       d % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Smem<MODE> lay(d);
+  if (lay.total > 232448) return (int)cudaErrorInvalidValue;
+  auto* kern = maxsim_kernel<MODE, STORE_M>;
   cudaError_t e = cudaFuncSetAttribute(
-      maxsim_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.total);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
   const int qb = kRows / lq;
   int db = 4;
   if ((nd + db - 1) / db > kMaxGridY) db = (nd + kMaxGridY - 1) / kMaxGridY;
   dim3 grid((nq + qb - 1) / qb, (nd + db - 1) / db);
-  maxsim_kernel<MODE><<<grid, kThreads, lay.total, (cudaStream_t)stream>>>(
+  kern<<<grid, kThreads, lay.total, (cudaStream_t)stream>>>(
       static_cast<const typename Traits<MODE>::TQ*>(q),
       static_cast<const float*>(qw),
       static_cast<const typename Traits<MODE>::TP*>(p),
       static_cast<const float*>(scales), static_cast<const uint8_t*>(pmask),
-      static_cast<float*>(out), nq, lq, nd, lp, d, qb, db);
+      static_cast<float*>(out), static_cast<float*>(m_out), nq, lq, nd, lp, d,
+      qb, db);
   return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,12 @@ The dense *packed* format (no object dtype) is read by
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from pathlib import Path
+from typing import Any, Dict, Optional
 
 import numpy as np
+
+from evdr_tpu_torch.data.packing import _as_object_array
 
 
 def load_npz(path) -> Any:
@@ -69,6 +72,58 @@ def load_query_payload(npz_path) -> Dict[str, Any]:
             "qsidx_2_query": _arr_or_none(z, "qsidx_2_query"),
             "relevant_docs": _item_or_none(z, "relevant_docs"),
         }
+
+
+def load_init_payload(npz_path) -> Dict[str, Any]:
+    """Student-init payload (reference ``load_init_payload``, preprocess_data.py:166-173)."""
+    z = load_npz(npz_path)
+    return {
+        "docid": _arr_or_none(z, "docid"),
+        "documents": z["documents"],
+        "doc_attnmask": _arr_or_none(z, "doc_attnmask"),
+        "doc_imgmask": _arr_or_none(z, "doc_imgmask"),
+    }
+
+
+def tokens_to_object(P_pad: np.ndarray, pmask: np.ndarray) -> np.ndarray:
+    """Dense ``(N, L, D)`` + bool mask -> object array of per-doc ``(Li, D)`` float32.
+
+    Parity with reference ``utils/utils.py:11-17`` (gathers only masked-True rows,
+    preserving their order).
+    """
+    n = P_pad.shape[0]
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        out[i] = np.asarray(P_pad[i][np.asarray(pmask[i], dtype=bool)], dtype=np.float32)
+    return out
+
+
+def save_compressed_npz(
+    save_path,
+    docid: np.ndarray,
+    documents_obj: np.ndarray,
+    doc_attnmask_obj: Optional[np.ndarray],
+    doc_imgmask_obj: Optional[np.ndarray],
+    meta: Dict[str, Any],
+    extra: Optional[Dict[str, np.ndarray]] = None,
+) -> None:
+    """Write a compressed student index npz (reference ``utils/utils.py:83-103``).
+
+    ``extra``: additional dense arrays stored verbatim."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "docid": _as_object_array(docid),
+        "documents": _as_object_array(documents_obj),
+        "meta": np.array(meta, dtype=object),
+    }
+    if doc_attnmask_obj is not None:
+        payload["doc_attnmask"] = _as_object_array(doc_attnmask_obj)
+    if doc_imgmask_obj is not None:
+        payload["doc_imgmask"] = _as_object_array(doc_imgmask_obj)
+    if extra:
+        payload.update({k: np.asarray(v) for k, v in extra.items()})
+    np.savez_compressed(str(save_path), **payload)
 
 
 def load_packed_npz(path) -> Dict[str, Any]:

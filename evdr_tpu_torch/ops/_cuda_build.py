@@ -40,6 +40,13 @@ LIBRARIES = {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8": [_P] * 6 + [_I] * 5 + [_P],
     },
+    "maxsim_f32": {
+        "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
+    },
+    "maxsim_train": {
+        "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_bwd": [_P] * 8 + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,16 @@
 """Fused masked MaxSim on the GPU: wrappers of the hand-written Hopper
-kernels (``csrc/maxsim_bf16.cu``, ``csrc/maxsim_int8.cu``) and, beside each,
-its plain PyTorch version.
+kernels (``csrc/maxsim_bf16.cu``, ``csrc/maxsim_f32.cu``,
+``csrc/maxsim_int8.cu``) and, beside each, its plain PyTorch version.
 
-Counterpart of ``evdr_tpu/ops/pallas_maxsim.py`` for the serving path:
+Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 
 - ``maxsim_cuda`` (K1): float/bf16 index, scored in bf16 with f32
   accumulation (a float32 index is cast to bf16 per call, as the TPU
-  kernel's driver does).
+  kernel's driver does); ``compute_dtype=torch.float32`` hands the call to
+  ``maxsim_cuda_f32``.
+- ``maxsim_cuda_f32`` (K1, float32 mode, the TPU kernel's
+  ``compute_dtype=float32``): split-TF32 products with f32 accumulation,
+  the scorer of the trainer's evaluation and teacher precompute.
 - ``maxsim_cuda_int8`` (K2, int8 mode): bf16 queries x int8 codes.
 - ``maxsim_cuda_int8full`` (K2, int8full mode): queries quantized per token
   on the device (``quantize_queries_int8``), int8 x int8 -> int32.
@@ -52,11 +56,14 @@ def quantize_queries_int8(Q: torch.Tensor, qmask: torch.Tensor):
 # ----------------------------------------------------------------- plain
 
 
-def _plain_core(Qf, qw, P, p_dtype, tok_scale):
-    """Chunked masked MaxSim. Qf (nq, Lq, D) f32 holding the values the
-    kernel multiplies; qw (nq, Lq) post-max weights; P (nd, Lp, D) stored
-    operand, seen as ``P.to(p_dtype).float()``; tok_scale (nd, Lp): a scale
-    >= 0 multiplies the similarity, -1 marks an invalid token."""
+def plain_sims(Qf, P, p_dtype, tok_scale):
+    """Yield ``(i, Pc, sim)`` over doc chunks: Pc = ``P[i:i+c]`` seen as
+    ``.to(p_dtype).float()``; sim (nq * Lq, c, Lp) f32, the masked, scaled
+    similarities (-1e30 at an invalid token). Qf (nq, Lq, D) f32 holds the
+    values the kernel multiplies; tok_scale (nd, Lp): a scale >= 0
+    multiplies the similarity, -1 marks an invalid token. The chunking
+    depends only on the shapes, so two calls on the same inputs give
+    bit-identical similarities (the plain K5/K6 pair relies on it)."""
     if Qf.is_cuda and torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("the plain MaxSim versions need full-precision "
                            "f32 matmuls; set torch.set_float32_matmul_"
@@ -65,20 +72,34 @@ def _plain_core(Qf, qw, P, p_dtype, tok_scale):
     nd, lp, _ = P.shape
     rows = Qf.reshape(nq * lq, d)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (nq * lq * lp))
-    out = torch.empty((nq, nd), dtype=torch.float32, device=Qf.device)
     for i in range(0, nd, chunk):
         Pc = P[i:i + chunk].to(p_dtype).float()
         c = Pc.shape[0]
         sim = (rows @ Pc.reshape(c * lp, d).T).view(nq * lq, c, lp)
         sc = tok_scale[i:i + chunk]
-        sim = torch.where(sc >= 0, sim * sc, NEG_INIT)
+        yield i, Pc, torch.where(sc >= 0, sim * sc, NEG_INIT)
+
+
+def _plain_core(Qf, qw, P, p_dtype, tok_scale, want_m=False):
+    """Chunked masked MaxSim -> (nq, nd) f32 (see :func:`plain_sims`);
+    qw (nq, Lq) post-max weights. ``want_m`` also returns M (nq * Lq, nd),
+    each row's raw max before the no-valid-token rule (K5's residual)."""
+    nq, lq, _ = Qf.shape
+    nd = P.shape[0]
+    out = torch.empty((nq, nd), dtype=torch.float32, device=Qf.device)
+    M = (torch.empty((nq * lq, nd), dtype=torch.float32, device=Qf.device)
+         if want_m else None)
+    for i, Pc, sim in plain_sims(Qf, P, p_dtype, tok_scale):
+        c = Pc.shape[0]
         mx = sim.amax(dim=-1)
+        if want_m:
+            M[:, i:i + c] = mx
         mx = torch.where(mx > NEG_THRESH, mx, 0.0)
         out[:, i:i + c] = (mx.view(nq, lq, c) * qw[..., None]).sum(dim=1)
-    return out
+    return (out, M) if want_m else out
 
 
-def _mask_sentinel(pmask, scales=None):
+def mask_sentinel(pmask, scales=None):
     valid = pmask.bool()
     s = torch.ones_like(valid, dtype=torch.float32) if scales is None \
         else scales.float()
@@ -89,7 +110,7 @@ def maxsim_plain(Q, P, qmask, pmask, compute=torch.bfloat16):
     """Plain version of K1: (nq, nd) f32. ``compute=torch.float32`` scores
     at full precision (the TPU kernel's ``compute_dtype=float32``)."""
     return _plain_core(Q.to(compute).float(), qmask.float(), P, compute,
-                       _mask_sentinel(pmask))
+                       mask_sentinel(pmask))
 
 
 def maxsim_int8_plain(Q, P_i8, scales, qmask, pmask,
@@ -97,7 +118,7 @@ def maxsim_int8_plain(Q, P_i8, scales, qmask, pmask,
     """Plain version of K2 in int8 mode: queries in ``compute``, codes
     exact, page scale applied before the max."""
     return _plain_core(Q.to(compute).float(), qmask.float(), P_i8,
-                       torch.float32, _mask_sentinel(pmask, scales))
+                       torch.float32, mask_sentinel(pmask, scales))
 
 
 def maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask):
@@ -105,7 +126,7 @@ def maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask):
     are exact in f32 (|sum| <= 127 * 127 * D < 2**24 for D <= 1040)."""
     Q_i8, qw = quantize_queries_int8(Q, qmask)
     return _plain_core(Q_i8.float(), qw, P_i8, torch.float32,
-                       _mask_sentinel(pmask, scales))
+                       mask_sentinel(pmask, scales))
 
 
 # --------------------------------------------------------------- kernels
@@ -148,27 +169,41 @@ def _check_shapes(Q, P, qmask, pmask, scales=None):
         raise ValueError("empty MaxSim input")
 
 
-def _launch(lib, func, q, qw, P, scales, pmask, nq, lq, nd, lp, d):
-    for t in (q, P):
+def call_kernel(lib, func, operands, *args, aligned=()):
+    """Launch ``func`` of library ``lib`` on the current stream of the
+    operands' device: ``operands`` are tensors passed as pointers (None
+    entries are skipped), then the ints ``args``. The tensors in
+    ``aligned`` (those the kernel reads 16 bytes at a time) must be 16-byte
+    aligned. Raises if the launch is refused."""
+    for t in aligned:
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
-    out = torch.empty((nq, nd), dtype=torch.float32, device=q.device)
     fn = _cuda_build.kernel(lib, func)
-    ptrs = [q.data_ptr(), qw.data_ptr(), P.data_ptr()]
-    if scales is not None:
-        ptrs.append(scales.data_ptr())
-    ptrs += [pmask.data_ptr(), out.data_ptr()]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, nq, lq, nd, lp, d, stream)
+    dev = operands[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in operands if t is not None), *args,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{func} launch failed: cudaError {rc}")
+
+
+def _launch(lib, func, q, qw, P, scales, pmask, nq, lq, nd, lp, d):
+    out = torch.empty((nq, nd), dtype=torch.float32, device=q.device)
+    call_kernel(lib, func, (q, qw, P, scales, pmask, out), nq, lq, nd, lp, d,
+                aligned=(q, P))
     return out
 
 
-def maxsim_cuda(Q, P, qmask, pmask):
+def maxsim_cuda(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
     """K1: fused MaxSim of (nq, Lq, D) queries against a bf16 (or float32,
-    cast per call) (nd, Lp, D) index -> (nq, nd) f32."""
+    cast per call) (nd, Lp, D) index -> (nq, nd) f32. ``compute_dtype``
+    torch.float32 scores at float32 precision (``maxsim_cuda_f32``)."""
+    if compute_dtype == torch.float32:
+        return maxsim_cuda_f32(Q, P, qmask, pmask)
+    if compute_dtype != torch.bfloat16:
+        raise TypeError(f"K1 computes in bfloat16 or float32, got "
+                        f"{compute_dtype}")
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_plain(Q, P, qmask, pmask)
     _check_shapes(Q, P, qmask, pmask)
@@ -181,6 +216,29 @@ def maxsim_cuda(Q, P, qmask, pmask):
                   qmask.float().contiguous(), P.to(torch.bfloat16), None,
                   pmask, nq, lq, nd, lp, d)
     maxsim_cuda.launches += 1
+    return out
+
+
+F32_MAX_D = 192  # the f32 query block and two page tiles in shared memory
+
+
+def maxsim_cuda_f32(Q, P, qmask, pmask):
+    """K1 in float32 mode (split-TF32 products, f32 sums): (nq, Lq, D)
+    queries against a float32 or bf16 (upcast exactly) (nd, Lp, D) index
+    -> (nq, nd) f32."""
+    if not _on_cuda(Q, P, qmask, pmask):
+        return maxsim_plain(Q, P, qmask, pmask, compute=torch.float32)
+    _check_shapes(Q, P, qmask, pmask)
+    if P.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K1 takes a bf16 or f32 index, got {P.dtype}")
+    nq, lq, d = Q.shape
+    nd, lp, _ = P.shape
+    if d > F32_MAX_D:
+        raise ValueError(f"K1's float32 mode takes D <= {F32_MAX_D}, got {d}")
+    out = _launch("maxsim_f32", "evdr_maxsim_f32", Q.float().contiguous(),
+                  qmask.float().contiguous(), P.float().contiguous(), None,
+                  pmask, nq, lq, nd, lp, d)
+    maxsim_cuda_f32.launches += 1
     return out
 
 
@@ -223,15 +281,24 @@ def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask):
     return out
 
 
-KERNEL_WRAPPERS = (maxsim_cuda, maxsim_cuda_int8, maxsim_cuda_int8full)
+KERNEL_WRAPPERS = (maxsim_cuda, maxsim_cuda_f32, maxsim_cuda_int8,
+                   maxsim_cuda_int8full)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
+    """Zero the launch counts of every kernel wrapper of the port (this
+    module's and ``cuda_maxsim_train``'s)."""
+    for w in all_wrappers():
         w.launches = 0
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    return {w.__name__: w.launches for w in all_wrappers()}
+
+
+def all_wrappers() -> tuple:
+    from evdr_tpu_torch.ops import cuda_maxsim_train
+
+    return KERNEL_WRAPPERS + cuda_maxsim_train.KERNEL_WRAPPERS

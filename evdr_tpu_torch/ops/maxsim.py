@@ -11,7 +11,9 @@ Everything is computed in float32.
 
 ``maxsim_torch`` chunks the doc axis so the (Q, C, Lq, Lp) similarity
 tensor never exceeds one chunk; it is differentiable through autograd.
-The fused kernels live in ``evdr_tpu_torch.ops.cuda_maxsim``.
+The fused kernels live in ``evdr_tpu_torch.ops.cuda_maxsim`` (forward) and
+``evdr_tpu_torch.ops.cuda_maxsim_train`` (the differentiable op); the
+dispatcher :func:`maxsim` picks between them and ``maxsim_torch``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from evdr_tpu_torch.ops.cuda_maxsim import maxsim_cuda
+from evdr_tpu_torch.ops.cuda_maxsim_train import MaxSimFn
 
 NEG_FILL = -1e4  # reference uses -1e4, not -inf (retrieval.py:185)
 
@@ -71,6 +76,32 @@ def maxsim_torch(Q, P, qmask, pmask, chunk_p: int = 128) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def maxsim(Q, P, qmask, pmask, chunk_p: int = 128, impl: str = "auto",
+           compute_dtype=None) -> torch.Tensor:
+    """Dispatching MaxSim scorer (the JAX package's ``ops.maxsim.maxsim``).
+
+    impl: ``'xla'`` -> :func:`maxsim_torch` (the name is the JAX
+    package's); ``'pallas'`` -> the fused kernel op
+    (``cuda_maxsim_train.MaxSimFn``: K1, or K5/K6 under autograd; on CPU
+    tensors their plain versions); ``'auto'`` -> the kernel op on CUDA
+    tensors and ``maxsim_torch`` on CPU ones, as JAX picks Pallas on the
+    accelerator and XLA elsewhere. compute_dtype: the kernels' compute
+    dtype; None keeps their default, bfloat16. Metric-bearing paths
+    (evaluation, teacher precompute) pass torch.float32.
+    """
+    if impl not in ("xla", "pallas", "auto"):
+        raise ValueError(f"impl must be 'xla', 'pallas' or 'auto', got "
+                         f"{impl!r}")
+    if impl == "xla" or (impl == "auto" and not Q.is_cuda):
+        return maxsim_torch(Q, P, qmask, pmask, chunk_p=chunk_p)
+    cd = torch.bfloat16 if compute_dtype is None else compute_dtype
+    if torch.is_grad_enabled() and (Q.requires_grad or P.requires_grad):
+        return MaxSimFn.apply(Q, P, qmask, pmask, cd)
+    # no gradient can flow (grad mode off, or constant inputs): the primal,
+    # K1, as JAX runs maxsim_pallas's primal outside differentiation
+    return maxsim_cuda(Q, P, qmask, pmask, compute_dtype=cd)
+
+
 # ---------------------------------------------------------------------------
 # Legacy list-based APIs (parity with BaseVisualRetrieverProcessor,
 # evaluator/retrieval.py:78-150): ragged python lists in, dense scores out.
@@ -95,10 +126,12 @@ def score_multi_vector(
     ps: Sequence,
     batch_size: int = 128,
     chunk_p: int = 128,
+    impl: str = "auto",
     timing: Optional[list] = None,
     device="cuda",
 ) -> np.ndarray:
-    """Ragged list-of-(Li,D) scorer (reference retrieval.py:101-150).
+    """Ragged list-of-(Li,D) scorer (reference retrieval.py:101-150),
+    each batch pair scored through :func:`maxsim` with ``impl``.
 
     The reference left-pads with zeros and does NOT mask them — a zero token's
     dot product is 0 which can exceed true max sims only if all sims < 0; we
@@ -133,7 +166,8 @@ def score_multi_vector(
             # unmasked semantics: zero pad tokens participate in the max,
             # exactly like the reference's unmasked einsum (:136)
             t0 = time.perf_counter()
-            sc = maxsim_torch(qb, pb, qm, pm, chunk_p=chunk_p).cpu().numpy()
+            sc = maxsim(qb, pb, qm, pm, chunk_p=chunk_p,
+                        impl=impl).cpu().numpy()
             if timing is not None:
                 # per-batch-pair wall time, host fetch included
                 # (reference retrieval.py:135-145)

@@ -28,8 +28,8 @@ from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
 from evdr_tpu_torch.ops.quantize import dequantize_int8, quantize_tokens_int8
 
 PACKED_DTYPES = ("float32", "bfloat16", "int8")
-_LATER = {"int4": "the int4 tier (ROADMAP queue 1, item 7)",
-          "pq": "the PQ tier (ROADMAP queue 1, item 8)"}
+_LATER = {"int4": "the int4 tier (ROADMAP.md queue 1, 'int4 tier')",
+          "pq": "the PQ tier (ROADMAP.md queue 1, 'PQ/OPQ tier')"}
 
 
 def _not_ported(dtype: str):
