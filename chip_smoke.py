@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the torch port's serving and training paths on one NVIDIA GPU and
-hold every CUDA kernel against its plain PyTorch version.
+"""Drive the torch port's serving (bf16, int8, int4, PQ/OPQ) and training
+paths on one NVIDIA GPU and hold every CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 ``nvidia-smi``, and no network. It writes its training fixture and run
-under ``build/chip_smoke/`` and removes them at the end. Phases, one report
+under ``build/chip_smoke/``, and the capacity tiers' files under
+``build/chip_smoke_tiers/``, and removes them at the end. Phases, one report
 line each:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every kernel compiled from ``evdr_tpu_torch/csrc`` (seconds);
-3. parity: each kernel against its plain version at the serving shape
+3. parity: K1 and K2 against their plain versions at the serving shape
    (256 queries x 32 tokens, 1,000 pages x 768 tokens, D = 128) with
    masked query and doc tokens, a doc with no valid token and a valid token
    of scale 0;
@@ -38,14 +40,33 @@ line each:
 9. a train step through the differentiable op: the liscore loss and one
    AdamW step on the student with its pages scored by MaxSimFn (K5, then
    K6), held against the same step through maxsim_torch;
-10. times of K1's float32 mode, K5 and K6 at those shapes.
+10. times of K1's float32 mode, K5 and K6 at those shapes;
+11. capacity-tier parity at the serving shape (1,000 pages): K4 (int4 and
+    int4full, at Lp 768 and at an odd Lp of 767) and K3 (pq and pqfull,
+    with compact PQ books and with expanded OPQ books) against their plain
+    versions, with a doc that has no valid token and a valid token of
+    scale 0;
+12. the int4 tier: RetrievalEngine(dtype='int4') with and without
+    quantize_queries over 50,000 pages whose packed codes are made on the
+    device and enter through build_from_codes4;
+13. the PQ tier: RetrievalEngine(dtype='pq') with and without
+    quantize_queries over 50,000 pages (books trained by train_pq on a
+    token sample of the first 1,000 pages, codes by encode_pq_device,
+    entering through build_from_pq), and a pq_opq=True engine through
+    build on 3,000 pages;
+14. entry points on those 3,000 pages: tools/convert_packed writes int4 and
+    pq files from an interchange npz, RetrievalEngine.from_npz and
+    tools/search.main load them (rank 1 equals search_dense), and
+    tools/serve_http serves the pq engine (/healthz, /search);
+15. times of K4 and K3's four modes at the 50,000-page shapes (plain
+    versions on the first 10,000 pages).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
 line. Launch counts in the kernels line come from the main paths' runs
-only: phases 4-5 (serving: K1 bf16, K2), phase 8 (the trainer: K1 float32)
-and phase 9 (the train step: K5, K6), each with the counts set to 0 just
-before it.
+only: phases 4-5 (serving: K1 bf16, K2), phase 8 (the trainer: K1 float32),
+phase 9 (the train step: K5, K6) and phases 12-14 (the capacity tiers: K4,
+K3), each with the counts set to 0 just before it.
 """
 
 from __future__ import annotations
@@ -72,6 +93,13 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 NQ, LQ, D, LP = 256, 32, 128, 768
 PARITY_DOCS, INT8_DOCS, BF16_DOCS = 1_000, 50_000, 10_000
 K = 10
+# the capacity tiers: 50,000-page int4 and PQ indexes (M = 16 bytes a
+# token), an OPQ engine and the entry points on 3,000 pages (over 2M
+# tokens, so convert_packed encodes on the GPU, as the JAX package does);
+# books train on 16,384 sampled tokens (train_pq's default is 65,536; the
+# OPQ build keeps it) and the plain versions are timed on 10,000 pages
+INT4_DOCS, PQ_DOCS, OPQ_DOCS, PQ_M = 50_000, 50_000, 3_000, 16
+PQ_SAMPLE, PLAIN_TIME_DOCS = 16_384, 10_000
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -80,7 +108,7 @@ TRAIN_DOCS, DOC_LEN, MF = 1_000, (640, 768), 5
 TEST_Q, TRAIN_Q, STEP_NQ = 1_000, 10_000, 32
 TRAIN_STEPS, EVAL_EVERY = 200, 100
 FIXTURE_KEY = "chipsmoke"
-DEVICE = "cuda"  # the training phases' device (a CPU rehearsal sets "cpu")
+DEVICE = "cuda"  # the phases' device (a CPU rehearsal sets "cpu")
 
 
 def log(msg: str) -> None:
@@ -102,26 +130,28 @@ def unit(x: torch.Tensor) -> torch.Tensor:
 def make_pages(n, gen, chunk=1000):
     """(n, LP, D) unit f32 tokens and a mask with ~10% invalid tokens,
     made on the device in chunks."""
-    P = torch.empty((n, LP, D), dtype=torch.float32, device="cuda")
-    pm = torch.empty((n, LP), dtype=torch.bool, device="cuda")
+    P = torch.empty((n, LP, D), dtype=torch.float32, device=DEVICE)
+    pm = torch.empty((n, LP), dtype=torch.bool, device=DEVICE)
     for i in range(0, n, chunk):
         c = min(chunk, n - i)
-        P[i:i + c] = unit(torch.randn((c, LP, D), device="cuda",
+        P[i:i + c] = unit(torch.randn((c, LP, D), device=DEVICE,
                                       generator=gen))
-        pm[i:i + c] = torch.rand((c, LP), device="cuda", generator=gen) > 0.1
+        pm[i:i + c] = torch.rand((c, LP), device=DEVICE, generator=gen) > 0.1
     return P, pm
 
 
-def make_int8_pages(n, gen, quantize, chunk=1000):
-    """int8 codes + scales + mask of n normalized pages, quantized chunk by
-    chunk on the device, so no full f32 corpus is ever held."""
-    codes = torch.empty((n, LP, D), dtype=torch.int8, device="cuda")
-    scales = torch.empty((n, LP), dtype=torch.float32, device="cuda")
-    pm = torch.empty((n, LP), dtype=torch.bool, device="cuda")
+def make_int8_pages(n, gen, quantize, chunk=1000, rows=LP,
+                    dtype=torch.int8):
+    """int8 codes (or, with ``rows`` and ``dtype``, packed int4 codes) +
+    scales + mask of n normalized pages, quantized chunk by chunk on the
+    device, so no full f32 corpus is ever held."""
+    codes = torch.empty((n, rows, D), dtype=dtype, device=DEVICE)
+    scales = torch.empty((n, LP), dtype=torch.float32, device=DEVICE)
+    pm = torch.empty((n, LP), dtype=torch.bool, device=DEVICE)
     for i in range(0, n, chunk):
         c = min(chunk, n - i)
-        m = torch.rand((c, LP), device="cuda", generator=gen) > 0.1
-        x = unit(torch.randn((c, LP, D), device="cuda", generator=gen)
+        m = torch.rand((c, LP), device=DEVICE, generator=gen) > 0.1
+        x = unit(torch.randn((c, LP, D), device=DEVICE, generator=gen)
                  * m[..., None])
         codes[i:i + c], scales[i:i + c] = quantize(x, m)
         pm[i:i + c] = m
@@ -131,15 +161,85 @@ def make_int8_pages(n, gen, quantize, chunk=1000):
 def planted_queries(tokens_of, n_docs, gen, nq=NQ):
     """Queries that each copy 32 tokens of one doc, plus noise of norm ~0.5,
     with ~15% of query tokens masked. Returns Q, qmask, the planted docs."""
-    targets = (torch.arange(nq, device="cuda") * 7919 + 11) % n_docs
-    pos = torch.randint(0, LP, (nq, LQ), device="cuda", generator=gen)
-    base = tokens_of(targets)[torch.arange(nq, device="cuda")[:, None], pos]
-    noise = torch.randn((nq, LQ, D), device="cuda", generator=gen) * (
+    targets = (torch.arange(nq, device=DEVICE) * 7919 + 11) % n_docs
+    pos = torch.randint(0, LP, (nq, LQ), device=DEVICE, generator=gen)
+    base = tokens_of(targets)[torch.arange(nq, device=DEVICE)[:, None], pos]
+    noise = torch.randn((nq, LQ, D), device=DEVICE, generator=gen) * (
         0.5 / D ** 0.5)
     Q = unit(base + noise)
-    qm = torch.rand((nq, LQ), device="cuda", generator=gen) > 0.15
+    qm = torch.rand((nq, LQ), device=DEVICE, generator=gen) > 0.15
     qm[:, 0] = True
     return Q, qm, targets
+
+
+def check_engine(phase, label, eng, Q, qm, tgt, plain, tol):
+    """search_dense over planted queries: recall@1 of the planted doc must
+    be >= 0.99, and against the plain version on the engine's own index,
+    top-1 of 16 queries equal and the top-K scores within ``tol``. Returns
+    the queries/s of the timed call (after a warm one)."""
+    nq = Q.shape[0]
+    eng.search_dense(Q, qm, k=K)  # warm
+    t1 = time.perf_counter()
+    vals, idx = eng.search_dense(Q, qm, k=K)  # host arrays: synced
+    dt = time.perf_counter() - t1
+    check(vals.shape == (nq, K) and np.isfinite(vals).all(),
+          f"{label} output shape/finite")
+    hit = float(np.mean(idx[:, 0] == tgt.cpu().numpy()))
+    ix = eng.index
+    if ix.books is not None:
+        args16 = (Q[:16], ix.P, qm[:16], ix.pmask, ix.books)
+    elif ix.scales is not None:
+        args16 = (Q[:16], ix.P, ix.scales, qm[:16], ix.pmask)
+    else:
+        args16 = (Q[:16], ix.P, qm[:16], ix.pmask)
+    ref = plain(*args16)[:, :ix.n_docs]
+    rv, ri = ref.topk(K, dim=1)
+    top1_same = bool((ri[:, 0].cpu().numpy() == idx[:16, 0]).all())
+    verr = float(np.abs(rv.cpu().numpy() - vals[:16]).max())
+    log(f"phase {phase} search_dense {label}: {dt * 1e3:.1f} ms for {nq} "
+        f"queries ({nq / dt:.1f} q/s), planted doc at rank 1 for "
+        f"{hit:.4f}, top-1 of 16 queries equal to the plain version: "
+        f"{top1_same}, top-{K} score error {verr:.2e} (tol {tol:g})")
+    check(hit >= 0.99, f"{label} recall@1 {hit}")
+    check(top1_same and verr <= tol, f"{label} against plain")
+    return nq / dt
+
+
+def check_http(phase, eng, Q, qm):
+    """tools/serve_http over ``eng``: GET /healthz, then POST /search with 4
+    of the queries; its top-1 must equal search_dense's."""
+    from evdr_tpu_torch.data.packing import preprocess_queries
+    from evdr_tpu_torch.tools.serve_http import make_server
+
+    srv = make_server(eng, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["impl"] == eng.impl and health["n_docs"] == eng.n_docs
+              and health["dtype"] == eng.dtype, f"healthz {health}")
+        qs = [q[m].cpu().numpy() for q, m in zip(Q[:4], qm[:4])]
+        body = json.dumps({"queries": [q.tolist() for q in qs],
+                           "k": K}).encode()
+        req = urllib.request.Request(url + "/search", data=body, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            reply = json.loads(r.read())
+        qobj = np.empty(4, dtype=object)
+        qobj[:] = qs
+        Qh, qmh = preprocess_queries(qobj, None, length_multiple=8)
+        _, idx_direct = eng.search_dense(Qh, qmh, k=K)
+        top1 = [r[0] for r in reply["docids"]]
+        check(top1 == [r[0] for r in eng.ids_for(idx_direct)],
+              "HTTP top-1 equals search_dense")
+        log(f"phase {phase} serve_http: /healthz {health}; /search top-1 "
+            f"{top1} equals search_dense")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
 
 
 # ---------------------------------------------------------------- timing
@@ -522,10 +622,330 @@ def training_phases(cm, ct, gen, seed, smi, root):
                           parity, smi)
 
 
+# -------------------------------------------------------- capacity tiers
+
+
+def pq_tokens(codes, books):
+    """(n, Lp, M) PQ codes + compact (M, K, D/M) books -> (n, Lp, D) f32
+    tokens: the subspaces' centroids, concatenated."""
+    m = books.shape[0]
+    return books[torch.arange(m, device=codes.device), codes.long()
+                 ].flatten(-2)
+
+
+def parity_case(phase, kname, label, kern, plain, kargs, tol, empty_doc):
+    """One kernel call against its plain version on the same inputs:
+    max abs error within ``tol``, top-K sets equal for >= 99% of queries,
+    ``empty_doc`` (no valid token) scoring exactly 0. Returns the error."""
+    got = kern(*kargs)
+    torch.cuda.synchronize()
+    want = plain(*kargs)
+    err = float((got - want).abs().max())
+    top_k = got.topk(K, dim=1).indices.sort(dim=1).values
+    top_p = want.topk(K, dim=1).indices.sort(dim=1).values
+    agree = float((top_k == top_p).all(dim=1).float().mean())
+    empty = float(got[:, empty_doc].abs().max())
+    log(f"phase {phase} parity {kname} ({label}): max_abs_err={err:.3e} "
+        f"(tol {tol:g}), top-{K} sets equal for {agree:.4f} of queries, "
+        f"empty doc {empty}")
+    check(torch.isfinite(got).all().item(), f"{kname} ({label}) finite")
+    check(err <= tol, f"{kname} ({label}) error {err} > {tol}")
+    check(agree >= 0.99, f"{kname} ({label}) top-{K} agreement {agree}")
+    check(empty == 0.0, f"{kname} ({label}) empty doc scores {empty}")
+    return err
+
+
+def tier_parity(cm, gen, seed):
+    """Phase 11: K4 (int4, int4full; Lp 768 and 767) and K3 (pq, pqfull;
+    compact and expanded OPQ books) against their plain versions at the
+    serving shape, with a doc that has no valid token and a valid token of
+    scale 0. Returns {kernel: (largest error, its tolerance)}."""
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+    from evdr_tpu_torch.ops.pq import encode_pq_device, expand_books, train_pq
+
+    P, pm = make_pages(PARITY_DOCS, gen)
+    pm[7] = False                     # a doc with no valid token
+    P[11, 0] = 0.0                    # a valid token of scale 0
+    pm[11, 0] = True
+    P = P * pm[..., None]
+    Q, qm, _ = planted_queries(lambda t: P[t], PARITY_DOCS, gen)
+    cases = []
+    for lp in (LP, LP - 1):           # an odd Lp leaves a pad nibble a page
+        pml = pm[:, :lp].contiguous()
+        packed, sc = quantize_tokens_int4(P[:, :lp], pml)
+        check(float(sc[11, 0]) == 0.0 and bool(pml[11, 0]),
+              "zero-scale int4 token present")
+        kargs = (Q, packed, sc, qm, pml)
+        cases += [("maxsim_int4", f"Lp {lp}", cm.maxsim_cuda_int4,
+                   cm.maxsim_int4_plain, kargs, 2e-2),
+                  ("maxsim_int4full", f"Lp {lp}", cm.maxsim_cuda_int4full,
+                   cm.maxsim_int4full_plain, kargs, 1e-3)]
+    books = train_pq(P, pm, m=PQ_M, sample=PQ_SAMPLE, seed=seed)
+    # expanded books: the same books with a random rotation folded in
+    # (random unit tokens are isotropic: the books fit the rotated space
+    # as well as the original one)
+    rng = np.random.default_rng(seed)
+    rot = np.linalg.qr(rng.normal(size=(D, D)))[0].astype(np.float32)
+    for label, b, r in (("compact books", books, None),
+                        ("expanded OPQ books", expand_books(books, rot), rot)):
+        codes = encode_pq_device(P, books, pm, rot=r)
+        kargs = (Q, codes, qm, pm, torch.from_numpy(b).to(DEVICE))
+        # pqfull scores int8 x int8 on compact books; on expanded ones it
+        # casts the int8 queries up and scores in bf16, as pq does
+        cases += [("maxsim_pq", label, cm.maxsim_cuda_pq, cm.maxsim_pq_plain,
+                   kargs, 2e-2),
+                  ("maxsim_pqfull", label, cm.maxsim_cuda_pqfull,
+                   cm.maxsim_pqfull_plain, kargs, 1e-3 if r is None else 2e-2)]
+    parity = {}
+    for kname, label, kern, plain, kargs, tol in cases:
+        err = parity_case(11, kname, label, kern, plain, kargs, tol, 7)
+        if kname not in parity or err > parity[kname][0]:
+            parity[kname] = (err, tol)
+    return parity
+
+
+def tier_engines(cm, gen, seed, e2e):
+    """Phases 12-13: the int4 and PQ engines over 50,000 pages (codes made
+    on the device) and an OPQ engine through build. Each serves planted
+    queries through search_dense (check_engine). Returns the timing phase's
+    arguments, the OPQ pages and their planted queries."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+    from evdr_tpu_torch.ops.pq import encode_pq_device, train_pq
+
+    # 12. int4: packed codes + scales, made chunk by chunk on the device
+    t0 = time.perf_counter()
+    packed, sc, pm4 = make_int8_pages(INT4_DOCS, gen, quantize_tokens_int4,
+                                      rows=(LP + 1) // 2, dtype=torch.uint8)
+    pm4[123] = False
+    packed[123] = 0
+    sc[123] = 0.0
+    eng4q = RetrievalEngine(dtype="int4", quantize_queries=True
+                            ).build_from_codes4(packed, sc, pm4)
+    del packed, sc
+    ix4 = eng4q.index
+    eng4 = RetrievalEngine.from_index(ix4.P, ix4.pmask, ix4.n_docs,
+                                      scales=ix4.scales, dtype="int4")
+    torch.cuda.synchronize()
+    log(f"phase 12 build: int4 index {INT4_DOCS} pages x {LP} x {D} "
+        f"({tensor_bytes(ix4.P) / 1e9:.2f} GB packed codes + "
+        f"{tensor_bytes(ix4.scales) / 1e9:.2f} GB scales), "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = "cuda" if DEVICE == "cuda" else "plain"  # plain: a CPU rehearsal
+    check(eng4q.impl == base + "_q8" and eng4.impl == base, "int4 impl names")
+
+    def int4_tokens(t):
+        return cm.unpack_int4_torch(ix4.P[t], LP).float() * ix4.scales[t][
+            ..., None]
+
+    Q4, qm4, tgt4 = planted_queries(int4_tokens, INT4_DOCS, gen)
+    e2e["int4+quantize_queries"] = check_engine(
+        12, "int4+quantize_queries", eng4q, Q4, qm4, tgt4,
+        cm.maxsim_int4full_plain, 1e-3)
+    e2e["int4"] = check_engine(12, "int4", eng4, Q4, qm4, tgt4,
+                               cm.maxsim_int4_plain, 2e-2)
+    args4 = (Q4, ix4.P, ix4.scales, qm4, ix4.pmask)
+    del eng4q, eng4
+
+    # 13. PQ: books trained on a token sample of the first 1,000 pages,
+    # codes encoded on the device chunk by chunk
+    t0 = time.perf_counter()
+    Pc, pmc = make_pages(1_000, gen)
+    books = train_pq(Pc, pmc, m=PQ_M, sample=PQ_SAMPLE, seed=seed)
+    t_train = time.perf_counter() - t0
+    codes = torch.empty((PQ_DOCS, LP, PQ_M), dtype=torch.uint8,
+                        device=DEVICE)
+    pmq = torch.empty((PQ_DOCS, LP), dtype=torch.bool, device=DEVICE)
+    for i in range(0, PQ_DOCS, 1_000):
+        if i:
+            Pc, pmc = make_pages(min(1_000, PQ_DOCS - i), gen)
+        codes[i:i + Pc.shape[0]] = encode_pq_device(Pc, books, pmc)
+        pmq[i:i + Pc.shape[0]] = pmc
+    del Pc, pmc
+    pmq[123] = False
+    codes[123] = 0
+    engpq_q = RetrievalEngine(dtype="pq", quantize_queries=True
+                              ).build_from_pq(codes, books, pmq)
+    del codes
+    ixq = engpq_q.index
+    engpq = RetrievalEngine.from_index(ixq.P, ixq.pmask, ixq.n_docs,
+                                       books=ixq.books, dtype="pq")
+    torch.cuda.synchronize()
+    log(f"phase 13 build: PQ index {PQ_DOCS} pages x {LP} tokens x M="
+        f"{PQ_M} ({tensor_bytes(ixq.P) / 1e9:.2f} GB codes, books "
+        f"{tuple(ixq.books.shape)}), train_pq on {PQ_SAMPLE} sampled tokens "
+        f"{t_train:.1f} s, in all {time.perf_counter() - t0:.1f} s")
+    check(engpq_q.impl == base + "_q8" and engpq.impl == base
+          and engpq.dim == D, "pq impl names and dim")
+    Qp, qmp, tgtp = planted_queries(lambda t: pq_tokens(ixq.P[t], ixq.books),
+                                    PQ_DOCS, gen)
+    e2e["pq+quantize_queries"] = check_engine(
+        13, "pq+quantize_queries", engpq_q, Qp, qmp, tgtp,
+        cm.maxsim_pqfull_plain, 1e-3)
+    e2e["pq"] = check_engine(13, "pq", engpq, Qp, qmp, tgtp,
+                             cm.maxsim_pq_plain, 2e-2)
+    argspq = (Qp, ixq.P, qmp, ixq.pmask, ixq.books)
+    del engpq_q, engpq
+
+    # 13. OPQ through build: train_opq on the host at its default sample,
+    # the codes encoded on the device, served with expanded books
+    Po, pmo = make_pages(OPQ_DOCS, gen)
+    t0 = time.perf_counter()
+    engo = RetrievalEngine(dtype="pq", pq_opq=True).build(Po, pmo)
+    torch.cuda.synchronize()
+    log(f"phase 13 build: OPQ engine on {OPQ_DOCS} pages through build "
+        f"(books {tuple(engo.index.books.shape)}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(engo.impl == base and engo.index.books_expanded
+          and engo.dim == D, "OPQ engine: expanded books, impl, dim")
+    Qo, qmo, tgto = planted_queries(lambda t: Po[t], OPQ_DOCS, gen)
+    e2e["pq+opq"] = check_engine(13, "pq+opq", engo, Qo, qmo, tgto,
+                                 cm.maxsim_pq_plain, 2e-2)
+    return args4, argspq, (Po, pmo, Qo, qmo, tgto)
+
+
+def tier_entry_points(opq_data, work):
+    """Phase 14: tools/convert_packed writes int4 and pq files from an
+    interchange npz of the OPQ pages; RetrievalEngine.from_npz and
+    tools/search.main load each (rank 1 equals search_dense, planted doc
+    at rank 1), and tools/serve_http serves the pq engine."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.data.npz_io import tokens_to_object
+    from evdr_tpu_torch.tools import convert_packed, search
+
+    P, pm, Q, qm, tgt = opq_data
+    nq = min(64, Q.shape[0])
+    t0 = time.perf_counter()
+    src = work / "pages.npz"
+    np.savez(src, documents=tokens_to_object(P.cpu().numpy(),
+                                             pm.cpu().numpy()),
+             query=tokens_to_object(Q[:nq].cpu().numpy(),
+                                    qm[:nq].cpu().numpy()),
+             docid=np.asarray([f"page-{i}" for i in range(P.shape[0])],
+                              dtype=object),
+             qid=np.asarray([f"q{i}" for i in range(nq)], dtype=object))
+    log(f"phase 14 interchange npz: {P.shape[0]} pages, {nq} queries, "
+        f"{src.stat().st_size / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    want = [f"page-{int(t)}" for t in tgt[:nq]]
+    pq_eng = None
+    for dtype in ("int4", "pq"):
+        out = work / f"pages.{dtype}.npz"
+        t0 = time.perf_counter()
+        convert_packed.main(["--in_npz", str(src), "--out_npz", str(out),
+                             "--dtype", dtype, "--normalize",
+                             "--length_multiple", "16"])
+        t_conv = time.perf_counter() - t0
+        eng = RetrievalEngine.from_npz(out, dtype=dtype)
+        if dtype == "int4":
+            check(eng.index.P.dtype == torch.uint8
+                  and eng.index.scales is not None, "int4 codes served")
+        else:
+            check(eng.index.books is not None and eng.dim == D,
+                  "pq codes served")
+        payload = convert_packed.load_packed_payload(out)
+        _, idx = eng.search_dense(payload["Q_norm"], payload["qmask"], k=K)
+        direct = [r[0] for r in eng.ids_for(idx)]
+        run = work / f"run.{dtype}.json"
+        search.main(["--index", str(out), "--queries", str(out), "--dtype",
+                     dtype, "--k", str(K), "--format", "json", "--out",
+                     str(run)])
+        ranked = json.loads(run.read_text())
+        cli = [next(iter(ranked[f"q{i}"])) for i in range(nq)]
+        hit = float(np.mean([a == b for a, b in zip(direct, want)]))
+        log(f"phase 14 {dtype} file: convert_packed {t_conv:.1f} s "
+            f"({out.stat().st_size / 1e9:.3f} GB); from_npz and search.main "
+            f"rank 1 equal: {cli == direct}; planted doc at rank 1 for "
+            f"{hit:.4f} of {nq} queries")
+        check(cli == direct, f"{dtype}: search CLI rank 1 equals search_dense")
+        check(hit >= 0.99, f"{dtype} file recall@1 {hit}")
+        if dtype == "pq":
+            pq_eng = eng
+    check_http(14, pq_eng, Q, qm)
+
+
+def tier_times(cm, args4, argspq, counts, parity, smi):
+    """Phase 15: K4 and K3's four modes at the 50,000-page shapes: median
+    of 7 CUDA-event timings, bound, the plain version's time on the first
+    PLAIN_TIME_DOCS pages."""
+    n = PLAIN_TIME_DOCS
+    Q4, P4, sc4, qm4, pm4 = args4
+    Qp, cp, qmp, pmp, books = argspq
+    slice4 = (Q4, P4[:n], sc4[:n], qm4, pm4[:n])
+    slicepq = (Qp, cp[:n], qmp, pmp[:n], books)
+    timed = [
+        # name, wrapper, plain, args, the plain version's args, peak, source,
+        # replaces
+        ("maxsim_int4", cm.maxsim_cuda_int4, cm.maxsim_int4_plain, args4,
+         slice4, "bf16", "evdr_tpu_torch/csrc/maxsim_int4.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1413"),
+        ("maxsim_int4full", cm.maxsim_cuda_int4full, cm.maxsim_int4full_plain,
+         args4, slice4, "int8", "evdr_tpu_torch/csrc/maxsim_int4.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1413"),
+        # the PQ decode counts as bytes (codes and books read once)
+        ("maxsim_pq", cm.maxsim_cuda_pq, cm.maxsim_pq_plain, argspq, slicepq,
+         "bf16", "evdr_tpu_torch/csrc/maxsim_pq.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1109"),
+        ("maxsim_pqfull", cm.maxsim_cuda_pqfull, cm.maxsim_pqfull_plain,
+         argspq, slicepq, "int8", "evdr_tpu_torch/csrc/maxsim_pq.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1109"),
+    ]
+    kernels = []
+    for kname, kern, plain, kargs, pargs, peak, src, repl in timed:
+        ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
+        plain_ms, _, _ = cuda_ms(lambda: plain(*pargs), 3)
+        qmask, pmask = (qm4, pm4) if kargs is args4 else (qmp, pmp)
+        nd = pmask.shape[0]
+        bms, by = bound(tensor_bytes(*kargs) + NQ * nd * 4,
+                        valid_ops(qmask, pmask), peak)
+        log(f"phase 15 time {kname}: {ms:.3f} ms median of 7 (spread "
+            f"{lo:.3f}-{hi:.3f}) at {NQ}x{LQ} queries x {nd}x{LP} pages; "
+            f"bound {bms:.3f} ms by {by} ({peak} peak); plain {plain_ms:.3f} "
+            f"ms (median of 3, on the first {n} pages); library: none; {smi}")
+        err, tol = parity[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": counts[kern.__name__], "max_abs_err": err,
+            "tol": tol, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "plain_docs": n, "bound_ms": bms,
+            "bound_by": by, "library_ms": None})
+    return kernels
+
+
+def tier_phases(cm, gen, seed, smi, root):
+    """Phases 11-15; returns the kernels line's K4 and K3 entries."""
+    t0 = time.perf_counter()
+    parity = tier_parity(cm, gen, seed)
+    torch.cuda.empty_cache()
+    cm.reset_launch_counts()
+    e2e = {}
+    args4, argspq, opq_data = tier_engines(cm, gen, seed, e2e)
+    work = root / "build" / "chip_smoke_tiers"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        tier_entry_points(opq_data, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts = cm.launch_counts()
+    log(f"phase 12-14 launches: {counts}")
+    for w in (cm.maxsim_cuda_int4, cm.maxsim_cuda_int4full,
+              cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull):
+        check(counts[w.__name__] > 0, f"{w.__name__} never launched on the "
+                                      "capacity tiers' path")
+    del opq_data
+    kernels = tier_times(cm, args4, argspq, counts, parity, smi)
+    log("phase 15 search_dense end to end: " + ", ".join(
+        f"{k} {v:.1f} q/s" for k, v in e2e.items()))
+    log(f"phases 11-15: {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -539,8 +959,6 @@ def main(argv=None) -> int:
         from evdr_tpu_torch.ops import cuda_maxsim as cm
         from evdr_tpu_torch.ops import cuda_maxsim_train as ct
         from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
-        from evdr_tpu_torch.data.packing import preprocess_queries
-        from evdr_tpu_torch.tools.serve_http import make_server
     except ImportError as e:
         print(f"chip_smoke: the evdr_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -589,24 +1007,9 @@ def main(argv=None) -> int:
         "maxsim_int8full": (cm.maxsim_cuda_int8full, cm.maxsim_int8full_plain,
                             (Q, codes, scales, qm, pm), 1e-3),
     }
-    parity = {}
-    for kname, (kern, plain, kargs, tol) in parity_cases.items():
-        got = kern(*kargs)
-        torch.cuda.synchronize()
-        want = plain(*kargs)
-        err = float((got - want).abs().max())
-        top_k = got.topk(K, dim=1).indices.sort(dim=1).values
-        top_p = want.topk(K, dim=1).indices.sort(dim=1).values
-        agree = float((top_k == top_p).all(dim=1).float().mean())
-        empty = float(got[:, 7].abs().max())
-        log(f"phase 3 parity {kname}: max_abs_err={err:.3e} (tol {tol:g}), "
-            f"top-{K} sets equal for {agree:.4f} of queries, "
-            f"empty doc {empty}")
-        check(torch.isfinite(got).all().item(), f"{kname} finite")
-        check(err <= tol, f"{kname} error {err} > {tol}")
-        check(agree >= 0.99, f"{kname} top-{K} agreement {agree}")
-        check(empty == 0.0, f"{kname} empty doc scores {empty}")
-        parity[kname] = (err, tol)
+    parity = {kname: (parity_case(3, kname, "serving shape", kern, plain,
+                                  kargs, tol, 7), tol)
+              for kname, (kern, plain, kargs, tol) in parity_cases.items()}
     del P, Pb, codes, scales, Q, qm
 
     # 4-5. the main path ------------------------------------------------
@@ -643,59 +1046,10 @@ def main(argv=None) -> int:
                ("int8", eng_i8, Q8, qm8, tgt8, cm.maxsim_int8_plain, 2e-2),
                ("bfloat16", eng_bf, Qb, qmb, tgtb, cm.maxsim_plain, 2e-2)]
     for label, eng, Q, qm, tgt, plain, tol in engines:
-        eng.search_dense(Q, qm, k=K)  # warm
-        t1 = time.perf_counter()
-        vals, idx = eng.search_dense(Q, qm, k=K)  # host arrays: synced
-        dt = time.perf_counter() - t1
-        e2e[label] = NQ / dt
-        check(vals.shape == (NQ, K) and np.isfinite(vals).all(),
-              f"{label} output shape/finite")
-        hit = float(np.mean(idx[:, 0] == tgt.cpu().numpy()))
-        ix = eng.index
-        args16 = ((Q[:16], ix.P, ix.scales, qm[:16], ix.pmask)
-                  if ix.scales is not None else (Q[:16], ix.P, qm[:16],
-                                                  ix.pmask))
-        ref = plain(*args16)[:, :ix.n_docs]
-        rv, ri = ref.topk(K, dim=1)
-        top1_same = bool((ri[:, 0].cpu().numpy() == idx[:16, 0]).all())
-        verr = float(np.abs(rv.cpu().numpy() - vals[:16]).max())
-        log(f"phase 4 search_dense {label}: {dt * 1e3:.1f} ms for {NQ} "
-            f"queries ({e2e[label]:.1f} q/s), planted doc at rank 1 for "
-            f"{hit:.4f}, top-1 of 16 queries equal to the plain version: "
-            f"{top1_same}, top-{K} score error {verr:.2e}")
-        check(hit >= 0.99, f"{label} recall@1 {hit}")
-        check(top1_same and verr <= tol, f"{label} against plain")
+        e2e[label] = check_engine(4, label, eng, Q, qm, tgt, plain, tol)
 
     # 5. entry point: the HTTP server over the bf16 engine
-    srv = make_server(eng_bf, port=0)
-    th = threading.Thread(target=srv.serve_forever, daemon=True)
-    th.start()
-    try:
-        url = f"http://127.0.0.1:{srv.server_address[1]}"
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        check(health["impl"] == "cuda" and health["n_docs"] == BF16_DOCS,
-              f"healthz {health}")
-        qs = [q[m].cpu().numpy() for q, m in zip(Qb[:4], qmb[:4])]
-        body = json.dumps({"queries": [q.tolist() for q in qs],
-                           "k": K}).encode()
-        req = urllib.request.Request(url + "/search", data=body, headers={
-            "Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=120) as r:
-            reply = json.loads(r.read())
-        qobj = np.empty(4, dtype=object)
-        qobj[:] = qs
-        Qh, qmh = preprocess_queries(qobj, None, length_multiple=8)
-        _, idx_direct = eng_bf.search_dense(Qh, qmh, k=K)
-        top1 = [r[0] for r in reply["docids"]]
-        check(top1 == [r[0] for r in eng_bf.ids_for(idx_direct)],
-              "HTTP top-1 equals search_dense")
-        log(f"phase 5 serve_http: /healthz {health}; /search top-1 "
-            f"{top1} equals search_dense")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        th.join(timeout=30)
+    check_http(5, eng_bf, Qb, qmb)
     counts = cm.launch_counts()
     log(f"phase 4-5 launches: {counts}")
     for w in (cm.maxsim_cuda, cm.maxsim_cuda_int8, cm.maxsim_cuda_int8full):
@@ -740,11 +1094,16 @@ def main(argv=None) -> int:
             "library_ms": None})
     log("phase 6 search_dense end to end: " + ", ".join(
         f"{k} {v:.1f} q/s" for k, v in e2e.items()))
-    del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs, srv
+    del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs
     torch.cuda.empty_cache()
 
     # 7-10. training
     kernels += training_phases(cm, ct, gen, args.seed, smi, Path(root))
+    torch.cuda.empty_cache()
+
+    # 11-15. the capacity tiers
+    kernels += tier_phases(cm, gen, args.seed, smi, Path(root))
+    log(f"phases 1-15: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,20 @@ and a training state (student parameter + Adam moments) so that a JAX
 checkpoint resumes in the port (:func:`train_state_from_numpy`).
 
 The state a retrieval deployment carries is its index: the padded token
-arrays, the mask, the int8 scales and the doc ids. Taken from a JAX
-``ShardedIndex`` as numpy arrays (``np.asarray(eng.index.P)`` etc.; a bf16
-index arrives as an ml_dtypes bf16 array and is reinterpreted, not
-converted), :func:`index_from_numpy` places the same bytes on the port's
-device, so both packages score the same stored index.
+arrays (or codes), the mask, the int8/int4 scales, the PQ codebooks and
+the doc ids. Taken from a JAX ``ShardedIndex`` as numpy arrays
+(``np.asarray(eng.index.P)`` etc.; a bf16 index arrives as an ml_dtypes
+bf16 array and is reinterpreted, not converted), :func:`index_from_numpy`
+places the same bytes on the port's device, so both packages score the
+same stored index.
 
     idx = jax_engine.index
     eng = RetrievalEngine.from_index(
         np.asarray(idx.P), np.asarray(idx.pmask), idx.n_docs,
         scales=None if idx.scales is None else np.asarray(idx.scales),
-        docids=idx.docids, dtype=jax_engine.dtype)
+        books=None if idx.books is None else np.asarray(idx.books),
+        books_expanded=idx.books_expanded, docids=idx.docids,
+        dtype=jax_engine.dtype)
 """
 
 from __future__ import annotations
@@ -25,15 +28,26 @@ from evdr_tpu_torch.parallel.sharded_index import ShardedIndex, as_tensor
 
 
 def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
+                     books=None, books_expanded: bool = False,
                      device="cuda") -> ShardedIndex:
     """Arrays (or tensors) of an existing padded index -> a ShardedIndex on
-    ``device`` with the same element types and values. ``P`` is float32,
-    bfloat16 or int8 (then ``scales`` are its per-token f32 scales)."""
+    ``device`` with the same element types and values. ``P`` is float32 or
+    bfloat16 tokens; int8 codes or (N, ceil(Lp/2), D) token-pair packed
+    uint8 int4 codes, then with ``scales``, their per-token f32 scales; or
+    (N, Lp, M) uint8 PQ codes, then with ``books``, their f32 codebooks
+    (``books_expanded`` for full-width OPQ books)."""
     P = as_tensor(P, device)
-    if P.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+    if P.dtype not in (torch.float32, torch.bfloat16, torch.int8,
+                       torch.uint8):
         raise TypeError(f"unsupported index element type {P.dtype}")
-    if (P.dtype == torch.int8) != (scales is not None):
-        raise ValueError("int8 codes come with scales, float tokens without")
+    if scales is not None and books is not None:
+        raise ValueError("an index carries scales or books, not both")
+    if (P.dtype in (torch.int8, torch.uint8)) != (scales is not None
+                                                  or books is not None):
+        raise ValueError("int8/int4 codes come with scales, PQ codes with "
+                         "books, float tokens with neither")
+    if books is not None and P.dtype != torch.uint8:
+        raise TypeError(f"PQ codes are uint8, got {P.dtype}")
     if not 0 <= int(n_docs) <= P.shape[0]:
         raise ValueError(f"n_docs={n_docs} outside [0, {P.shape[0]}]")
     return ShardedIndex(
@@ -43,6 +57,9 @@ def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
         docids=None if docids is None else np.asarray(docids, dtype=object),
         scales=(None if scales is None
                 else as_tensor(scales, device, torch.float32).contiguous()),
+        books=(None if books is None
+               else as_tensor(books, device, torch.float32).contiguous()),
+        books_expanded=bool(books_expanded),
     )
 
 

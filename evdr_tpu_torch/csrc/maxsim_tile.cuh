@@ -1,8 +1,8 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
 // maxsim_bf16.cu (K1, bf16), maxsim_f32.cu (K1, float32), maxsim_int8.cu
-// (K2) and maxsim_train.cu (K5, which also stores the per-row max M; K6
-// recomputes the same similarity tiles through tile_mma below, a copy of
-// the kernel's k-loop).
+// (K2), maxsim_int4.cu (K4), maxsim_pq.cu (K3) and maxsim_train.cu (K5,
+// which also stores the per-row max M; K6 recomputes the same similarity
+// tiles through tile_mma below, a copy of the kernel's k-loop).
 //
 // score[q, d] = sum_t qw[q, t] * f(max_m sim[q, t, d, m]), with
 //   sim = <Q[q, t], P[d, m]> * s[d, m] for a valid doc token (s = 1 for a
@@ -35,6 +35,11 @@
 // - blockIdx.x (the query block) varies fastest, so the CTAs that are in
 //   flight together share a few docs and read their pages from L2: device
 //   memory streams the index about once per call.
+// - Staged modes (K2's int8 mode, K4, K3) bring their stored tile (int8
+//   codes, packed int4 bytes, PQ codes) into a raw buffer by cp.async and
+//   turn it into the MMA operand tile in shared memory once it has landed
+//   (widen, unpack nibbles, decode codes). Each such stage sits behind
+//   `if constexpr` on the mode, so the other modes compile as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,8 +58,32 @@ constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 // kBf16: bf16 Q x bf16 P (K1). kInt8Bf16: bf16 Q x int8 codes widened to
 // bf16 in shared memory (K2, int8 mode). kInt8Int8: int8 Q x int8 codes,
 // int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P by split
-// TF32 products (K1, compute_dtype float32).
-enum Mode { kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2, kF32 = 3 };
+// TF32 products (K1, compute_dtype float32). kInt4Bf16 / kInt4Int8: the
+// same two K2 modes over token-pair packed int4 codes unpacked in shared
+// memory (K4). kPqBf16 / kPqInt8: PQ codes decoded by concatenating rows
+// of compact int8 books held in shared memory, then K1's bf16 or K2's
+// int8 x int8 loop (K3). kPqSumBf16: PQ codes decoded by summing rows of
+// full-width int8 books read through L2 (expanded OPQ books), the int32
+// sum rounded to bf16 (K3).
+enum Mode {
+  kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2, kF32 = 3,
+  kInt4Bf16 = 4, kInt4Int8 = 5, kPqBf16 = 6, kPqInt8 = 7, kPqSumBf16 = 8
+};
+
+template <int MODE> constexpr bool is_int4 = MODE == kInt4Bf16 ||
+                                             MODE == kInt4Int8;
+template <int MODE> constexpr bool is_pq = MODE == kPqBf16 ||
+                                           MODE == kPqInt8 ||
+                                           MODE == kPqSumBf16;
+// the page tile lands in a raw buffer and is converted into the operand
+template <int MODE> constexpr bool is_staged = MODE == kInt8Bf16 ||
+                                               is_int4<MODE> || is_pq<MODE>;
+// int8 x int8 tensor-core products
+template <int MODE> constexpr bool is_int8_mma = MODE == kInt8Int8 ||
+                                                 MODE == kInt4Int8 ||
+                                                 MODE == kPqInt8;
+
+constexpr int kPqRows = 256;  // PQ books padded to 256 rows (uint8 codes)
 
 template <int MODE> struct Traits;
 template <> struct Traits<kBf16> {
@@ -69,6 +98,22 @@ template <> struct Traits<kInt8Int8> {
 template <> struct Traits<kF32> {
   using TQ = float; using TP = float; using TAcc = float;
 };
+// K4 and K3 store bytes: packed nibble pairs or PQ codes
+template <> struct Traits<kInt4Bf16> {
+  using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
+};
+template <> struct Traits<kInt4Int8> {
+  using TQ = signed char; using TP = uint8_t; using TAcc = int;
+};
+template <> struct Traits<kPqBf16> {
+  using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
+};
+template <> struct Traits<kPqInt8> {
+  using TQ = signed char; using TP = uint8_t; using TAcc = int;
+};
+template <> struct Traits<kPqSumBf16> {
+  using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
+};
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
@@ -78,29 +123,42 @@ __host__ __device__ inline size_t align128(size_t x) {
 // units (bf16 k16, s8 k32, tf32 k8), so an int8 row pads to an even count
 // with zeros.
 template <int MODE> __host__ __device__ inline int mma_units(int d) {
-  if (MODE == kInt8Int8) return (d / 16 + 1) / 2 * 2;
+  if (is_int8_mma<MODE>) return (d / 16 + 1) / 2 * 2;
   return MODE == kF32 ? d / 4 : d / 8;
 }
 
+// Bytes of one raw page-tile buffer of a staged mode (two are kept): the
+// int8 codes of K2's int8 mode (kCols rows), K4's packed bytes (kCols / 2
+// rows, each holding two tokens), K3's codes (kCols * m_sub bytes, plus 4
+// for the word alignment of the copy, see stage_codes).
+template <int MODE> __host__ __device__ inline size_t raw_tile_bytes(
+    int raw_units, int m_sub) {
+  if (MODE == kInt8Bf16) return (size_t)(raw_units + 1) * 16 * kCols;
+  if (is_int4<MODE>) return (size_t)(raw_units + 1) * 16 * (kCols / 2);
+  if (is_pq<MODE>) return align128((size_t)kCols * m_sub + 4);
+  return 0;
+}
+
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
-// (units + 1) * 16 bytes.
+// (units + 1) * 16 bytes. K3 with compact books also holds the int8 books
+// (kPqRows rows of d bytes over the M subspaces) at `books`.
 template <int MODE> struct Smem {
   int units, raw_units;
-  size_t a, b, raw, colscale, qw, part, red, total;
-  __host__ __device__ explicit Smem(int d) {
+  size_t a, b, raw, colscale, qw, part, red, books, total;
+  __host__ __device__ explicit Smem(int d, int m_sub = 0) {
     units = mma_units<MODE>(d);
     raw_units = d / 16;  // int8 page units staged before widening
     const size_t row = (size_t)(units + 1) * 16;
     a = 0;
     b = align128(a + row * kRows);
-    raw = align128(b + row * kCols * (MODE == kInt8Bf16 ? 1 : 2));
-    colscale = align128(
-        raw + (MODE == kInt8Bf16 ? (size_t)(raw_units + 1) * 16 * kCols * 2
-                                 : 0));
+    raw = align128(b + row * kCols * (is_staged<MODE> ? 1 : 2));
+    colscale = align128(raw + raw_tile_bytes<MODE>(raw_units, m_sub) * 2);
     qw = align128(colscale + sizeof(float) * kCols * 2);
     part = align128(qw + sizeof(float) * kRows);
     red = align128(part + sizeof(float) * 2 * kRows);
-    total = align128(red + sizeof(float) * kRows);
+    books = align128(red + sizeof(float) * kRows);
+    total = books + ((MODE == kPqBf16 || MODE == kPqInt8)
+                         ? align128((size_t)kPqRows * d) : 0);
   }
 };
 
@@ -196,12 +254,14 @@ __device__ inline void stage_sync(unsigned char* dst, const unsigned char* src,
   }
 }
 
-// The same for a page tile, through cp.async (pad units stored directly).
+// The same for a page tile of ROWS rows, through cp.async (pad units
+// stored directly).
+template <int ROWS = kCols>
 __device__ inline void stage_async(unsigned char* dst,
                                    const unsigned char* src, int valid,
                                    int gunits, int units, int tid) {
   const size_t stride = (size_t)(units + 1) * 16;
-  for (int i = tid; i < kCols * units; i += kThreads) {
+  for (int i = tid; i < ROWS * units; i += kThreads) {
     const int r = i / units, u = i % units;
     unsigned char* to = dst + r * stride + u * 16;
     if (u < gunits) {
@@ -231,6 +291,137 @@ __device__ inline void widen_tile(unsigned char* dst, const unsigned char* raw,
     uint4* o = reinterpret_cast<uint4*>(dst + r * ds + u * 32);
     o[0] = make_uint4(w[0], w[1], w[2], w[3]);
     o[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// 4 bytes global -> shared, asynchronously; only the first `n` (1-4) are
+// read, the rest of the word is zero.
+__device__ inline void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
+// K3: the `n` code bytes of a tile, which start at byte `start` of the
+// code array, into `dst` by 4-byte words. The copy starts at the word that
+// holds byte `start`, so the tile's first code sits at dst[start & 3]; the
+// last word reads only up to the tile's end.
+__device__ inline void stage_codes(unsigned char* dst,
+                                   const unsigned char* base, size_t start,
+                                   int n, int tid) {
+  const size_t a0 = start & ~size_t(3);
+  const int span = (int)(start - a0) + n;
+  for (int w = tid; w * 4 < span; w += kThreads)
+    cp_async4(dst + w * 4, base + a0 + w * 4, min(4, span - w * 4));
+}
+
+// Four int8 values to four bf16 (exact for |v| <= 256), as two words.
+__device__ inline uint2 bf16x4(uint32_t v) {
+  const signed char* b = reinterpret_cast<const signed char*>(&v);
+  __nv_bfloat162 h0 = __floats2bfloat162_rn((float)b[0], (float)b[1]);
+  __nv_bfloat162 h1 = __floats2bfloat162_rn((float)b[2], (float)b[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&h0),
+                    *reinterpret_cast<const uint32_t*>(&h1));
+}
+
+// Store 16 int8 values as row unit(s) of the operand tile: one 16-byte
+// unit of int8, or two of bf16.
+template <typename TS>
+__device__ inline void store16(unsigned char* row, int u, uint4 v) {
+  if constexpr (sizeof(TS) == 1) {
+    *reinterpret_cast<uint4*>(row + u * 16) = v;
+  } else {
+    const uint2 a = bf16x4(v.x), b = bf16x4(v.y), c = bf16x4(v.z),
+                d = bf16x4(v.w);
+    uint4* o = reinterpret_cast<uint4*>(row + u * 32);
+    o[0] = make_uint4(a.x, a.y, b.x, b.y);
+    o[1] = make_uint4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// K4: packed int4 bytes (kCols / 2 rows of raw_units 16-byte units) ->
+// the operand tile, token 2r (low nibbles of row r) at row 2r and token
+// 2r + 1 (high nibbles) at row 2r + 1, sign-extended from 4 bits:
+// (n ^ 8) - 8 per byte.
+template <typename TS>
+__device__ inline void unpack_int4_tile(unsigned char* dst,
+                                        const unsigned char* raw,
+                                        int raw_units, int units, int tid) {
+  const size_t rs = (size_t)(raw_units + 1) * 16, ds = (size_t)(units + 1) * 16;
+  for (int i = tid; i < (kCols / 2) * raw_units; i += kThreads) {
+    const int r = i / raw_units, u = i % raw_units;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * rs + u * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo[j] = __vsub4((w[j] & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+      hi[j] = __vsub4(((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                      0x08080808u);
+    }
+    store16<TS>(dst + (2 * r) * ds, u, make_uint4(lo[0], lo[1], lo[2], lo[3]));
+    store16<TS>(dst + (2 * r + 1) * ds, u,
+                make_uint4(hi[0], hi[1], hi[2], hi[3]));
+  }
+}
+
+// K3, compact books in shared memory: token t's subspace m fills dims
+// [m * w, (m + 1) * w) with row codes[t][m] of book m (kPqRows rows of w
+// int8 bytes each, w a multiple of 4). Exact int8 values.
+template <typename TS>
+__device__ inline void decode_pq_compact(unsigned char* dst,
+                                         const unsigned char* codes,
+                                         const signed char* books, int m_sub,
+                                         int w, int units, int tid) {
+  const size_t ds = (size_t)(units + 1) * 16;
+  for (int i = tid; i < kCols * m_sub; i += kThreads) {
+    const int t = i / m_sub, m = i % m_sub;
+    const signed char* src =
+        books + ((size_t)m * kPqRows + codes[t * m_sub + m]) * w;
+    unsigned char* row = dst + t * ds;
+    for (int s = 0; s < w; s += 4) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(src + s);
+      const int o = m * w + s;  // the first of the four dims
+      if constexpr (sizeof(TS) == 1) {
+        *reinterpret_cast<uint32_t*>(row + o) = v;
+      } else {
+        *reinterpret_cast<uint2*>(row + 2 * o) = bf16x4(v);
+      }
+    }
+  }
+}
+
+// K3, full-width books read through L2: token t's dims [16c, 16c + 16) are
+// the exact int32 sum over m of row codes[t][m] of book m (kPqRows rows of
+// d int8 bytes), rounded to bf16 (nearest even; sums above 256 round).
+__device__ inline void decode_pq_sum(unsigned char* dst,
+                                     const unsigned char* codes,
+                                     const signed char* __restrict__ books,
+                                     int m_sub, int d, int units, int tid) {
+  const size_t ds = (size_t)(units + 1) * 16;
+  const int chunks = d / 16;
+  for (int i = tid; i < kCols * chunks; i += kThreads) {
+    const int t = i / chunks, c = i % chunks;
+    int acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0;
+    for (int m = 0; m < m_sub; ++m) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+          books + ((size_t)m * kPqRows + codes[t * m_sub + m]) * d + c * 16));
+      const signed char* b = reinterpret_cast<const signed char*>(&v);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] += b[e];
+    }
+    uint32_t o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      __nv_bfloat162 h =
+          __floats2bfloat162_rn((float)acc[2 * e], (float)acc[2 * e + 1]);
+      o[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    uint4* out = reinterpret_cast<uint4*>(dst + t * ds + c * 32);
+    out[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    out[1] = make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
@@ -281,7 +472,9 @@ __device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
 }
 
 // STORE_M: K5, which also stores each row's max in m_out. A template flag,
-// so the serving kernels compile without that store.
+// so the serving kernels compile without that store. `books` and `m_sub`:
+// K3's int8 codebooks (kPqRows rows per subspace) and its subspace count;
+// unused by the other modes.
 template <int MODE, bool STORE_M>
 __global__ void __launch_bounds__(kThreads)
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
@@ -290,14 +483,15 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ scales,
               const uint8_t* __restrict__ pmask, float* __restrict__ out,
               float* __restrict__ m_out, int nq, int lq, int nd, int lp,
-              int d, int qb, int db) {
+              int d, int qb, int db, const signed char* __restrict__ books,
+              int m_sub) {
   using TQ = typename Traits<MODE>::TQ;
   using TP = typename Traits<MODE>::TP;
   using TAcc = typename Traits<MODE>::TAcc;
   // the MMA operand type: bf16 unless both sides are int8 (f32 for kF32)
   using TS = typename Traits<MODE>::TQ;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<MODE> lay(d);
+  const Smem<MODE> lay(d, m_sub);
   const int units = lay.units;
   const size_t stride = (size_t)(units + 1) * 16;
   unsigned char* As = smem + lay.a;
@@ -325,6 +519,19 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
              nrows, d * (int)sizeof(TQ) / 16, units, tid);
   for (int r = tid; r < kRows; r += kThreads)
     qw_s[r] = r < nrows ? qw[row0 + r] : 0.f;
+  if constexpr (is_staged<MODE> && MODE != kInt8Bf16) {
+    // the operand tile's pad units (int8 rows pad to an even unit count)
+    // stay zero; the conversions write only the data units
+    for (int i = tid; i < kCols * (int)stride / 16; i += kThreads)
+      reinterpret_cast<uint4*>(Bs)[i] = make_uint4(0, 0, 0, 0);
+  }
+  if constexpr (MODE == kPqBf16 || MODE == kPqInt8) {
+    // compact books: kPqRows * d bytes, read once, held for the whole CTA
+    for (int i = tid; i < kPqRows * d / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem + lay.books)[i] =
+          reinterpret_cast<const uint4*>(books)[i];
+  }
+  const size_t raw_bytes = raw_tile_bytes<MODE>(lay.raw_units, m_sub);
 
   const int d_begin = blockIdx.y * db;
   const int n_tiles = (lp + kCols - 1) / kCols;
@@ -336,17 +543,28 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     const int l0 = (it % n_tiles) * kCols;
     const int ntok = min(kCols, lp - l0);
     const size_t tok0 = (size_t)dd * lp + l0;
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(p + tok0 * d);
-    if constexpr (MODE == kInt8Bf16)
-      stage_async(Braw + buf * (size_t)(lay.raw_units + 1) * 16 * kCols, src,
-                  ntok, p_units, lay.raw_units, tid);
-    else
-      stage_async(Bs + buf * stride * kCols, src, ntok, p_units, units, tid);
+    if constexpr (is_int4<MODE>) {
+      // packed rows l0 / 2 .. of doc dd: (lp + 1) / 2 rows of d bytes
+      const unsigned char* src =
+          p + ((size_t)dd * ((lp + 1) / 2) + l0 / 2) * d;
+      stage_async<kCols / 2>(Braw + buf * raw_bytes, src, (ntok + 1) / 2,
+                             p_units, lay.raw_units, tid);
+    } else if constexpr (is_pq<MODE>) {
+      stage_codes(Braw + buf * raw_bytes, p, tok0 * m_sub, ntok * m_sub, tid);
+    } else {
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(p + tok0 * d);
+      if constexpr (MODE == kInt8Bf16)
+        stage_async(Braw + buf * (size_t)(lay.raw_units + 1) * 16 * kCols,
+                    src, ntok, p_units, lay.raw_units, tid);
+      else
+        stage_async(Bs + buf * stride * kCols, src, ntok, p_units, units,
+                    tid);
+    }
     if (tid < kCols) {
-      float cs = -1.f;  // the invalid-token sentinel
+      float cs = -1.f;  // the invalid-token sentinel (also an odd Lp's pad)
       if (tid < ntok && pmask[tok0 + tid]) {
-        if constexpr (MODE == kBf16 || MODE == kF32) cs = 1.f;
+        if constexpr (MODE == kBf16 || MODE == kF32 || is_pq<MODE>) cs = 1.f;
         else cs = scales[tok0 + tid];
       }
       colscale[buf * kCols + tid] = cs;
@@ -369,6 +587,25 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     if constexpr (MODE == kInt8Bf16) {
       widen_tile(Bs, Braw + buf * (size_t)(lay.raw_units + 1) * 16 * kCols,
                  lay.raw_units, units, tid);
+      __syncthreads();
+      B = Bs;
+    } else if constexpr (is_int4<MODE>) {
+      unpack_int4_tile<TS>(Bs, Braw + buf * raw_bytes, lay.raw_units, units,
+                           tid);
+      __syncthreads();
+      B = Bs;
+    } else if constexpr (is_pq<MODE>) {
+      // the tile's first code sits at the word offset of its first byte
+      const size_t tok0 =
+          (size_t)(d_begin + it / n_tiles) * lp + (it % n_tiles) * kCols;
+      const unsigned char* codes =
+          Braw + buf * raw_bytes + ((tok0 * m_sub) & 3);
+      if constexpr (MODE == kPqSumBf16)
+        decode_pq_sum(Bs, codes, books, m_sub, d, units, tid);
+      else
+        decode_pq_compact<TS>(
+            Bs, codes, reinterpret_cast<const signed char*>(smem + lay.books),
+            m_sub, d / m_sub, units, tid);
       __syncthreads();
       B = Bs;
     }
@@ -452,15 +689,23 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 // Host launcher: validates what the kernel cannot take, sizes shared
 // memory, launches on `stream` and returns cudaGetLastError().
 // ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
-// unused (null) otherwise.
+// unused (null) otherwise. ``books`` and ``m_sub``: K3's int8 books
+// (m_sub x kPqRows rows, of d / m_sub bytes for compact books, of d bytes
+// for kPqSumBf16) and subspace count.
 template <int MODE, bool STORE_M = false>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
            const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
-           int lp, int d, void* stream) {
+           int lp, int d, void* stream, const void* books = nullptr,
+           int m_sub = 0) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || d < 16 ||
       d % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Smem<MODE> lay(d);
+  if (is_pq<MODE> && (m_sub < 1 || books == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((MODE == kPqBf16 || MODE == kPqInt8) &&
+      (d % m_sub != 0 || (d / m_sub) % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const Smem<MODE> lay(d, m_sub);
   if (lay.total > 232448) return (int)cudaErrorInvalidValue;
   auto* kern = maxsim_kernel<MODE, STORE_M>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -476,7 +721,7 @@ int launch(const void* q, const void* qw, const void* p, const void* scales,
       static_cast<const typename Traits<MODE>::TP*>(p),
       static_cast<const float*>(scales), static_cast<const uint8_t*>(pmask),
       static_cast<float*>(out), static_cast<float*>(m_out), nq, lq, nd, lp, d,
-      qb, db);
+      qb, db, static_cast<const signed char*>(books), m_sub);
   return (int)cudaGetLastError();
 }
 

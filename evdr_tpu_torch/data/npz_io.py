@@ -59,6 +59,9 @@ def load_payload(npz_path) -> Dict[str, Any]:
             "relevant_docs": _item_or_none(z, "relevant_docs"),
             "docidx_2_docid": _item_or_none(z, "docidx_2_docid"),
             "qsidx_2_query": _arr_or_none(z, "qsidx_2_query"),
+            # a QAT-pq student's codebooks (written by the JAX trainer);
+            # engine.from_npz serves with them
+            "qat_books": _arr_or_none(z, "qat_books"),
         }
 
 

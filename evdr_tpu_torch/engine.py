@@ -10,8 +10,10 @@ The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present it raises instead of carrying on on the CPU. On the CPU every
 kernel is replaced by its plain PyTorch version (``impl`` reports which).
 
-Storage dtypes of this slice: float32, bfloat16 and int8. A float32 engine
-scores through the bf16 kernel, like the TPU engine's Pallas path.
+Storage dtypes: float32, bfloat16, int8, int4 (token-pair packed nibbles +
+per-token scales) and pq (product-quantized codes + codebooks, optionally
+OPQ-rotated). A float32 engine scores through the bf16 kernel, like the TPU
+engine's Pallas path.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
                                                    build_sharded_index)
 from evdr_tpu_torch.parallel.topk import sharded_maxsim, sharded_topk
 
-DTYPES = (None, "float32", "bfloat16", "int8")
+DTYPES = (None, "float32", "bfloat16", "int8", "int4", "pq")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,30 +48,44 @@ def resolve_device(device=None) -> torch.device:
 class RetrievalEngine:
     def __init__(self, dtype: Optional[str] = "bfloat16", impl: str = "auto",
                  normalize: bool = True, prune_centroids: int = 0,
-                 quantize_queries: bool = False, device=None):
+                 quantize_queries: bool = False, pq_m: int = 16,
+                 pq_opq: bool = False, device=None):
         """``dtype='int8'`` stores the index quantized (ops/quantize.py,
         half the bytes of bf16); adding ``quantize_queries=True`` also
         quantizes queries on the device so scoring runs int8 x int8
         (impl 'cuda_q8').
 
+        ``dtype='int4'`` packs two 4-bit codes per byte + per-token scales
+        (ops/int4.py): half of int8's bytes. ``dtype='pq'`` product-
+        quantizes the index (ops/pq.py): ``pq_m`` bytes per token, 8x below
+        int8 at D=128, M=16, lossy; ``pq_opq=True`` learns an OPQ rotation
+        at build time, folded into expanded codebooks. ``quantize_queries``
+        selects int8 x int8 scoring for int4 and pq too, but not for pq with
+        ``pq_opq``: the int8 x int8 tile needs compact books (with expanded
+        books the quantized queries would only cast back up to bf16, at
+        the same cost and with more error).
+
         ``impl`` is 'auto' or the name it resolves to: 'cuda' on a GPU,
         'plain' (the kernels' plain versions) on the CPU, with '_q8' for
-        int8 x int8 scoring."""
+        quantized queries."""
         if dtype not in DTYPES:
-            raise NotImplementedError(
-                f"dtype={dtype!r} is not ported to evdr_tpu_torch yet "
-                "(int4 and pq arrive with later slices)")
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
         if prune_centroids:
             raise NotImplementedError(
-                "pruned search (prune_centroids>0) is not ported yet")
+                "pruned search (prune_centroids>0) is not ported to "
+                "evdr_tpu_torch yet (ROADMAP.md queue 1, 'Pruned two-stage "
+                "search')")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.normalize = normalize
+        self.pq_m = pq_m
+        self.pq_opq = pq_opq
         base = "cuda" if self.device.type == "cuda" else "plain"
         if impl not in ("auto", base):
             raise ValueError(f"impl={impl!r} on {self.device}: use 'auto' "
                              f"or {base!r}")
-        q8 = quantize_queries and dtype == "int8"
+        q8 = (quantize_queries and dtype in ("int8", "int4", "pq")
+              and not (dtype == "pq" and pq_opq))
         self.impl = base + ("_q8" if q8 else "")
         self.index: Optional[ShardedIndex] = None
 
@@ -91,6 +107,13 @@ class RetrievalEngine:
             if normalize:
                 P = np.asarray(l2_normalize(P * pmask[..., None]),
                                dtype=np.float32)
+        if self.dtype == "pq":
+            from evdr_tpu_torch.ops.pq import build_pq_index
+
+            codes, books = build_pq_index(P, pmask, m=self.pq_m,
+                                          opq=self.pq_opq, device=self.device)
+            return self.build_from_pq(codes, books, pmask, docids=docids,
+                                      expanded=self.pq_opq)
         self.index = build_sharded_index(P, pmask, self.device,
                                          dtype=self.dtype,
                                          docids=_ids(docids))
@@ -109,6 +132,39 @@ class RetrievalEngine:
                                          docids=_ids(docids))
         return self
 
+    def build_from_codes4(self, packed, scales, pmask,
+                          docids: Optional[Sequence[str]] = None
+                          ) -> "RetrievalEngine":
+        """Index pre-packed int4 codes (N, ceil(Lp/2), D) uint8 + per-token
+        scales directly (tools/convert_packed.py --dtype int4 --normalize),
+        with no unpack/requantize round trip."""
+        if self.dtype != "int4":
+            raise ValueError("build_from_codes4 requires dtype='int4'")
+        self.index = build_sharded_index(packed, pmask, self.device,
+                                         dtype="int4", scales=scales,
+                                         docids=_ids(docids))
+        return self
+
+    def build_from_pq(self, codes, books, pmask,
+                      docids: Optional[Sequence[str]] = None,
+                      expanded: bool = False) -> "RetrievalEngine":
+        """Index pre-trained PQ codes (N, Lp, M) uint8 + codebooks directly
+        (ops/pq.py; packed files written with --dtype pq).
+
+        ``expanded=True`` marks full-width (M, K, D) OPQ codebooks
+        (ops/pq.expand_books). The scorers tell the layouts apart from the
+        query dim, but ``dim`` (the serving warm-up's token dim, with no
+        query in hand) reads the recorded ``index.books_expanded`` flag."""
+        if self.dtype != "pq":
+            raise ValueError("build_from_pq requires dtype='pq'")
+        self.index = build_sharded_index(
+            as_tensor(codes, self.device, torch.uint8), pmask, self.device,
+            docids=_ids(docids))
+        self.index.books = as_tensor(books, self.device,
+                                     torch.float32).contiguous()
+        self.index.books_expanded = bool(expanded)
+        return self
+
     def build_from_ragged(self, documents_obj, doc_attnmask=None,
                           doc_imgmask=None, docids=None) -> "RetrievalEngine":
         P, pmask, _ = preprocess_docs(documents_obj, doc_attnmask, doc_imgmask)
@@ -116,6 +172,7 @@ class RetrievalEngine:
 
     @classmethod
     def from_index(cls, P, pmask, n_docs: int, scales=None, docids=None,
+                   books=None, books_expanded: bool = False,
                    **kw) -> "RetrievalEngine":
         """Serve an index that already exists as arrays: the (padded)
         arrays of a JAX ``ShardedIndex`` (``np.asarray(eng.index.P)``, ...)
@@ -124,14 +181,25 @@ class RetrievalEngine:
 
         eng = cls(**kw)
         eng.index = index_from_numpy(P, pmask, n_docs, scales=scales,
-                                     docids=docids, device=eng.device)
+                                     docids=docids, books=books,
+                                     books_expanded=books_expanded,
+                                     device=eng.device)
         return eng
 
     @classmethod
-    def from_npz(cls, npz_path, **kw) -> "RetrievalEngine":
+    def from_npz(cls, npz_path, mmap: bool = False, **kw
+                 ) -> "RetrievalEngine":
         """Accepts the reference's pickled-object interchange npz or the
-        packed dense format (tools/convert_packed.py, float32 / bfloat16 /
-        int8 storage, written by either package)."""
+        packed dense format (tools/convert_packed.py, any storage dtype,
+        written by either package). A pq or int4 file serves its codes
+        directly on an engine of that dtype (int4 codes only from a
+        --normalize file); any other engine builds from the decoded or
+        dequantized floats. An interchange npz with ``qat_books`` (a QAT-pq
+        student) serves a pq engine with those exact codebooks."""
+        if mmap:
+            raise NotImplementedError(
+                "from_npz(mmap=True) is not ported to evdr_tpu_torch yet "
+                "(ROADMAP.md queue 1, 'Incremental serving')")
         from evdr_tpu_torch.tools.convert_packed import (is_packed,
                                                          load_packed_payload)
 
@@ -140,18 +208,46 @@ class RetrievalEngine:
             payload = load_packed_payload(npz_path)
             normalized = bool(payload.get("doc_normalized", False))
             docids = payload.get("docid")
+            if eng.dtype == "pq" and "P_pq_codes" in payload:
+                return eng.build_from_pq(
+                    payload["P_pq_codes"], payload["P_pq_books"],
+                    payload["pmask"], docids=docids,
+                    expanded=bool(payload.get("P_pq_expanded", False)))
             if eng.dtype == "int8" and "P_codes" in payload and normalized:
                 return eng.build_from_codes(
                     payload["P_codes"], payload["P_scale"], payload["pmask"],
                     docids=docids)
+            if eng.dtype == "int4" and "P_codes4" in payload and normalized:
+                return eng.build_from_codes4(
+                    payload["P_codes4"], payload["P_scale"],
+                    payload["pmask"], docids=docids)
             eng.build(payload["P_pad"], payload["pmask"], docids=docids,
                       # stored normalized: skip the renorm for THIS build
                       normalize=False if normalized else None)
         else:
             payload = load_payload(npz_path)
-            eng.build_from_ragged(
-                payload["documents"], payload.get("doc_attnmask"),
-                payload.get("doc_imgmask"), docids=payload.get("docid"))
+            if eng.dtype == "pq" and payload.get("qat_books") is not None:
+                # a QAT-pq student: quantize with the exact codebooks it was
+                # trained and best-selected against, not a refit
+                from evdr_tpu_torch.ops.pq import (books_expanded,
+                                                   encode_with_books)
+
+                P, pmask, _ = preprocess_docs(
+                    payload["documents"], payload.get("doc_attnmask"),
+                    payload.get("doc_imgmask"))
+                Pn = np.asarray(l2_normalize(
+                    P * pmask[..., None].astype(np.float32)), np.float32)
+                books = np.asarray(payload["qat_books"], np.float32)
+                eng.pq_m = int(books.shape[0])
+                eng.build_from_pq(
+                    encode_with_books(Pn, books, pmask), books, pmask,
+                    docids=payload.get("docid"),
+                    expanded=books.shape[0] > 1
+                    and books_expanded(books, Pn.shape[-1]))
+            else:
+                eng.build_from_ragged(
+                    payload["documents"], payload.get("doc_attnmask"),
+                    payload.get("doc_imgmask"), docids=payload.get("docid"))
         return eng
 
     # ----------------------------------------------------------------- search
@@ -200,8 +296,16 @@ class RetrievalEngine:
 
     @property
     def dim(self) -> int:
+        """Token dim of the built index. A PQ index stores codes, so D comes
+        from the books: their last dim when expanded (``books_expanded``,
+        recorded by build_from_pq), M * D/M when compact. int4's token-pair
+        packing keeps full-width D lanes."""
         if self.index is None:
             raise RuntimeError("engine has no index; call build() first")
+        b = self.index.books
+        if b is not None:
+            return int(b.shape[-1]) if self.index.books_expanded \
+                else int(b.shape[0] * b.shape[-1])
         return int(self.index.P.shape[-1])
 
 

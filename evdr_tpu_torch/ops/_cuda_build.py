@@ -43,6 +43,15 @@ LIBRARIES = {
     "maxsim_f32": {
         "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "maxsim_int4": {
+        "evdr_maxsim_int4full": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int4": [_P] * 6 + [_I] * 5 + [_P],
+    },
+    "maxsim_pq": {
+        "evdr_maxsim_pq": [_P] * 6 + [_I] * 6 + [_P],
+        "evdr_maxsim_pqfull": [_P] * 6 + [_I] * 6 + [_P],
+        "evdr_maxsim_pq_sum": [_P] * 6 + [_I] * 6 + [_P],
+    },
     "maxsim_train": {
         "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_bwd": [_P] * 8 + [_I] * 6 + [_P],

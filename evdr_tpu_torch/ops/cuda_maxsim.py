@@ -1,6 +1,7 @@
 """Fused masked MaxSim on the GPU: wrappers of the hand-written Hopper
 kernels (``csrc/maxsim_bf16.cu``, ``csrc/maxsim_f32.cu``,
-``csrc/maxsim_int8.cu``) and, beside each, its plain PyTorch version.
+``csrc/maxsim_int8.cu``, ``csrc/maxsim_int4.cu``, ``csrc/maxsim_pq.cu``)
+and, beside each, its plain PyTorch version.
 
 Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 
@@ -14,6 +15,10 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 - ``maxsim_cuda_int8`` (K2, int8 mode): bf16 queries x int8 codes.
 - ``maxsim_cuda_int8full`` (K2, int8full mode): queries quantized per token
   on the device (``quantize_queries_int8``), int8 x int8 -> int32.
+- ``maxsim_cuda_int4`` / ``maxsim_cuda_int4full`` (K4): the same two modes
+  over token-pair packed int4 codes (``ops/int4.py``).
+- ``maxsim_cuda_pq`` / ``maxsim_cuda_pqfull`` (K3): PQ codes decoded into
+  tokens from int8-quantized codebooks, then the bf16 or int8 x int8 loop.
 
 Routing: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it returns its plain version. There is no other fallback.
@@ -58,22 +63,26 @@ def quantize_queries_int8(Q: torch.Tensor, qmask: torch.Tensor):
 
 def plain_sims(Qf, P, p_dtype, tok_scale):
     """Yield ``(i, Pc, sim)`` over doc chunks: Pc = ``P[i:i+c]`` seen as
-    ``.to(p_dtype).float()``; sim (nq * Lq, c, Lp) f32, the masked, scaled
-    similarities (-1e30 at an invalid token). Qf (nq, Lq, D) f32 holds the
-    values the kernel multiplies; tok_scale (nd, Lp): a scale >= 0
-    multiplies the similarity, -1 marks an invalid token. The chunking
-    depends only on the shapes, so two calls on the same inputs give
-    bit-identical similarities (the plain K5/K6 pair relies on it)."""
+    ``.to(p_dtype).float()`` (or, where ``p_dtype`` is a function, as
+    ``p_dtype(P[i:i+c])``: the (c, Lp, D) f32 tokens of stored codes); sim
+    (nq * Lq, c, Lp) f32, the masked, scaled similarities (-1e30 at an
+    invalid token). Qf (nq, Lq, D) f32 holds the values the kernel
+    multiplies; tok_scale (nd, Lp): a scale >= 0 multiplies the similarity,
+    -1 marks an invalid token. The chunking depends only on the shapes, so
+    two calls on the same inputs give bit-identical similarities (the
+    plain K5/K6 pair relies on it)."""
     if Qf.is_cuda and torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("the plain MaxSim versions need full-precision "
                            "f32 matmuls; set torch.set_float32_matmul_"
                            "precision('highest')")
     nq, lq, d = Qf.shape
-    nd, lp, _ = P.shape
+    nd, lp = tok_scale.shape
+    decode = p_dtype if callable(p_dtype) else (
+        lambda x: x.to(p_dtype).float())
     rows = Qf.reshape(nq * lq, d)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (nq * lq * lp))
     for i in range(0, nd, chunk):
-        Pc = P[i:i + chunk].to(p_dtype).float()
+        Pc = decode(P[i:i + chunk])
         c = Pc.shape[0]
         sim = (rows @ Pc.reshape(c * lp, d).T).view(nq * lq, c, lp)
         sc = tok_scale[i:i + chunk]
@@ -129,6 +138,132 @@ def maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask):
                        mask_sentinel(pmask, scales))
 
 
+def unpack_int4_torch(packed: torch.Tensor, lp: int) -> torch.Tensor:
+    """(..., ceil(Lp/2), D) token-pair packed uint8 -> (..., Lp, D) int8
+    codes in token order: the low nibble is token 2t, the high nibble token
+    2t+1, each sign-extended from 4 bits (``ops/int4.py``)."""
+    b = packed.to(torch.int16)
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = ((b >> 4) ^ 8) - 8
+    out = torch.stack([lo, hi], dim=-2).reshape(
+        *packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+    return out[..., :lp, :].to(torch.int8)
+
+
+def maxsim_int4_plain(Q, P_u8, scales, qmask, pmask,
+                      compute=torch.bfloat16):
+    """Plain version of K4 in int4 mode: queries in ``compute``, codes
+    exact, page scale applied before the max."""
+    lp = pmask.shape[1]
+    return _plain_core(Q.to(compute).float(), qmask.float(), P_u8,
+                       lambda x: unpack_int4_torch(x, lp).float(),
+                       mask_sentinel(pmask, scales))
+
+
+def maxsim_int4full_plain(Q, P_u8, scales, qmask, pmask):
+    """Plain version of K4 in int4full mode: int8 queries x int4 codes,
+    exact dot products, as K2's int8full."""
+    lp = pmask.shape[1]
+    Q_i8, qw = quantize_queries_int8(Q, qmask)
+    return _plain_core(Q_i8.float(), qw, P_u8,
+                       lambda x: unpack_int4_torch(x, lp).float(),
+                       mask_sentinel(pmask, scales))
+
+
+PQ_KMAX = 256  # uint8 codes: at most 256 centroids per subspace
+
+
+def quantize_books_int8(books: torch.Tensor):
+    """Symmetric int8 quantization of codebooks with ONE global scale, as
+    the TPU kernel's host side does (``pallas_maxsim.quantize_books_int8``):
+    (M, K, w) float -> ((M, K, w) int8, 0-d f32 scale). A single scale keeps
+    a decoded token a plain int32 sum of book rows; it is folded into the
+    post-max query weight."""
+    books = books.float()
+    s = books.abs().amax() / 127.0
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    return (torch.round(books / safe).clamp_(-127, 127).to(torch.int8),
+            safe)
+
+
+def pq_books(books, d: int, device):
+    """Host side of K3 (``_maxsim_pq_impl``): -> (compact, int8 books,
+    scale). ``compact`` is False for expanded (M, K, D) OPQ books, whose
+    rows SUM; compact (M, K, D/M) books concatenate. Quantizing the compact
+    books gives the same codes and scale as quantizing their block-diagonal
+    embedding (``_embed_books_full``): the embedding adds only zeros."""
+    books = torch.as_tensor(books, device=device)
+    m, k, w = books.shape
+    compact = not (m > 1 and w == d)
+    if compact and m * w != d:
+        raise ValueError(f"books {tuple(books.shape)} do not match token "
+                         f"dim {d}")
+    if k > PQ_KMAX:
+        raise ValueError(f"uint8 codes support K <= {PQ_KMAX} centroids; "
+                         f"got K={k}")
+    books_q, scale = quantize_books_int8(books)
+    return compact, books_q, scale
+
+
+def pq_full_books(books_q, compact: bool, d: int) -> torch.Tensor:
+    """int8 books -> (M, 256, D) int32 rows whose sum over m decodes a
+    token: a compact book embedded block-diagonally (its row fills dims
+    [m*w, (m+1)*w)), zero rows past K (the codes a one-hot decode against
+    zero-padded books maps to nothing)."""
+    m, k, w = books_q.shape
+    full = torch.zeros((m, PQ_KMAX, d), dtype=torch.int32,
+                       device=books_q.device)
+    if compact:
+        for j in range(m):
+            full[j, :k, j * w:(j + 1) * w] = books_q[j].to(torch.int32)
+    else:
+        full[:, :k] = books_q.to(torch.int32)
+    return full
+
+
+def pq_decode_int(codes, full) -> torch.Tensor:
+    """(..., M) uint8 codes -> (..., D) int32 decoded tokens: the exact sum
+    of the M book rows of :func:`pq_full_books`."""
+    idx = codes.long()
+    out = full[0][idx[..., 0]]
+    for j in range(1, full.shape[0]):
+        out += full[j][idx[..., j]]
+    return out
+
+
+def _pq_plain(Qf, qw, codes, pmask, books, compute, int8_queries):
+    d = Qf.shape[-1]
+    compact, books_q, s = pq_books(books, d, codes.device)
+    full = pq_full_books(books_q, compact, d)
+    # the decoded tile: exact int8 for the int8 x int8 loop (int8 queries,
+    # compact books), else the int32 sum cast to the compute dtype (bf16
+    # rounds sums above 256, as the kernels do)
+    tile = torch.float32 if (int8_queries and compact) else compute
+    return _plain_core(Qf, qw * s, codes,
+                       lambda c: pq_decode_int(c, full).to(tile).float(),
+                       mask_sentinel(pmask))
+
+
+def maxsim_pq_plain(Q, codes, qmask, pmask, books, compute=torch.bfloat16):
+    """Plain version of K3 in pq mode: queries in ``compute`` x tokens
+    decoded from int8-quantized books and cast to ``compute``; the book
+    scale rides in the post-max query weight."""
+    return _pq_plain(Q.to(compute).float(), qmask.float(), codes, pmask,
+                     books, compute, int8_queries=False)
+
+
+def maxsim_pqfull_plain(Q, codes, qmask, pmask, books,
+                        compute=torch.bfloat16):
+    """Plain version of K3 in pqfull mode: queries quantized per token to
+    int8. Compact books decode to an exact int8 tile and score int8 x int8;
+    expanded OPQ books (sums may leave int8) score the int8 queries cast
+    up, against the tile in ``compute``, as ``pallas_maxsim.py:1276``
+    gates it."""
+    Q_i8, qw = quantize_queries_int8(Q, qmask)
+    return _pq_plain(Q_i8.float(), qw, codes, pmask, books, compute,
+                     int8_queries=True)
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -142,12 +277,14 @@ def _on_cuda(*tensors) -> bool:
                      f"{sorted(str(t.device) for t in tensors)}")
 
 
-def _check_shapes(Q, P, qmask, pmask, scales=None):
+def _check_shapes(Q, P, qmask, pmask, scales=None, p_shape=None):
+    """``p_shape``: the (nd, Lp, D) of the tokens ``P`` stores, where they
+    are codes of another layout (packed int4, PQ); default ``P.shape``."""
     if Q.dim() != 3 or P.dim() != 3:
         raise ValueError(f"Q and P must be 3-D, got {tuple(Q.shape)} and "
                          f"{tuple(P.shape)}")
     nq, lq, d = Q.shape
-    nd, lp, dp = P.shape
+    nd, lp, dp = P.shape if p_shape is None else p_shape
     if dp != d:
         raise ValueError(f"query dim {d} != page dim {dp}")
     if tuple(qmask.shape) != (nq, lq) or tuple(pmask.shape) != (nd, lp):
@@ -281,8 +418,111 @@ def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask):
     return out
 
 
+def _check_int4(Q, P_u8, scales, qmask, pmask):
+    if P_u8.dim() != 3:
+        raise ValueError(f"packed codes must be 3-D, got {tuple(P_u8.shape)}")
+    nd, lph, d = P_u8.shape
+    lp = pmask.shape[-1]
+    _check_shapes(Q, P_u8, qmask, pmask, scales, p_shape=(nd, lp, d))
+    if lph != (lp + 1) // 2:
+        raise ValueError(f"{lph} packed rows for {lp} tokens (want "
+                         f"{(lp + 1) // 2})")
+    if P_u8.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise TypeError(f"K4 takes uint8 packed codes and f32 scales, got "
+                        f"{P_u8.dtype} and {scales.dtype}")
+    return Q.shape[0], Q.shape[1], nd, lp, d
+
+
+def maxsim_cuda_int4(Q, P_u8, scales, qmask, pmask):
+    """K4, int4 mode: bf16 queries x token-pair packed int4 codes
+    (nd, ceil(Lp/2), D) uint8 with per-token scales (nd, Lp)."""
+    if not _on_cuda(Q, P_u8, scales, qmask, pmask):
+        return maxsim_int4_plain(Q, P_u8, scales, qmask, pmask)
+    nq, lq, nd, lp, d = _check_int4(Q, P_u8, scales, qmask, pmask)
+    out = _launch("maxsim_int4", "evdr_maxsim_int4",
+                  Q.to(torch.bfloat16).contiguous(),
+                  qmask.float().contiguous(), P_u8, scales, pmask,
+                  nq, lq, nd, lp, d)
+    maxsim_cuda_int4.launches += 1
+    return out
+
+
+def maxsim_cuda_int4full(Q, P_u8, scales, qmask, pmask):
+    """K4, int4full mode: queries quantized per token on the device, then
+    int8 x int4 (unpacked to int8) -> int32 on the tensor cores."""
+    if not _on_cuda(Q, P_u8, scales, qmask, pmask):
+        return maxsim_int4full_plain(Q, P_u8, scales, qmask, pmask)
+    nq, lq, nd, lp, d = _check_int4(Q, P_u8, scales, qmask, pmask)
+    Q_i8, qw = quantize_queries_int8(Q, qmask)
+    out = _launch("maxsim_int4", "evdr_maxsim_int4full", Q_i8.contiguous(),
+                  qw.contiguous(), P_u8, scales, pmask, nq, lq, nd, lp, d)
+    maxsim_cuda_int4full.launches += 1
+    return out
+
+
+def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
+    """K3's host side, then the launch: books quantized to int8 with one
+    global scale (folded into ``qw``), padded to 256 rows. Compact books
+    whose subvector width is a multiple of 4 bytes go to the kernel that
+    holds them in shared memory and concatenates rows; any other books
+    (expanded OPQ books, or compact ones embedded block-diagonally) to the
+    kernel that sums full-width rows read through L2. ``Qk`` is int8 for
+    the int8 x int8 loop, which needs compact books (an exact int8 tile);
+    otherwise int8 queries score cast up to bf16 (exact)."""
+    if codes.dim() != 3 or books.dim() != 3:
+        raise ValueError("codes and books must be 3-D")
+    nq, lq, d = Qk.shape
+    nd, lp, m = codes.shape
+    _check_shapes(Qk, codes, qmask, pmask, p_shape=(nd, lp, d))
+    if codes.dtype != torch.uint8 or books.shape[0] != m:
+        raise TypeError(f"K3 takes uint8 codes (nd, Lp, M={books.shape[0]}),"
+                        f" got {codes.dtype} {tuple(codes.shape)}")
+    compact, books_q, s = pq_books(books, d, codes.device)
+    _, k, w = books_q.shape
+    if compact and w % 4 == 0:
+        kb = torch.zeros((m, PQ_KMAX, w), dtype=torch.int8,
+                         device=codes.device)
+        kb[:, :k] = books_q
+        func = "evdr_maxsim_pqfull" if int8_queries else "evdr_maxsim_pq"
+    else:
+        kb = pq_full_books(books_q, compact, d).to(torch.int8)
+        func = "evdr_maxsim_pq_sum"
+        if int8_queries:
+            Qk = Qk.to(torch.bfloat16)
+    out = torch.empty((nq, nd), dtype=torch.float32, device=codes.device)
+    Qk = Qk.contiguous()
+    call_kernel("maxsim_pq", func, (Qk, (qw * s).contiguous(), codes, kb,
+                                    pmask, out),
+                nq, lq, nd, lp, d, m, aligned=(Qk, codes, kb))
+    return out
+
+
+def maxsim_cuda_pq(Q, codes, qmask, pmask, books):
+    """K3, pq mode: bf16 queries against PQ codes (nd, Lp, M) uint8 and
+    their f32 books, compact (M, K, D/M) or expanded OPQ (M, K, D)."""
+    if not _on_cuda(Q, codes, qmask, pmask, books):
+        return maxsim_pq_plain(Q, codes, qmask, pmask, books)
+    out = _launch_pq(Q.to(torch.bfloat16), qmask.float(), codes, qmask,
+                     pmask, books, int8_queries=False)
+    maxsim_cuda_pq.launches += 1
+    return out
+
+
+def maxsim_cuda_pqfull(Q, codes, qmask, pmask, books):
+    """K3, pqfull mode: queries quantized per token on the device; int8 x
+    int8 against compact books, cast up to bf16 against expanded ones."""
+    if not _on_cuda(Q, codes, qmask, pmask, books):
+        return maxsim_pqfull_plain(Q, codes, qmask, pmask, books)
+    Q_i8, qw = quantize_queries_int8(Q, qmask)
+    out = _launch_pq(Q_i8, qw, codes, qmask, pmask, books,
+                     int8_queries=True)
+    maxsim_cuda_pqfull.launches += 1
+    return out
+
+
 KERNEL_WRAPPERS = (maxsim_cuda, maxsim_cuda_f32, maxsim_cuda_int8,
-                   maxsim_cuda_int8full)
+                   maxsim_cuda_int8full, maxsim_cuda_int4,
+                   maxsim_cuda_int4full, maxsim_cuda_pq, maxsim_cuda_pqfull)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

@@ -14,20 +14,31 @@ from typing import Optional
 import numpy as np
 import torch
 
+from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
 from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
 _FLOAT_DTYPES = {None: torch.float32, "float32": torch.float32,
                  "bfloat16": torch.bfloat16}
+_QUANTIZERS = {"int8": (quantize_tokens_int8, torch.int8),
+               "int4": (quantize_tokens_int4, torch.uint8)}
 
 
 @dataclass
 class ShardedIndex:
-    P: torch.Tensor          # (N_pad, Lp, D): float32, bfloat16 or int8 codes
+    # (N_pad, Lp, D) float32 / bfloat16 / int8 codes, (N_pad, ceil(Lp/2), D)
+    # uint8 packed int4 codes, or (N_pad, Lp, M) uint8 PQ codes
+    P: torch.Tensor
     pmask: torch.Tensor      # (N_pad, Lp) bool
     n_docs: int              # valid docs (<= N_pad)
     docids: Optional[np.ndarray] = None
-    # int8 indexes: per-token f32 scales (N_pad, Lp); None for float ones
+    # int8 and int4 indexes: per-token f32 scales (N_pad, Lp); None otherwise
     scales: Optional[torch.Tensor] = None
+    # product-quantized indexes: (M, K, D/M) compact or (M, K, D) expanded
+    # f32 codebooks (ops/pq.py); P then holds the codes
+    books: Optional[torch.Tensor] = None
+    # True for full-width (M, K, D) OPQ codebooks (ops/pq.expand_books): the
+    # two layouts cannot be told apart from the books alone (engine.dim)
+    books_expanded: bool = False
 
     @property
     def n_pad(self) -> int:
@@ -62,27 +73,33 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
     """Place an index on ``device``.
 
     ``dtype`` stores it narrower: 'bfloat16' casts (round to nearest even),
-    'int8' quantizes per token (ops/quantize.py) unless ``scales`` are given,
-    in which case ``P`` already holds int8 codes (packed files written with
+    'int8' and 'int4' quantize per token (ops/quantize.py, ops/int4.py)
+    unless ``scales`` are given, in which case ``P`` already holds the codes
+    (int8, or token-pair packed uint8 for int4; packed files written with
     --normalize). ``P`` may be a numpy array or a tensor on any device;
-    quantization runs where ``P`` lies.
+    quantization runs where ``P`` lies. ``dtype=None`` keeps uint8 PQ codes
+    as they are (``RetrievalEngine.build_from_pq`` adds the books).
     """
-    if dtype not in (None, "float32", "bfloat16", "int8"):
-        raise NotImplementedError(
-            f"dtype={dtype!r} storage is not ported to evdr_tpu_torch yet")
+    if dtype not in (None, "float32", "bfloat16", "int8", "int4"):
+        raise ValueError(f"unsupported index dtype {dtype!r}")
     device = torch.device(device)
     n = int(P.shape[0])
     quantum = max(1, int(pad_docs_to))
     n_pad = ((n + quantum - 1) // quantum) * quantum
-    if dtype == "int8":
+    if dtype in _QUANTIZERS:
+        quantize, code_dtype = _QUANTIZERS[dtype]
         if scales is None:
-            P, scales = quantize_tokens_int8(P, pmask)
-        P = as_tensor(P, device, torch.int8)
+            P, scales = quantize(P, pmask)
+        P = as_tensor(P, device, code_dtype)
         scales = _pad_docs(as_tensor(scales, device, torch.float32), n_pad)
     else:
         if scales is not None:
-            raise ValueError("scales are given only with dtype='int8'")
-        P = as_tensor(P, device, _FLOAT_DTYPES[dtype])
+            raise ValueError("scales are given only with dtype='int8' or "
+                             "'int4'")
+        keep = P.dtype == torch.uint8 if isinstance(P, torch.Tensor) \
+            else np.asarray(P).dtype == np.uint8
+        P = as_tensor(P, device, torch.uint8 if (dtype is None and keep)
+                      else _FLOAT_DTYPES[dtype])
     return ShardedIndex(
         P=_pad_docs(P, n_pad),
         pmask=_pad_docs(as_tensor(pmask, device, torch.bool), n_pad),

@@ -1,10 +1,13 @@
 """MaxSim scoring and top-k retrieval over a single-device index.
 
 Counterpart of the single-device half of ``evdr_tpu/parallel/topk.py``:
-``_local_scores`` routes a float index to K1 and an int8 index to K2 (int8
-or int8full mode), ``_single_device_topk`` masks padding columns and
-selects top-k. The wrappers run their plain versions when the index lies on
-the CPU. Multi-GPU sharded top-k is a later slice.
+``_local_scores`` routes a PQ index (codes + books) to K3, a packed int4
+index (uint8 codes + scales) to K4, an int8 index to K2 and a float index
+to K1, in the reference's order; '*_q8' engines take each kernel's 'full'
+mode (queries quantized to int8 on the device). ``_single_device_topk``
+masks padding columns and selects top-k. The wrappers run their plain
+versions when the index lies on the CPU. Multi-GPU sharded top-k is a
+later slice.
 """
 
 from __future__ import annotations
@@ -13,18 +16,30 @@ from typing import Tuple
 
 import torch
 
-from evdr_tpu_torch.ops.cuda_maxsim import (maxsim_cuda, maxsim_cuda_int8,
-                                            maxsim_cuda_int8full)
+from evdr_tpu_torch.ops.cuda_maxsim import (maxsim_cuda, maxsim_cuda_int4,
+                                            maxsim_cuda_int4full,
+                                            maxsim_cuda_int8,
+                                            maxsim_cuda_int8full,
+                                            maxsim_cuda_pq,
+                                            maxsim_cuda_pqfull)
 from evdr_tpu_torch.parallel.sharded_index import ShardedIndex
 
 
-def _local_scores(Q, qmask, P, pmask, impl: str, scales=None):
+def _local_scores(Q, qmask, P, pmask, impl: str, scales=None, books=None):
+    q8 = impl.endswith("_q8")
+    if books is not None:
+        # product-quantized index: P holds (N, Lp, M) uint8 codes, books the
+        # compact (M, K, D/M) or expanded OPQ (M, K, D) codebooks (ops/pq.py)
+        kernel = maxsim_cuda_pqfull if q8 else maxsim_cuda_pq
+        return kernel(Q, P, qmask, pmask, books)
+    if scales is not None and P.dtype == torch.uint8:
+        # packed-int4 index (ops/int4.py): token-pair uint8 codes + scales
+        kernel = maxsim_cuda_int4full if q8 else maxsim_cuda_int4
+        return kernel(Q, P, scales, qmask, pmask)
     if scales is not None:
-        # int8-quantized index (ops/quantize.py); '*_q8' engines quantize
-        # the queries too and score int8 x int8
-        if impl.endswith("_q8"):
-            return maxsim_cuda_int8full(Q, P, scales, qmask, pmask)
-        return maxsim_cuda_int8(Q, P, scales, qmask, pmask)
+        # int8-quantized index (ops/quantize.py)
+        kernel = maxsim_cuda_int8full if q8 else maxsim_cuda_int8
+        return kernel(Q, P, scales, qmask, pmask)
     return maxsim_cuda(Q, P, qmask, pmask)
 
 
@@ -37,8 +52,8 @@ def _select_topk(sc: torch.Tensor, k: int):
 
 
 def _single_device_topk(Q, qmask, P, pmask, k: int, impl: str, scales=None,
-                        n_docs=None):
-    sc = _local_scores(Q, qmask, P, pmask, impl, scales)
+                        n_docs=None, books=None):
+    sc = _local_scores(Q, qmask, P, pmask, impl, scales, books)
     # exclude only PADDING columns (index >= n_docs). A REAL doc with zero
     # valid tokens scores exactly 0 under MaxSim semantics and stays rankable.
     nd = int(pmask.shape[0])
@@ -50,7 +65,8 @@ def _single_device_topk(Q, qmask, P, pmask, k: int, impl: str, scales=None,
 
 def sharded_maxsim(Q, qmask, index: ShardedIndex, impl: str) -> torch.Tensor:
     """Full (Q, n_docs) scores."""
-    sc = _local_scores(Q, qmask, index.P, index.pmask, impl, index.scales)
+    sc = _local_scores(Q, qmask, index.P, index.pmask, impl, index.scales,
+                       index.books)
     return sc[:, :index.n_docs]
 
 
@@ -59,4 +75,4 @@ def sharded_topk(Q, qmask, index: ShardedIndex, k: int, impl: str
     """Exact top-k (values, doc indices) per query."""
     return _single_device_topk(Q, qmask, index.P, index.pmask,
                                min(k, index.n_pad), impl, index.scales,
-                               n_docs=index.n_docs)
+                               n_docs=index.n_docs, books=index.books)

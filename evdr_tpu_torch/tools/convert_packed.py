@@ -1,17 +1,22 @@
 """Convert interchange (pickled-object) feature npz -> dense packed npz.
 
-The packed format is dense ``P_pad (N, L, D) float32`` (or bf16 bits, or
-int8 codes + scales) ``+ pmask (N, L) bool`` plus the query side and the
-eval maps, with no object dtype. Files are interchangeable with
-``evdr_tpu.tools.convert_packed`` for the float32, bfloat16 and int8
-storage types.
+The packed format is dense ``P_pad (N, L, D) float32`` (or bf16 bits, int8
+codes + scales, packed int4 codes + scales, or PQ codes + codebooks)
+``+ pmask (N, L) bool`` plus the query side and the eval maps, with no
+object dtype. Files are interchangeable with
+``evdr_tpu.tools.convert_packed`` for every storage type.
 
     python -m evdr_tpu_torch.tools.convert_packed --in_npz dump_all.npz \
         --out_npz dump_all.packed.npz [--length_multiple 16] \
-        [--dtype float32|bfloat16|int8] [--normalize]
+        [--dtype float32|bfloat16|int8|int4|pq] [--normalize] \
+        [--pq_m 16] [--pq_opq] [--device cpu]
 
-The int4 and PQ storage types belong to later slices of the port and raise
-``NotImplementedError`` here.
+``int4`` packs two codes per byte (ops/int4.py: ``P_codes4`` +
+``P_scale``); ``pq`` product-quantizes to --pq_m bytes per token (ops/pq.py:
+``P_pq_codes`` + ``P_pq_books``; ``--pq_opq`` adds an OPQ rotation folded
+into expanded books, marked by ``P_pq_expanded``). Codebooks train on the
+host; past 2M tokens the codes are encoded on the GPU (``--device cpu``
+encodes there on the host with torch).
 """
 
 from __future__ import annotations
@@ -25,17 +30,11 @@ import torch
 from evdr_tpu_torch.data.npz_io import load_payload
 from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
                                          preprocess_queries)
+from evdr_tpu_torch.ops.int4 import dequantize_int4, quantize_tokens_int4
+from evdr_tpu_torch.ops.pq import build_pq_index, decode_pq, encode_corpus
 from evdr_tpu_torch.ops.quantize import dequantize_int8, quantize_tokens_int8
 
-PACKED_DTYPES = ("float32", "bfloat16", "int8")
-_LATER = {"int4": "the int4 tier (ROADMAP.md queue 1, 'int4 tier')",
-          "pq": "the PQ tier (ROADMAP.md queue 1, 'PQ/OPQ tier')"}
-
-
-def _not_ported(dtype: str):
-    return NotImplementedError(
-        f"{dtype} storage is not ported to evdr_tpu_torch yet; it arrives "
-        f"with {_LATER[dtype]}")
+PACKED_DTYPES = ("float32", "bfloat16", "int8", "int4", "pq")
 
 
 def bf16_bits(P: np.ndarray) -> np.ndarray:
@@ -52,12 +51,12 @@ def bf16_bits_to_float32(bits: np.ndarray) -> np.ndarray:
 
 def convert_payload_to_packed(payload: dict, length_multiple: int = 1,
                               dtype: str = "float32",
-                              normalize: bool = False) -> dict:
+                              normalize: bool = False, pq_m: int = 16,
+                              pq_opq: bool = False, device=None) -> dict:
     """``normalize=True`` stores doc tokens masked + L2-normalized and marks
-    the file, which lets int8 serving consume ``P_codes`` directly instead
-    of dequantize -> normalize -> requantize."""
-    if dtype in _LATER:
-        raise _not_ported(dtype)
+    the file, which lets int8 and int4 serving consume their codes directly
+    instead of dequantize -> normalize -> requantize. ``device``: where a
+    PQ encode of more than 2M tokens runs (None: the GPU)."""
     if dtype not in PACKED_DTYPES:
         raise ValueError(f"dtype must be one of {PACKED_DTYPES}, got {dtype!r}")
     out = {}
@@ -72,6 +71,22 @@ def convert_payload_to_packed(payload: dict, length_multiple: int = 1,
             out["doc_normalized"] = np.asarray(True)
         if dtype == "int8":
             out["P_codes"], out["P_scale"] = quantize_tokens_int8(P, pmask)
+        elif dtype == "int4":
+            out["P_codes4"], out["P_scale"] = quantize_tokens_int4(P, pmask)
+        elif dtype == "pq":
+            if payload.get("qat_books") is not None and not pq_opq:
+                # a QAT-pq student: its own books, not a refit
+                books = np.asarray(payload["qat_books"], np.float32)
+                out["P_pq_codes"] = encode_corpus(P, books, pmask,
+                                                  device=device)
+            else:
+                out["P_pq_codes"], books = build_pq_index(
+                    P, pmask, m=pq_m, opq=pq_opq, device=device)
+                if pq_opq:
+                    # the rotation folded into full-width books: consumers
+                    # score and decode them with sum semantics (ops/pq.py)
+                    out["P_pq_expanded"] = np.asarray(True)
+            out["P_pq_books"] = books
         elif dtype == "bfloat16":
             # np.load round-trips bf16 arrays as raw void: store the uint16
             # bit pattern under a marker key instead
@@ -100,9 +115,10 @@ def load_packed_payload(npz_path) -> dict:
 
     Returns keys: P_pad/pmask, Q_norm/qmask (dense, pre-normalized), plus the
     usual id/map keys decoded from JSON. bf16-stored docs are upcast to f32
-    (exact); int8-stored docs are dequantized to ``P_pad`` while the raw
-    ``P_codes``/``P_scale`` ride along for engines that consume codes
-    directly.
+    (exact); int8- and int4-stored docs are dequantized and PQ-stored docs
+    decoded to ``P_pad``, while the raw codes (``P_codes``, ``P_codes4`` and
+    ``P_scale``, ``P_pq_codes`` and ``P_pq_books``) ride along for engines
+    that consume codes directly.
     """
     out = {}
     with np.load(str(npz_path)) as z:  # no allow_pickle needed
@@ -110,16 +126,18 @@ def load_packed_payload(npz_path) -> dict:
             if not k.endswith("_json"):
                 out[k] = z[k]
         decoded_json = {k: str(z[k]) for k in z.files if k.endswith("_json")}
-    if "P_codes4" in out:
-        raise _not_ported("int4")
-    if "P_pq_codes" in out:
-        raise _not_ported("pq")
     if "P_pad" in out and out["P_pad"].dtype != np.float32:
         out["P_pad"] = out["P_pad"].astype(np.float32)
     if "P_pad_bf16" in out:
         out["P_pad"] = bf16_bits_to_float32(out.pop("P_pad_bf16"))
     if "P_codes" in out and "P_pad" not in out:
         out["P_pad"] = dequantize_int8(out["P_codes"], out["P_scale"])
+    if "P_codes4" in out and "P_pad" not in out:
+        out["P_pad"] = dequantize_int4(out["P_codes4"], out["P_scale"])
+    if "P_pq_codes" in out and "P_pad" not in out:
+        out["P_pad"] = decode_pq(out["P_pq_codes"], out["P_pq_books"],
+                                 expanded=bool(out.get("P_pq_expanded",
+                                                       False)))
     for key in ("relevant_docs", "docidx_2_docid"):
         jk = f"{key}_json"
         if jk in decoded_json:
@@ -145,11 +163,21 @@ def main(argv=None) -> None:
                         "quarters the file vs float32)")
     p.add_argument("--normalize", action="store_true",
                    help="store doc tokens masked + L2-normalized (enables "
-                        "direct int8-code serving without requantization)")
+                        "direct int8/int4-code serving without "
+                        "requantization)")
+    p.add_argument("--pq_m", type=int, default=16,
+                   help="PQ subspaces = bytes/token (--dtype pq)")
+    p.add_argument("--pq_opq", action="store_true",
+                   help="learn an OPQ rotation before encoding (--dtype pq; "
+                        "lower quantization error at the same bytes)")
+    p.add_argument("--device", default=None,
+                   help="where a PQ encode past 2M tokens runs: 'cuda' "
+                        "(default) or 'cpu'")
     a = p.parse_args(argv)
     packed = convert_payload_to_packed(load_payload(a.in_npz),
                                        a.length_multiple, a.dtype,
-                                       normalize=a.normalize)
+                                       normalize=a.normalize, pq_m=a.pq_m,
+                                       pq_opq=a.pq_opq, device=a.device)
     np.savez(a.out_npz, **packed)
     shapes = {k: getattr(v, "shape", None) for k, v in packed.items()}
     print(f"[packed] {a.out_npz}: {shapes}")

@@ -1,14 +1,14 @@
 """evdr-search-torch — batch top-k retrieval CLI over a saved index, on a GPU.
 
 Load a page-embedding index npz (the reference's pickled-object interchange
-format, or the packed format of tools/convert_packed.py in float32 /
-bfloat16 / int8 storage), load a query feature npz, and write per-query
-top-k results as a TREC run file or JSON — the offline equivalent of
+format, or the packed format of tools/convert_packed.py in any storage
+dtype), load a query feature npz, and write per-query top-k results as a
+TREC run file or JSON — the offline equivalent of
 ``RetrievalEngine.search``.
 
     python -m evdr_tpu_torch.tools.search --index dump_all.npz \
         --queries q.npz --k 10 --out run.trec [--format trec|json] \
-        [--dtype bfloat16|int8 [--quantize_queries]] [--device cpu]
+        [--dtype bfloat16|int8|int4|pq [--quantize_queries]] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given, and fails when there is
 none. Prints one JSON summary line (n_queries, n_docs, per-query latency ms)
@@ -94,7 +94,8 @@ def main(argv=None) -> None:
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--out", default="-", help="output path ('-' = stdout)")
     p.add_argument("--format", choices=("trec", "json"), default="trec")
-    p.add_argument("--dtype", choices=("float32", "bfloat16", "int8"),
+    p.add_argument("--dtype",
+                   choices=("float32", "bfloat16", "int8", "int4", "pq"),
                    default="bfloat16")
     p.add_argument("--impl", default="auto")
     p.add_argument("--quantize_queries", action="store_true")

@@ -1,15 +1,15 @@
 """evdr-serve-torch — minimal HTTP retrieval server over a saved index, on a GPU.
 
 Online counterpart of the batch ``evdr-search-torch`` CLI: load an index npz
-once (interchange or packed; float32, bfloat16 or int8 storage), warm the
-kernels, then answer search requests over HTTP. Stdlib-only
+once (interchange or packed; any storage dtype), warm the kernels, then
+answer search requests over HTTP. Stdlib-only
 (ThreadingHTTPServer). Device work runs on a single dispatcher thread that
 dynamically COALESCES concurrent requests into shared batches
 (:class:`MicroBatcher`), so the GPU scores one larger batch instead of
 many small ones.
 
     python -m evdr_tpu_torch.tools.serve_http --index features/dump_all.npz \
-        --port 8080 [--dtype int8 [--quantize_queries]] [--device cpu]
+        --port 8080 [--dtype int8|int4|pq [--quantize_queries]] [--device cpu]
 
 API:
 - ``GET /healthz`` -> ``{"status": "ok", "n_docs": N, "impl": ..., ...}``
@@ -532,7 +532,8 @@ def main(argv=None) -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--k", type=int, default=10)
-    p.add_argument("--dtype", choices=("float32", "bfloat16", "int8"),
+    p.add_argument("--dtype",
+                   choices=("float32", "bfloat16", "int8", "int4", "pq"),
                    default="bfloat16")
     p.add_argument("--impl", default="auto")
     p.add_argument("--quantize_queries", action="store_true")

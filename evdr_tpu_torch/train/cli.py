@@ -13,8 +13,8 @@ float32 mode, ``--eval_impl auto`` (the default) evaluates with it; the
 student is always scored by the plain differentiable ``maxsim_torch``.
 ``--device cpu`` runs the plain PyTorch path on the host. Settings not
 ported yet (``--aug mixup|hardtoken``, ``--qat``, ``--mesh_docs > 1``,
-``--checkpoint_backend orbax``, ``--export_packed int4|pq|opq``, multi-host
-flags) raise ``NotImplementedError``.
+``--checkpoint_backend orbax``, multi-host flags) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

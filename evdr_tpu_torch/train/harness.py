@@ -29,8 +29,8 @@ As in the JAX package:
   resumes in the other.
 
 Not ported yet (``check_ported`` raises ``NotImplementedError``): the mixup
-and hardtoken augmentations, QAT, ``mesh_docs > 1``, orbax checkpoints and
-int4/pq/opq export. The JAX package's persistent compilation cache
+and hardtoken augmentations, QAT, ``mesh_docs > 1`` and orbax checkpoints.
+The JAX package's persistent compilation cache
 (``utils/timing.enable_persistent_cache``) has no counterpart: PyTorch runs
 eagerly and the kernels are built once per source hash.
 """
@@ -95,8 +95,6 @@ def check_ported(cfg: TrainConfig) -> None:
         f"qat={cfg.qat!r}": cfg.qat != "none",
         f"checkpoint_backend={cfg.checkpoint_backend!r}":
             cfg.checkpoint_backend == "orbax",
-        f"export_packed={cfg.export_packed!r}":
-            cfg.export_packed in ("int4", "pq", "opq"),
     }
     for what, hit in refused.items():
         if hit:
@@ -848,15 +846,18 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
 
     if cfg.export_packed != "none":
         # train -> serve in one run: convert the best artifact into the
-        # packed serving format (tools/convert_packed.py)
+        # packed serving format (tools/convert_packed.py); 'opq' is the pq
+        # tier with an OPQ rotation folded into expanded books
         src = Path(out_dir) / "best_ndcg5.npz"
         if src.exists():
             from evdr_tpu_torch.tools.convert_packed import (
                 convert_payload_to_packed)
 
+            dt = "pq" if cfg.export_packed == "opq" else cfg.export_packed
             packed = convert_payload_to_packed(
-                load_payload(src), length_multiple=16,
-                dtype=cfg.export_packed, normalize=True)
+                load_payload(src), length_multiple=16, dtype=dt,
+                normalize=True, pq_opq=(cfg.export_packed == "opq"),
+                device=bundle.device)
             dst = Path(out_dir) / "best_ndcg5.packed.npz"
             tmpp = str(dst) + ".tmp.npz"
             np.savez(tmpp, **packed)

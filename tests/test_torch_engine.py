@@ -235,14 +235,17 @@ def test_build_sharded_index_quantizes_tensors_like_arrays():
         index_from_numpy(a.P, a.pmask, 5, device="cpu")  # codes w/o scales
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        RetrievalEngine(dtype="int4", device="cpu")
-    with pytest.raises(NotImplementedError):
-        RetrievalEngine(dtype="pq", device="cpu")
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(tmp_path):
+    # pruned search and mmap loads wait for their ROADMAP items; unknown
+    # dtypes and impls are refused
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         RetrievalEngine(prune_centroids=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RetrievalEngine.from_npz(tmp_path / "x.npz", mmap=True,
+                                 device="cpu")
+    with pytest.raises(ValueError):
+        RetrievalEngine(dtype="int2", device="cpu")
     with pytest.raises(ValueError):
         RetrievalEngine(impl="cuda", device="cpu")
-    with pytest.raises(NotImplementedError):
-        convert_payload_to_packed({}, dtype="int4")
+    with pytest.raises(ValueError):
+        convert_payload_to_packed({}, dtype="int2")

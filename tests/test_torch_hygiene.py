@@ -76,6 +76,15 @@ def test_engine_and_clis_raise_without_a_gpu(monkeypatch, tmp_path):
              qmask=np.ones((1, 2), bool))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         search.main(["--index", str(path), "--queries", str(path)])
+    for dtype in ("int4", "pq"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            RetrievalEngine(dtype=dtype, pq_opq=True)
+    # the corpus-scale PQ encoder places numpy input on the GPU by default
+    from evdr_tpu_torch.ops.pq import encode_pq_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encode_pq_device(np.zeros((1, 2, 16), np.float32),
+                         np.zeros((4, 2, 4), np.float32))
     assert RetrievalEngine(device="cpu").impl == "plain"
     assert RetrievalEngine(dtype="int8", quantize_queries=True,
                            device="cpu").impl == "plain_q8"
@@ -89,13 +98,24 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     pm = torch.from_numpy(rng.random((4, 6)) > 0.3)
     codes = torch.from_numpy(rng.integers(-127, 128, (4, 6, 16), np.int8))
     sc = torch.from_numpy(rng.random((4, 6)).astype(np.float32))
+    packed = torch.from_numpy(rng.integers(0, 256, (4, 3, 16), np.uint8))
+    pq_codes = torch.from_numpy(rng.integers(0, 8, (4, 6, 4), np.uint8))
+    books = torch.from_numpy(rng.normal(size=(4, 8, 4)).astype(np.float32))
     before = cuda_maxsim.launch_counts()
     pairs = [(cuda_maxsim.maxsim_cuda(Q, P, qm, pm),
               cuda_maxsim.maxsim_plain(Q, P, qm, pm)),
              (cuda_maxsim.maxsim_cuda_int8(Q, codes, sc, qm, pm),
               cuda_maxsim.maxsim_int8_plain(Q, codes, sc, qm, pm)),
              (cuda_maxsim.maxsim_cuda_int8full(Q, codes, sc, qm, pm),
-              cuda_maxsim.maxsim_int8full_plain(Q, codes, sc, qm, pm))]
+              cuda_maxsim.maxsim_int8full_plain(Q, codes, sc, qm, pm)),
+             (cuda_maxsim.maxsim_cuda_int4(Q, packed, sc, qm, pm),
+              cuda_maxsim.maxsim_int4_plain(Q, packed, sc, qm, pm)),
+             (cuda_maxsim.maxsim_cuda_int4full(Q, packed, sc, qm, pm),
+              cuda_maxsim.maxsim_int4full_plain(Q, packed, sc, qm, pm)),
+             (cuda_maxsim.maxsim_cuda_pq(Q, pq_codes, qm, pm, books),
+              cuda_maxsim.maxsim_pq_plain(Q, pq_codes, qm, pm, books)),
+             (cuda_maxsim.maxsim_cuda_pqfull(Q, pq_codes, qm, pm, books),
+              cuda_maxsim.maxsim_pqfull_plain(Q, pq_codes, qm, pm, books))]
     for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert cuda_maxsim.launch_counts() == before  # no kernel launched
@@ -168,6 +188,59 @@ def test_cuda_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp, d):
         assert got[:, nd // 2].abs().max().item() == 0.0
         n = cuda_maxsim.launch_counts()[kern.__name__]
         assert n == n0[kern.__name__] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,lq,nd,lp,d", [
+    (9, 7, 13, 71, 32), (7, 128, 5, 65, 48), (9, 3, 6, 201, 256),
+    (300, 33, 17, 64, 64), (130, 5, 11, 1, 16)])
+def test_int4_and_pq_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp,
+                                                              d):
+    """K4 (both modes) and K3 (compact books in shared memory, compact
+    books of 2-byte subvectors and expanded books with K < 256, both
+    through the L2 sum decode; pq and pqfull) against their plain versions
+    at ragged shapes (odd Lp, Lp = 1, D off the tile sizes), with a doc that
+    has no valid token. Summation order alone differs: f32 sums of <= 128
+    terms of magnitude <= ~2 -> 1e-4 (and 1e-5 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(nq + lq + d)
+    dev = "cuda"
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q = unit(nq, lq, d)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    pm[nd // 2] = False
+    packed, sc = quantize_tokens_int4(unit(nd, lp, d), pm)
+    books = {  # name -> (books, largest code)
+        "compact": (unit(d // 4, 256, 4) * 0.5, 256),
+        "compact2": (unit(d // 2, 200, 2) * 0.5, 200),
+        "expanded": (unit(4, 40, d) * 0.5, 256)}
+    cases = [(cuda_maxsim.maxsim_cuda_int4, cuda_maxsim.maxsim_int4_plain,
+              (Q, packed, sc, qm, pm)),
+             (cuda_maxsim.maxsim_cuda_int4full,
+              cuda_maxsim.maxsim_int4full_plain, (Q, packed, sc, qm, pm))]
+    for b, top in books.values():
+        codes = torch.from_numpy(rng.integers(0, top, (nd, lp, b.shape[0]),
+                                              np.uint8)).to(dev)
+        cases += [(cuda_maxsim.maxsim_cuda_pq, cuda_maxsim.maxsim_pq_plain,
+                   (Q, codes, qm, pm, b)),
+                  (cuda_maxsim.maxsim_cuda_pqfull,
+                   cuda_maxsim.maxsim_pqfull_plain, (Q, codes, qm, pm, b))]
+    for kern, plain, args in cases:
+        n0 = cuda_maxsim.launch_counts()[kern.__name__]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-4)
+        assert got[:, nd // 2].abs().max().item() == 0.0
+        assert cuda_maxsim.launch_counts()[kern.__name__] == n0 + 1
 
 
 def _untie(Q, qm, P, pm, gap=1e-5):

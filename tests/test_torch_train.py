@@ -380,12 +380,59 @@ def test_trainer_raises_without_a_gpu(fixture_root, tmp_path, monkeypatch):
 @pytest.mark.parametrize("setting", [
     dict(aug="mixup"), dict(aug="hardtoken"), dict(qat="int8"),
     dict(mesh_docs=2), dict(checkpoint_backend="orbax"),
-    dict(export_packed="int4"), dict(export_packed="opq")])
+    dict(qat="int4"), dict(qat="pq")])
 def test_unported_settings_raise(fixture_root, tmp_path, setting):
     cfg = TrainConfig(**_kw(fixture_root, tmp_path, **setting))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training(cfg, device="cpu")
     assert not (tmp_path / "t").exists()
+
+
+@pytest.mark.parametrize("tier", ["int4", "pq", "opq"])
+def test_export_packed_tiers_load_in_the_engine(fixture_root, tmp_path,
+                                                tier):
+    # export_packed int4/pq/opq goes through the ported convert_packed; the
+    # file serves its codes directly in both packages' engines, and the
+    # port's scores match its f32 oracle on the file's arrays (tier codes,
+    # bf16 queries -> 2e-2 on sums of <= 32 unit-bounded terms)
+    from evdr_tpu.engine import RetrievalEngine as JaxEngine
+    from evdr_tpu.parallel.mesh import make_mesh
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.int4 import maxsim_int4
+    from evdr_tpu_torch.ops.pq import maxsim_pq
+
+    run_training(TrainConfig(**_kw(fixture_root, tmp_path, max_steps=60,
+                                   eval_every=20, lr=3e-3,
+                                   export_packed=tier)), device="cpu")
+    path = tmp_path / "t" / "mf5" / KEY / "best_ndcg5.packed.npz"
+    dtype = "int4" if tier == "int4" else "pq"
+    eng = RetrievalEngine.from_npz(path, dtype=dtype, device="cpu")
+    jeng = JaxEngine.from_npz(path, mesh=make_mesh(1), dtype=dtype,
+                              impl="xla")
+    with np.load(path) as z:
+        assert bool(z["doc_normalized"])
+        if tier == "int4":
+            codes, pm = z["P_codes4"], z["pmask"]
+            np.testing.assert_array_equal(eng.index.P[:len(codes)].numpy(),
+                                          codes)
+        else:
+            codes, books, pm = z["P_pq_codes"], z["P_pq_books"], z["pmask"]
+            assert ("P_pq_expanded" in z.files) == (tier == "opq")
+            assert eng.index.books_expanded == (tier == "opq")
+            np.testing.assert_array_equal(eng.index.books.numpy(), books)
+        scale = z["P_scale"] if tier == "int4" else None
+    assert eng.n_docs == jeng.n_docs == 12 and eng.dim == 32
+    rng = np.random.default_rng(1)
+    Q = rng.normal(size=(4, 6, 32)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((4, 6), bool)
+    t = [torch.from_numpy(a) for a in (Q, codes, pm, qm)]
+    want = (maxsim_int4(t[0], t[1], torch.from_numpy(scale), t[3], t[2])
+            if tier == "int4" else
+            maxsim_pq(t[0], t[1], t[3], t[2], torch.from_numpy(books)))
+    np.testing.assert_allclose(eng.score_all(Q, qm), want.numpy(), atol=2e-2)
+    np.testing.assert_allclose(eng.score_all(Q, qm),
+                               np.asarray(jeng.score_all(Q, qm)), atol=2e-2)
 
 
 def test_multihost_flags_raise():
