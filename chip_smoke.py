@@ -59,14 +59,36 @@ line each:
     tools/search.main load them (rank 1 equals search_dense), and
     tools/serve_http serves the pq engine (/healthz, /search);
 15. times of K4 and K3's four modes at the 50,000-page shapes (plain
-    versions on the first 10,000 pages).
+    versions on the first 10,000 pages);
+16. K5 and K6 in float32 mode at the train step's shape (32 queries x 32
+    tokens against 1,000 pages x 154 tokens) against their plain float32
+    versions, on tie-free data and with a doc that has no valid token; one
+    backward through maxsim(impl='pallas', compute_dtype=float32), the
+    entry point that reaches them, against the plain versions; their
+    times;
+17. K2b (``deferred=True`` of both K2 wrappers) at the serving shape:
+    parity on 1,000 pages against K2's plain version and bit-equality with
+    K2; one call of each entry point on a 50,000-page index; K2b's times
+    beside K2's at Lp 768 (those 50,000 pages) and at Lp 64 (100,000
+    pages, a doc ending every page tile);
+18. the rest of training, through ``evdr_tpu_torch.train.cli.main`` on
+    phase 8's fixture, 200 steps each: (a) ``--aug hardtoken --qat int4``,
+    (b) ``--aug mixup --qat pq --qat_start_frac 0.5``; NDCG@5 must rise
+    from step 0, each log must end with its summary line, and (b)'s best
+    npz must carry its codebooks and serve through
+    ``RetrievalEngine.from_npz(dtype='pq')`` with rank 1 equal to the f32
+    scoring of the exported reconstruction (but for near-ties).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
 line. Launch counts in the kernels line come from the main paths' runs
 only: phases 4-5 (serving: K1 bf16, K2), phase 8 (the trainer: K1 float32),
 phase 9 (the train step: K5, K6) and phases 12-14 (the capacity tiers: K4,
-K3), each with the counts set to 0 just before it.
+K3), each with the counts set to 0 just before it. The float32 modes of
+K5/K6 and K2b have no trainer or engine path, in the JAX package either
+(its student is scored by maxsim_xla, its engine never passes
+``deferred``): their launches come from their entry points' calls in
+phases 16 and 17, with the counts set to 0 just before each.
 """
 
 from __future__ import annotations
@@ -100,6 +122,9 @@ K = 10
 # OPQ build keeps it) and the plain versions are timed on 10,000 pages
 INT4_DOCS, PQ_DOCS, OPQ_DOCS, PQ_M = 50_000, 50_000, 3_000, 16
 PQ_SAMPLE, PLAIN_TIME_DOCS = 16_384, 10_000
+# K2b's short-page shape: 100,000 pages x 64 tokens (0.82 GB of codes), a
+# doc ending every page tile
+SHORT_DOCS, SHORT_LP = 100_000, 64
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -140,18 +165,19 @@ def make_pages(n, gen, chunk=1000):
     return P, pm
 
 
-def make_int8_pages(n, gen, quantize, chunk=1000, rows=LP,
-                    dtype=torch.int8):
+def make_int8_pages(n, gen, quantize, chunk=1000, rows=None,
+                    dtype=torch.int8, lp=LP):
     """int8 codes (or, with ``rows`` and ``dtype``, packed int4 codes) +
-    scales + mask of n normalized pages, quantized chunk by chunk on the
-    device, so no full f32 corpus is ever held."""
-    codes = torch.empty((n, rows, D), dtype=dtype, device=DEVICE)
-    scales = torch.empty((n, LP), dtype=torch.float32, device=DEVICE)
-    pm = torch.empty((n, LP), dtype=torch.bool, device=DEVICE)
+    scales + mask of n normalized pages of ``lp`` tokens, quantized chunk by
+    chunk on the device, so no full f32 corpus is ever held."""
+    codes = torch.empty((n, lp if rows is None else rows, D), dtype=dtype,
+                        device=DEVICE)
+    scales = torch.empty((n, lp), dtype=torch.float32, device=DEVICE)
+    pm = torch.empty((n, lp), dtype=torch.bool, device=DEVICE)
     for i in range(0, n, chunk):
         c = min(chunk, n - i)
-        m = torch.rand((c, LP), device=DEVICE, generator=gen) > 0.1
-        x = unit(torch.randn((c, LP, D), device=DEVICE, generator=gen)
+        m = torch.rand((c, lp), device=DEVICE, generator=gen) > 0.1
+        x = unit(torch.randn((c, lp, D), device=DEVICE, generator=gen)
                  * m[..., None])
         codes[i:i + c], scales[i:i + c] = quantize(x, m)
         pm[i:i + c] = m
@@ -162,8 +188,10 @@ def planted_queries(tokens_of, n_docs, gen, nq=NQ):
     """Queries that each copy 32 tokens of one doc, plus noise of norm ~0.5,
     with ~15% of query tokens masked. Returns Q, qmask, the planted docs."""
     targets = (torch.arange(nq, device=DEVICE) * 7919 + 11) % n_docs
-    pos = torch.randint(0, LP, (nq, LQ), device=DEVICE, generator=gen)
-    base = tokens_of(targets)[torch.arange(nq, device=DEVICE)[:, None], pos]
+    pages = tokens_of(targets)
+    pos = torch.randint(0, pages.shape[1], (nq, LQ), device=DEVICE,
+                        generator=gen)
+    base = pages[torch.arange(nq, device=DEVICE)[:, None], pos]
     noise = torch.randn((nq, LQ, D), device=DEVICE, generator=gen) * (
         0.5 / D ** 0.5)
     Q = unit(base + noise)
@@ -285,22 +313,22 @@ def rel_err(a, b) -> float:
 # -------------------------------------------------------------- training
 
 
-def untie(Q, qm, P, pm, gap=1e-5, chunk=100) -> int:
+def untie(Q, qm, P, pm, gap=1e-5, chunk=100, dtype=torch.bfloat16) -> int:
     """Make random data tie-free for K6: wherever a valid query row's best
-    and second-best similarity to a doc (exact, in f64, on the
-    bf16-rounded operands the kernels multiply) lie within ``gap``, mask
+    and second-best similarity to a doc (exact, in f64, on the operands
+    the kernels multiply, rounded to ``dtype``) lie within ``gap``, mask
     out the runner-up page token. Otherwise a different f32 summation
     order may pick the other one as the argmax and E = (sim == M) differs
     between K6 and its plain version, a whole token's gradient moved.
     Returns the number of tokens masked (in ``pm``, in place)."""
-    rows = Q.to(torch.bfloat16).double().reshape(-1, Q.shape[-1])
+    rows = Q.to(dtype).double().reshape(-1, Q.shape[-1])
     rows = rows[qm.reshape(-1)]
     masked = 0
     for _ in range(3):
         hits = 0
         for i in range(0, P.shape[0], chunk):
             sim = torch.einsum("rd,cmd->rcm", rows,
-                               P[i:i + chunk].to(torch.bfloat16).double())
+                               P[i:i + chunk].to(dtype).double())
             sim = sim.masked_fill(~pm[i:i + chunk][None], float("-inf"))
             top = sim.topk(2, dim=-1)
             v = top.values
@@ -571,8 +599,10 @@ def training_times(cm, ct, eval_args, step_args, gen, counts_of, parity,
     return kernels
 
 
-def training_phases(cm, ct, gen, seed, smi, root):
-    """Phases 7-10; returns the kernels line's training entries."""
+def training_phases(cm, ct, gen, seed, smi, work):
+    """Phases 7-10; returns the kernels line's training entries and the
+    fixture's dataset bundle. The fixture stays under ``work`` for phase
+    18."""
     from evdr_tpu_torch.train.config import TrainConfig
     from evdr_tpu_torch.train.harness import init_student, load_dataset_bundle
 
@@ -598,16 +628,11 @@ def training_phases(cm, ct, gen, seed, smi, root):
     del Qe, qme, P, pm
 
     # 8. the trainer
-    work = root / "build" / "chip_smoke"
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        trainer_counts, kw, init, best, _, _ = run_trainer(cm, work, seed)
-        cfg = TrainConfig(**kw)
-        bundle = load_dataset_bundle(cfg, FIXTURE_KEY, device=DEVICE)
-        check_best_artifact(bundle, init, best)
-        param0, pm_s, _ = init_student(cfg, FIXTURE_KEY, bundle, MF)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    trainer_counts, kw, init, best, _, _ = run_trainer(cm, work, seed)
+    cfg = TrainConfig(**kw)
+    bundle = load_dataset_bundle(cfg, FIXTURE_KEY, device=DEVICE)
+    check_best_artifact(bundle, init, best)
+    param0, pm_s, _ = init_student(cfg, FIXTURE_KEY, bundle, MF)
 
     # 9. a train step through the differentiable op
     step_counts, step_args = train_step_phase(cm, ct, bundle, param0, pm_s)
@@ -619,7 +644,7 @@ def training_phases(cm, ct, gen, seed, smi, root):
                  "maxsim_fwd_train": step_counts["maxsim_cuda_fwd_train"],
                  "maxsim_bwd": step_counts["maxsim_cuda_bwd"]}
     return training_times(cm, ct, eval_args, step_args, gen, counts_of,
-                          parity, smi)
+                          parity, smi), bundle
 
 
 # -------------------------------------------------------- capacity tiers
@@ -941,6 +966,356 @@ def tier_phases(cm, gen, seed, smi, root):
     return kernels
 
 
+# ------------------------------------------- the last TPU kernels (16-17)
+
+
+def f32_train_parity(ct, Q, qm, P, pm, gen, label):
+    """Phase 16 on one data set: K5 and K6 in float32 mode against their
+    plain float32 versions. Returns (max abs error of K5's scores and M,
+    relative error of K6's dQ and dP, max abs error of K6)."""
+    out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, torch.float32)
+    torch.cuda.synchronize()
+    out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, torch.float32)
+    e_fwd = max(float((out - out_p).abs().max()),
+                float((M - M_p).abs().max()))
+    same_k1 = bool(torch.equal(out, ct.maxsim_cuda(Q, P, qm, pm,
+                                                   torch.float32)))
+    g = torch.randn((Q.shape[0], P.shape[0]), device=DEVICE, generator=gen)
+    dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, torch.float32)
+    torch.cuda.synchronize()
+    dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, torch.float32)
+    e_rel = max(rel_err(dq, dq_p), rel_err(dp, dp_p))
+    e_abs = max(float((dq - dq_p).abs().max()), float((dp - dp_p).abs().max()))
+    empty = ~pm.any(dim=1)
+    log(f"phase 16 parity {label}: K5 float32 scores and M max_abs_err="
+        f"{e_fwd:.3e} (tol 1e-4), scores bit-equal to K1 float32: "
+        f"{same_k1}; K6 float32 dQ/dP relative {e_rel:.3e} (tol 1e-4), "
+        f"{e_abs:.3e} max abs; {int(empty.sum())} empty doc(s)")
+    for name, v in (("K5 f32", torch.isfinite(out).all()),
+                    ("K6 f32", torch.isfinite(dq).all()
+                     & torch.isfinite(dp).all())):
+        check(bool(v), f"{name} output finite ({label})")
+    check(e_fwd <= 1e-4 and same_k1, f"K5 float32 parity ({label})")
+    check(e_rel <= 1e-4, f"K6 float32 parity ({label})")
+    if empty.any():
+        check(float(out[:, empty].abs().max()) == 0.0
+              and float(dp[empty].abs().max()) == 0.0,
+              f"an empty doc scores 0 and gets no gradient ({label})")
+    return e_fwd, e_rel, e_abs
+
+
+def f32_train_phase(cm, ct, gen, smi):
+    """Phase 16: K5 and K6 in float32 mode at the train step's shape:
+    parity on tie-free random data and with an empty doc, one backward
+    through maxsim(impl='pallas', compute_dtype=float32) (their launches),
+    times. Returns their kernels-line entries."""
+    from evdr_tpu_torch.ops.maxsim import maxsim
+
+    n_doc_tok = -(-DOC_LEN[1] // MF)
+    Q = unit(torch.randn((STEP_NQ, LQ, D), device=DEVICE, generator=gen))
+    qm = torch.rand((STEP_NQ, LQ), device=DEVICE, generator=gen) > 0.15
+    qm[:, 0] = True
+    P = unit(torch.randn((TRAIN_DOCS, n_doc_tok, D), device=DEVICE,
+                         generator=gen))
+    pm = torch.rand((TRAIN_DOCS, n_doc_tok), device=DEVICE,
+                    generator=gen) > 0.1
+    pm[:, 0] = True
+    n_untied = untie(Q, qm, P, pm, dtype=torch.float32)
+    log(f"phase 16 data: {STEP_NQ} x {LQ} queries, {TRAIN_DOCS} x "
+        f"{n_doc_tok} random unit pages; {n_untied} runner-up token(s) "
+        f"within 1e-5 of a row's max masked out (tie-free in f32)")
+    errs = [f32_train_parity(ct, Q, qm, P, pm, gen, "random")]
+    pm[7] = False
+    errs.append(f32_train_parity(ct, Q, qm, P, pm, gen, "with an empty doc"))
+    e_fwd = max(e[0] for e in errs)
+    e_rel = max(e[1] for e in errs)
+    e_abs = max(e[2] for e in errs)
+
+    # the entry point: one backward through the dispatcher in float32
+    w = torch.randn((STEP_NQ, TRAIN_DOCS), device=DEVICE, generator=gen)
+    Qg = Q.clone().requires_grad_(True)
+    Pg = P.clone().requires_grad_(True)
+    cm.reset_launch_counts()
+    out = maxsim(Qg, Pg, qm, pm, impl="pallas", compute_dtype=torch.float32)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    counts = cm.launch_counts()
+    out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, torch.float32)
+    dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, w, torch.float32)
+    e_out = float((out.detach() - out_p).abs().max())
+    e_g = max(rel_err(Qg.grad, dq_p), rel_err(Pg.grad, dp_p))
+    log(f"phase 16 maxsim(impl='pallas', compute_dtype=float32) under "
+        f"autograd: scores {e_out:.3e} max abs, dQ/dP {e_g:.3e} relative "
+        f"against the plain float32 path; launches {counts}")
+    check(e_out <= 1e-4 and e_g <= 1e-4, "the float32 op's backward")
+    check(counts["maxsim_cuda_fwd_train_f32"] > 0
+          and counts["maxsim_cuda_bwd_f32"] > 0
+          and counts["maxsim_cuda_fwd_train"] == 0
+          and counts["maxsim_cuda_bwd"] == 0,
+          "the float32 op ran K5 f32 and K6 f32")
+
+    M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, torch.float32)[1]
+    fwd_args = (Q, P, qm, pm)
+    bwd_args = (Q, P, qm, pm, M, w)
+    rows_docs = float(qm.sum()) * float(pm.any(dim=1).sum())
+    timed = [
+        ("maxsim_fwd_train_f32", ct.maxsim_cuda_fwd_train_f32,
+         lambda *a: ct.maxsim_fwd_train_plain(*a, torch.float32), fwd_args,
+         tensor_bytes(*fwd_args) + (STEP_NQ + STEP_NQ * LQ) * TRAIN_DOCS * 4,
+         valid_ops(qm, pm), e_fwd, 1e-4, None,
+         "evdr_tpu/ops/pallas_maxsim_bwd.py:84"),
+        ("maxsim_bwd_f32", ct.maxsim_cuda_bwd_f32,
+         lambda *a: ct.maxsim_bwd_plain(*a, torch.float32), bwd_args,
+         tensor_bytes(*bwd_args) + (STEP_NQ * LQ + TRAIN_DOCS * n_doc_tok)
+         * D * 4, valid_ops(qm, pm) + 4.0 * D * rows_docs, e_abs, None,
+         e_rel, "evdr_tpu/ops/pallas_maxsim_bwd.py:168"),
+    ]
+    kernels = []
+    for kname, kern, plain, kargs, nbytes, ops, err, tol, rel, repl in timed:
+        ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
+        plain_ms, _, _ = cuda_ms(lambda: plain(*kargs), 3)
+        bms, by = bound(nbytes, ops, "tf32")
+        log(f"phase 16 time {kname}: {ms:.3f} ms median of 7 (spread "
+            f"{lo:.3f}-{hi:.3f}) at {STEP_NQ}x{LQ} queries x "
+            f"{TRAIN_DOCS}x{n_doc_tok} pages; bound {bms:.3f} ms by {by} "
+            f"(tf32 peak); plain {plain_ms:.3f} ms (median of 3); library: "
+            f"none; {smi}")
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": "evdr_tpu_torch/csrc/maxsim_train.cu", "replaces": repl,
+            "launches": counts[kern.__name__], "max_abs_err": err, "tol": tol,
+            "ms": ms, "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+        if rel is not None:
+            entry.update(rel_err=rel, rel_tol=1e-4)
+        kernels.append(entry)
+    return kernels
+
+
+def defer_phase(cm, gen, smi):
+    """Phase 17: K2b in both modes. Parity at the serving shape (1,000
+    pages, against K2's plain version, and bit-equal to K2), one call of
+    each entry point with deferred=True on a 50,000-page index (their
+    launches), then K2b's times beside K2's at Lp 768 and at Lp 64 (100,000
+    pages). Returns the kernels-line entries."""
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    modes = [("maxsim_int8full_deferred", cm.maxsim_cuda_int8full,
+              cm.maxsim_cuda_int8full_deferred, cm.maxsim_int8full_plain,
+              1e-3, "int8"),
+             ("maxsim_int8_deferred", cm.maxsim_cuda_int8,
+              cm.maxsim_cuda_int8_deferred, cm.maxsim_int8_plain, 2e-2,
+              "bf16")]
+    P, pm = make_pages(PARITY_DOCS, gen)
+    pm[7] = False                     # a doc with no valid token
+    P[11, 0] = 0.0                    # a valid token of scale 0
+    pm[11, 0] = True
+    P = P * pm[..., None]
+    codes, scales = quantize_tokens_int8(P, pm)
+    Q, qm, _ = planted_queries(lambda t: P[t], PARITY_DOCS, gen)
+    del P
+    parity = {}
+    for kname, k2, k2b, plain, tol, _ in modes:
+        kargs = (Q, codes, scales, qm, pm)
+        err = parity_case(17, kname, "serving shape", k2b, plain, kargs, tol,
+                          7)
+        same = bool(torch.equal(k2b(*kargs), k2(*kargs)))
+        log(f"phase 17 {kname} bit-equal to K2: {same}")
+        check(same, f"{kname} equals K2 bit for bit")
+        parity[kname] = (err, tol)
+    del codes, scales, Q, qm, pm
+
+    shapes = {}
+    for docs, lp in ((INT8_DOCS, LP), (SHORT_DOCS, SHORT_LP)):
+        codes, scales, pm8 = make_int8_pages(docs, gen, quantize_tokens_int8,
+                                             chunk=max(1, 768_000 // lp),
+                                             lp=lp)
+        Q8, qm8, _ = planted_queries(
+            lambda t: codes[t].float() * scales[t][..., None], docs, gen)
+        shapes[lp] = (Q8, codes, scales, qm8, pm8)
+
+    # the entry points, as a caller reaches K2b (deferred=True)
+    kargs = shapes[LP]
+    cm.reset_launch_counts()
+    got = {k2b.__name__: k2(*kargs, deferred=True)
+           for _, k2, k2b, _, _, _ in modes}
+    torch.cuda.synchronize()
+    counts = cm.launch_counts()
+    for _, k2, k2b, _, _, _ in modes:
+        check(bool(torch.equal(got[k2b.__name__], k2(*kargs))),
+              f"{k2b.__name__} equals K2 on {INT8_DOCS} pages")
+        check(counts[k2b.__name__] > 0, f"{k2b.__name__} launched")
+    log(f"phase 17 entry points (deferred=True) on {INT8_DOCS} pages x {LP}:"
+        f" bit-equal to K2; launches {counts}")
+    del got
+
+    kernels = []
+    n = PLAIN_TIME_DOCS
+    for kname, k2, k2b, plain, tol, peak in modes:
+        times = {}
+        for lp, args in shapes.items():
+            t_k2 = cuda_ms(lambda: k2(*args), 7)
+            t_k2b = cuda_ms(lambda: k2b(*args), 7)
+            times[lp] = (t_k2b, t_k2)
+            log(f"phase 17 time {kname} at Lp {lp} ({args[1].shape[0]} "
+                f"pages): K2b {t_k2b[0]:.3f} ms median of 7 (spread "
+                f"{t_k2b[1]:.3f}-{t_k2b[2]:.3f}), K2 {t_k2[0]:.3f} ms "
+                f"({t_k2[1]:.3f}-{t_k2[2]:.3f}); {smi}")
+        args = shapes[LP]
+        pargs = (args[0], args[1][:n], args[2][:n], args[3], args[4][:n])
+        plain_ms, _, _ = cuda_ms(lambda: plain(*pargs), 3)
+        nd = args[4].shape[0]
+        bms, by = bound(tensor_bytes(*args) + NQ * nd * 4,
+                        valid_ops(args[3], args[4]), peak)
+        a64 = shapes[SHORT_LP]
+        b64, _ = bound(tensor_bytes(*a64) + NQ * a64[4].shape[0] * 4,
+                       valid_ops(a64[3], a64[4]), peak)
+        log(f"phase 17 {kname}: bound {bms:.3f} ms by {by} ({peak} peak) "
+            f"at Lp {LP}, {b64:.3f} ms at Lp {SHORT_LP}; plain (K2's) "
+            f"{plain_ms:.3f}"
+            f" ms on the first {n} pages (median of 3); library: none")
+        err, tol = parity[kname]
+        (ms, lo, hi), k2_ms = times[LP][0], times[LP][1][0]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "evdr_tpu_torch/csrc/maxsim_int8_defer.cu",
+            "replaces": "evdr_tpu/ops/pallas_maxsim.py:740",
+            "launches": counts[k2b.__name__],
+            "max_abs_err": err, "tol": tol, "ms": ms, "ms_min": lo,
+            "ms_max": hi, "k2_ms": k2_ms, "ms_lp64": times[SHORT_LP][0][0],
+            "k2_ms_lp64": times[SHORT_LP][1][0], "bound_ms_lp64": b64,
+            "plain_ms": plain_ms, "plain_docs": n, "bound_ms": bms,
+            "bound_by": by, "library_ms": None})
+    return kernels
+
+
+# ------------------------------------------------- training, the rest (18)
+
+
+def qat_run(cm, work, seed, name, flags):
+    """One phase-18 trainer run through the CLI on phase 8's fixture.
+    Returns (its output directory, the log's eval lines, steps/s before and
+    after step EVAL_EVERY, the median eval ms/query, CLI wall seconds)."""
+    from evdr_tpu_torch.train import cli
+
+    data = work / "data"
+    argv = ["--datasets", FIXTURE_KEY, "--query_root", str(data),
+            "--teacher_root", str(data), "--init_root",
+            str(data / "S3E_init"), "--mfs", str(MF), "--out_root",
+            str(work / "results"), "--name", name, "--seed", str(seed),
+            "--score_impl", "pallas", "--eval_impl", "auto", "--max_steps",
+            str(TRAIN_STEPS), "--eval_every", str(EVAL_EVERY), *flags]
+    if DEVICE != "cuda":
+        argv += ["--device", DEVICE]
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out_dir = work / "results" / name / f"mf{MF}" / FIXTURE_KEY
+    log_path = out_dir / "train.log"
+    rows = eval_lines(log_path)
+    evals = [r for r in rows if "eval/NDCG@5" in r]
+    t = {r["step"]: r["time_sec"] for r in rows if "train/total loss" in r}
+    # steps/s between log lines with no eval between them: before the
+    # eval at EVAL_EVERY and after it
+    rates = ((EVAL_EVERY - 20) / (t[EVAL_EVERY] - t[20]),
+             (TRAIN_STEPS - EVAL_EVERY - 20)
+             / (t[TRAIN_STEPS] - t[EVAL_EVERY + 20]))
+    eval_ms = statistics.median(r["eval/latency"] for r in evals)
+    last = log_path.read_text().rstrip().splitlines()[-1]
+    check(re.search(r"\{.*\"summary/best_ndcg5\".*\}\s*$", last) is not None,
+          f"{name}: train.log ends with the summary/best_ndcg5 line")
+    nd0, nd_end = evals[0]["eval/NDCG@5"], evals[-1]["eval/NDCG@5"]
+    log(f"phase 18 run {name} ({' '.join(flags)}): {TRAIN_STEPS} steps in "
+        f"{wall:.1f} s of CLI wall time; eval NDCG@5 step 0 {nd0:.5f} -> "
+        f"step {evals[-1]['step']} {nd_end:.5f}; {rates[0]:.1f} steps/s "
+        f"(steps 20-{EVAL_EVERY}), {rates[1]:.1f} steps/s (steps "
+        f"{EVAL_EVERY + 20}-{TRAIN_STEPS}), eval {eval_ms:.4f} ms/query "
+        f"(median of {len(evals)}); launches {cm.launch_counts()}")
+    check(nd_end > nd0, f"{name}: NDCG@5 rose from step 0 ({nd0} -> "
+                        f"{nd_end})")
+    return out_dir
+
+
+def rest_of_training(cm, work, seed, bundle):
+    """Phase 18: (a) hardtoken + QAT int4, (b) mixup + QAT pq switched on at
+    half the steps, through the CLI; (b)'s best npz serves its codebooks
+    through RetrievalEngine.from_npz."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.data.npz_io import load_payload
+    from evdr_tpu_torch.data.packing import l2_normalize, preprocess_docs
+    from evdr_tpu_torch.ops.pq import decode_pq, encode_with_books
+
+    t0 = time.perf_counter()
+    log("phase 18: QAT opq is not run on the card: each refit is a host "
+        "train_opq of ~62 s (PERF.md §5); its branch differs from pq only in "
+        "_fit_qat_books and qdq_pq's expanded books, both held against the "
+        "JAX package on the CPU (tests/test_torch_qat.py, "
+        "tests/test_torch_train_qat.py)")
+    qat_run(cm, work, seed, "hardtoken_int4",
+            ["--aug", "hardtoken", "--qat", "int4"])
+    out_dir = qat_run(cm, work, seed, "mixup_pq",
+                      ["--aug", "mixup", "--qat", "pq", "--qat_start_frac",
+                       "0.5"])
+    path = out_dir / "best_ndcg5.npz"
+    payload = load_payload(path)
+    check(payload.get("qat_books") is not None,
+          "mixup_pq: best_ndcg5.npz carries qat_books")
+    books = np.asarray(payload["qat_books"], np.float32)
+    eng = RetrievalEngine.from_npz(path, dtype="pq")
+    check(np.array_equal(eng.index.books.cpu().numpy(), books)
+          and not eng.index.books_expanded, "from_npz serves the qat_books")
+    Q, qm = bundle.Q_test, bundle.qmask_test
+    _, idx = eng.search_dense(Q, qm, k=K)
+    top1 = torch.from_numpy(idx[:, 0]).to(DEVICE)
+    rows = torch.arange(Q.shape[0], device=DEVICE)
+    # the serving path's own numerics: K3's plain version on the engine's
+    # index (books quantized to int8 with one global scale, bf16 queries)
+    ix = eng.index
+    plain = cm.maxsim_pq_plain(Q, ix.P, qm, ix.pmask, ix.books)[:, :ix.n_docs]
+    gap_plain = plain[rows, plain.argmax(dim=1)] - plain[rows, top1]
+    same_plain = float((gap_plain == 0).float().mean())
+    # ... and the f32 scoring of the exported reconstruction (f32 books)
+    P, pm, _ = preprocess_docs(payload["documents"],
+                               payload.get("doc_attnmask"),
+                               payload.get("doc_imgmask"))
+    Pn = l2_normalize(P * pm[..., None].astype(np.float32))
+    codes = encode_with_books(Pn, books, pm)
+    rec = decode_pq(codes, books)
+    served = ix.P[:codes.shape[0], :codes.shape[1]].cpu().numpy()
+    check(np.array_equal(served, codes), "the engine serves the codes of the "
+                                         "exported reconstruction")
+    f32 = cm.maxsim_plain(Q, torch.from_numpy(rec).to(DEVICE), qm,
+                          torch.from_numpy(pm).to(DEVICE),
+                          compute=torch.float32)
+    gap = f32[rows, f32.argmax(dim=1)] - f32[rows, top1]
+    same = float((gap == 0).float().mean())
+    # where the two picks differ, their f32 scores must lie within what K3's
+    # rounding can move a score: the books to int8 (one global scale s, so
+    # each decoded dim moves <= s/2) and the queries to bf16; summed over a
+    # query's valid tokens, twice (both picks move)
+    s_books = float(np.abs(books).max()) / 127.0
+    r_max = float(np.linalg.norm(rec, axis=-1).max())
+    Qb = Q.to(torch.bfloat16).float()
+    bound_q = ((Qb.abs().sum(-1) * (s_books / 2)
+                + (Q - Qb).norm(dim=-1) * r_max) * qm).sum(1)
+    slack = float((gap - 2 * bound_q).max())
+    log(f"phase 18 mixup_pq artifact: qat_books {books.shape} served by "
+        f"from_npz(dtype='pq') with the exported reconstruction's codes; "
+        f"search_dense rank 1 equals K3's plain "
+        f"version for {same_plain:.4f} of {Q.shape[0]} test queries (the rest"
+        f" within {float(gap_plain.max()):.2e}, tol 1e-4), and the f32 "
+        f"scoring of the exported reconstruction for {same:.4f}; the others "
+        f"are near-ties: f32 gap up to {float(gap.max()):.2e}, each within "
+        f"the int8-book and bf16 rounding bound (largest gap - bound "
+        f"{slack:.2e}, tol 1e-4); phase 18 {time.perf_counter() - t0:.1f} s")
+    check(float(gap_plain.max()) < 1e-4,
+          "pq engine rank 1 equals K3's plain version but for near-ties")
+    check(slack <= 1e-4, "pq engine rank 1 against the f32 scoring of the "
+                         "reconstruction, but for near-ties")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1097,13 +1472,35 @@ def main(argv=None) -> int:
     del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs
     torch.cuda.empty_cache()
 
-    # 7-10. training
-    kernels += training_phases(cm, ct, gen, args.seed, smi, Path(root))
-    torch.cuda.empty_cache()
+    # 7-10. training; its fixture stays on disk for phase 18
+    work = Path(root) / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        train_kernels, bundle = training_phases(cm, ct, gen, args.seed, smi,
+                                                work)
+        kernels += train_kernels
+        torch.cuda.empty_cache()
 
-    # 11-15. the capacity tiers
-    kernels += tier_phases(cm, gen, args.seed, smi, Path(root))
-    log(f"phases 1-15: {time.perf_counter() - t_start:.1f} s")
+        # 11-15. the capacity tiers
+        kernels += tier_phases(cm, gen, args.seed, smi, Path(root))
+        torch.cuda.empty_cache()
+
+        # 16-17. K5/K6 in float32 mode, K2b
+        t0 = time.perf_counter()
+        kernels += f32_train_phase(cm, ct, gen, smi)
+        torch.cuda.empty_cache()
+        kernels += defer_phase(cm, gen, smi)
+        torch.cuda.empty_cache()
+        log(f"phases 16-17: {time.perf_counter() - t0:.1f} s")
+
+        # 18. the rest of training
+        rest_of_training(cm, work, args.seed, bundle)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phases 1-18: {time.perf_counter() - t_start:.1f} s")
+    check(len(kernels) == 14 and all(k["launches"] > 0 for k in kernels),
+          f"14 kernels, each launched on its path: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

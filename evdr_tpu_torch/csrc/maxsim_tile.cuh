@@ -1,6 +1,7 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
 // maxsim_bf16.cu (K1, bf16), maxsim_f32.cu (K1, float32), maxsim_int8.cu
-// (K2), maxsim_int4.cu (K4), maxsim_pq.cu (K3) and maxsim_train.cu (K5,
+// (K2, and K2b, K2 with its doc epilogue deferred one tile), maxsim_int4.cu
+// (K4), maxsim_pq.cu (K3) and maxsim_train.cu (K5 in bf16 and float32,
 // which also stores the per-row max M; K6 recomputes the same similarity
 // tiles through tile_mma below, a copy of the kernel's k-loop).
 //
@@ -85,6 +86,17 @@ template <int MODE> constexpr bool is_int8_mma = MODE == kInt8Int8 ||
 
 constexpr int kPqRows = 256;  // PQ books padded to 256 rows (uint8 codes)
 
+// The tile kernel's launch bound. A source may ask for EVDR_MIN_CTAS blocks
+// per SM (maxsim_int8_defer.cu does, for K2b); the others compile with the
+// bare bound: a minimum of 1 is NOT the same, it let ptxas raise K1/K2
+// from 77/73/76 to 90-101 registers (the -Xptxas=-v report), and they ran
+// slower.
+#ifdef EVDR_MIN_CTAS
+#define EVDR_LAUNCH_BOUNDS __launch_bounds__(kThreads, EVDR_MIN_CTAS)
+#else
+#define EVDR_LAUNCH_BOUNDS __launch_bounds__(kThreads)
+#endif
+
 template <int MODE> struct Traits;
 template <> struct Traits<kBf16> {
   using TQ = __nv_bfloat16; using TP = __nv_bfloat16; using TAcc = float;
@@ -141,11 +153,12 @@ template <int MODE> __host__ __device__ inline size_t raw_tile_bytes(
 
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
 // (units + 1) * 16 bytes. K3 with compact books also holds the int8 books
-// (kPqRows rows of d bytes over the M subspaces) at `books`.
+// (kPqRows rows of d bytes over the M subspaces) at `books`. K2b (`defer`)
+// keeps two `part` and two `red` buffers, one of each per doc parity.
 template <int MODE> struct Smem {
   int units, raw_units;
   size_t a, b, raw, colscale, qw, part, red, books, total;
-  __host__ __device__ explicit Smem(int d, int m_sub = 0) {
+  __host__ __device__ explicit Smem(int d, int m_sub = 0, bool defer = false) {
     units = mma_units<MODE>(d);
     raw_units = d / 16;  // int8 page units staged before widening
     const size_t row = (size_t)(units + 1) * 16;
@@ -155,8 +168,8 @@ template <int MODE> struct Smem {
     colscale = align128(raw + raw_tile_bytes<MODE>(raw_units, m_sub) * 2);
     qw = align128(colscale + sizeof(float) * kCols * 2);
     part = align128(qw + sizeof(float) * kRows);
-    red = align128(part + sizeof(float) * 2 * kRows);
-    books = align128(red + sizeof(float) * kRows);
+    red = align128(part + sizeof(float) * (defer ? 4 : 2) * kRows);
+    books = align128(red + sizeof(float) * (defer ? 2 : 1) * kRows);
     total = books + ((MODE == kPqBf16 || MODE == kPqInt8)
                          ? align128((size_t)kPqRows * d) : 0);
   }
@@ -471,12 +484,38 @@ __device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
   }
 }
 
+// K2b's deferred doc epilogue, in two stages that each run inside a
+// barrier interval the tile loop already has. Stage 1 (one tile after the
+// doc's end, threads tid < kRows): the row's max over the two column warps
+// (`pp`, 2 * kRows floats), the no-valid-token rule and the weight, into
+// `rr`. Stage 2 (one tile later, threads tid < nq_here): the sum of query
+// tid's lq rows of `rr`, in order, into out[q, dd]. The same operations in
+// the same order as the in-step epilogue, so the scores equal K2's bit for
+// bit.
+__device__ inline void defer_combine(const float* pp, float* rr,
+                                     const float* qw_s, int tid) {
+  if (tid < kRows) {
+    const float m = fmaxf(pp[tid], pp[kRows + tid]);
+    rr[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
+  }
+}
+__device__ inline void defer_sum(const float* rr, float* out, int q0,
+                                 int nq_here, int lq, int nd, int dd,
+                                 int tid) {
+  if (tid < nq_here) {
+    float s = 0.f;
+    for (int r = 0; r < lq; ++r) s += rr[tid * lq + r];
+    out[(size_t)(q0 + tid) * nd + dd] = s;
+  }
+}
+
 // STORE_M: K5, which also stores each row's max in m_out. A template flag,
-// so the serving kernels compile without that store. `books` and `m_sub`:
-// K3's int8 codebooks (kPqRows rows per subspace) and its subspace count;
-// unused by the other modes.
-template <int MODE, bool STORE_M>
-__global__ void __launch_bounds__(kThreads)
+// so the serving kernels compile without that store. DEFER: K2b, the doc
+// epilogue of K2 moved one tile later (see the doc-end block below); also
+// a template flag. `books` and `m_sub`: K3's int8 codebooks (kPqRows rows
+// per subspace) and its subspace count; unused by the other modes.
+template <int MODE, bool STORE_M, bool DEFER = false>
+__global__ void EVDR_LAUNCH_BOUNDS
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ qw,
               const typename Traits<MODE>::TP* __restrict__ p,
@@ -490,8 +529,9 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   using TAcc = typename Traits<MODE>::TAcc;
   // the MMA operand type: bf16 unless both sides are int8 (f32 for kF32)
   using TS = typename Traits<MODE>::TQ;
+  static_assert(!(STORE_M && DEFER), "K5 keeps the in-step epilogue");
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<MODE> lay(d, m_sub);
+  const Smem<MODE> lay(d, m_sub, DEFER);
   const int units = lay.units;
   const size_t stride = (size_t)(units + 1) * 16;
   unsigned char* As = smem + lay.a;
@@ -574,6 +614,8 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   float mx[2][2];  // running max of rows wm*32 + i*16 + h*8 + g
 #pragma unroll
   for (int i = 0; i < 2; ++i) mx[i][0] = mx[i][1] = kNegInit;
+  // K2b: the docs due for stage 1 and for stage 2 of their epilogue
+  [[maybe_unused]] int pend1 = -1, pend2 = -1;
 
   if (total > 0) issue(0, 0);
   cp_async_commit();
@@ -651,10 +693,28 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       }
     }
 
+    if constexpr (DEFER) {
+      // K2b, after this tile's MMAs: stage 2 of the doc combined one tile
+      // ago, stage 1 of the doc that ended in the last tile (their inputs
+      // landed before the last barrier; the parity buffers keep each doc's
+      // apart from the next doc's, which may end within this very tile)
+      if (pend2 >= 0)
+        defer_sum(red + (pend2 & 1) * kRows, out, q0, nq_here, lq, nd, pend2,
+                  tid);
+      if (pend1 >= 0)
+        defer_combine(part + (pend1 & 1) * 2 * kRows,
+                      red + (pend1 & 1) * kRows, qw_s, tid);
+      pend2 = pend1;
+      pend1 = -1;
+    }
+
     if (it % n_tiles == n_tiles - 1) {
       // doc epilogue: combine the quad and the two column warps, apply the
-      // no-valid-token rule and the weight, sum each query's Lq rows
+      // no-valid-token rule and the weight, sum each query's Lq rows. K2b
+      // combines the quad here and leaves the rest to the next two tiles
+      // (or the end of the loop), so it costs no barrier pair of its own.
       const int dd = d_begin + it / n_tiles;
+      float* pp = DEFER ? part + (dd & 1) * 2 * kRows : part;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -662,27 +722,44 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
           float m = mx[i][h];
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          if (t == 0) part[wn * kRows + wm * 32 + i * 16 + h * 8 + g] = m;
+          if (t == 0) pp[wn * kRows + wm * 32 + i * 16 + h * 8 + g] = m;
           mx[i][h] = kNegInit;
         }
-      __syncthreads();
-      if (tid < kRows) {
-        const float m = fmaxf(part[tid], part[kRows + tid]);
-        // K5: the row's raw max (before the no-valid-token rule), the
-        // residual K6 compares recomputed similarities against
-        if constexpr (STORE_M) {
-          if (tid < nrows) m_out[(row0 + tid) * nd + dd] = m;
+      if constexpr (DEFER) {
+        pend1 = dd;
+      } else {
+        __syncthreads();
+        if (tid < kRows) {
+          const float m = fmaxf(part[tid], part[kRows + tid]);
+          // K5: the row's raw max (before the no-valid-token rule), the
+          // residual K6 compares recomputed similarities against
+          if constexpr (STORE_M) {
+            if (tid < nrows) m_out[(row0 + tid) * nd + dd] = m;
+          }
+          red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
         }
-        red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
-      }
-      __syncthreads();
-      if (tid < nq_here) {
-        float s = 0.f;
-        for (int r = 0; r < lq; ++r) s += red[tid * lq + r];
-        out[(size_t)(q0 + tid) * nd + dd] = s;
+        __syncthreads();
+        if (tid < nq_here) {
+          float s = 0.f;
+          for (int r = 0; r < lq; ++r) s += red[tid * lq + r];
+          out[(size_t)(q0 + tid) * nd + dd] = s;
+        }
       }
     }
     __syncthreads();  // buffer `buf` is free for tile it + 2
+  }
+  if constexpr (DEFER) {
+    // the last docs' stages (the loop's last barrier published their inputs)
+    if (pend2 >= 0)
+      defer_sum(red + (pend2 & 1) * kRows, out, q0, nq_here, lq, nd, pend2,
+                tid);
+    if (pend1 >= 0) {
+      defer_combine(part + (pend1 & 1) * 2 * kRows, red + (pend1 & 1) * kRows,
+                    qw_s, tid);
+      __syncthreads();
+      defer_sum(red + (pend1 & 1) * kRows, out, q0, nq_here, lq, nd, pend1,
+                tid);
+    }
   }
 }
 
@@ -691,8 +768,8 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 // ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
 // unused (null) otherwise. ``books`` and ``m_sub``: K3's int8 books
 // (m_sub x kPqRows rows, of d / m_sub bytes for compact books, of d bytes
-// for kPqSumBf16) and subspace count.
-template <int MODE, bool STORE_M = false>
+// for kPqSumBf16) and subspace count. DEFER: K2b (K2's modes only).
+template <int MODE, bool STORE_M = false, bool DEFER = false>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
            const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
            int lp, int d, void* stream, const void* books = nullptr,
@@ -705,9 +782,9 @@ int launch(const void* q, const void* qw, const void* p, const void* scales,
   if ((MODE == kPqBf16 || MODE == kPqInt8) &&
       (d % m_sub != 0 || (d / m_sub) % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  const Smem<MODE> lay(d, m_sub);
+  const Smem<MODE> lay(d, m_sub, DEFER);
   if (lay.total > 232448) return (int)cudaErrorInvalidValue;
-  auto* kern = maxsim_kernel<MODE, STORE_M>;
+  auto* kern = maxsim_kernel<MODE, STORE_M, DEFER>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;

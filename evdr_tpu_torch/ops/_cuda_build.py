@@ -40,6 +40,10 @@ LIBRARIES = {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8": [_P] * 6 + [_I] * 5 + [_P],
     },
+    "maxsim_int8_defer": {
+        "evdr_maxsim_int8full_defer": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8_defer": [_P] * 6 + [_I] * 5 + [_P],
+    },
     "maxsim_f32": {
         "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
     },
@@ -54,7 +58,9 @@ LIBRARIES = {
     },
     "maxsim_train": {
         "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_fwd_train_f32": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_bwd": [_P] * 8 + [_I] * 6 + [_P],
+        "evdr_maxsim_bwd_f32": [_P] * 8 + [_I] * 6 + [_P],
     },
 }
 

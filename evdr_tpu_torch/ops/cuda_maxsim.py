@@ -1,6 +1,7 @@
 """Fused masked MaxSim on the GPU: wrappers of the hand-written Hopper
 kernels (``csrc/maxsim_bf16.cu``, ``csrc/maxsim_f32.cu``,
-``csrc/maxsim_int8.cu``, ``csrc/maxsim_int4.cu``, ``csrc/maxsim_pq.cu``)
+``csrc/maxsim_int8.cu``, ``csrc/maxsim_int8_defer.cu``,
+``csrc/maxsim_int4.cu``, ``csrc/maxsim_pq.cu``)
 and, beside each, its plain PyTorch version.
 
 Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
@@ -15,6 +16,10 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 - ``maxsim_cuda_int8`` (K2, int8 mode): bf16 queries x int8 codes.
 - ``maxsim_cuda_int8full`` (K2, int8full mode): queries quantized per token
   on the device (``quantize_queries_int8``), int8 x int8 -> int32.
+- ``maxsim_cuda_int8_deferred`` / ``maxsim_cuda_int8full_deferred`` (K2b,
+  reached as ``deferred=True`` of the two K2 wrappers, the JAX keyword):
+  K2's scores bit for bit, with each doc's epilogue run one page tile late;
+  their plain versions are K2's.
 - ``maxsim_cuda_int4`` / ``maxsim_cuda_int4full`` (K4): the same two modes
   over token-pair packed int4 codes (``ops/int4.py``).
 - ``maxsim_cuda_pq`` / ``maxsim_cuda_pqfull`` (K3): PQ codes decoded into
@@ -386,35 +391,69 @@ def _check_int8(P_i8, scales):
         raise TypeError(f"K2 takes f32 scales, got {scales.dtype}")
 
 
-def maxsim_cuda_int8(Q, P_i8, scales, qmask, pmask):
-    """K2, int8 mode: bf16 queries x int8 codes with per-token scales."""
-    if not _on_cuda(Q, P_i8, scales, qmask, pmask):
-        return maxsim_int8_plain(Q, P_i8, scales, qmask, pmask)
+def _launch_int8(lib, func, Q, P_i8, scales, qmask, pmask, int8_queries):
+    """K2's and K2b's host side: checks, the queries in the kernel's type
+    (bf16, or int8 quantized per token with their scale folded into the
+    post-max weight), the launch."""
     _check_shapes(Q, P_i8, qmask, pmask, scales)
     _check_int8(P_i8, scales)
     nq, lq, d = Q.shape
     nd, lp, _ = P_i8.shape
-    out = _launch("maxsim_int8", "evdr_maxsim_int8",
-                  Q.to(torch.bfloat16).contiguous(),
-                  qmask.float().contiguous(), P_i8, scales, pmask,
-                  nq, lq, nd, lp, d)
+    if int8_queries:
+        Qk, qw = quantize_queries_int8(Q, qmask)
+    else:
+        Qk, qw = Q.to(torch.bfloat16), qmask.float()
+    return _launch(lib, func, Qk.contiguous(), qw.contiguous(), P_i8, scales,
+                   pmask, nq, lq, nd, lp, d)
+
+
+def maxsim_cuda_int8(Q, P_i8, scales, qmask, pmask, deferred=False):
+    """K2, int8 mode: bf16 queries x int8 codes with per-token scales.
+    ``deferred=True``: K2b (:func:`maxsim_cuda_int8_deferred`), the same
+    scores."""
+    if deferred:
+        return maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask)
+    if not _on_cuda(Q, P_i8, scales, qmask, pmask):
+        return maxsim_int8_plain(Q, P_i8, scales, qmask, pmask)
+    out = _launch_int8("maxsim_int8", "evdr_maxsim_int8", Q, P_i8, scales,
+                       qmask, pmask, int8_queries=False)
     maxsim_cuda_int8.launches += 1
     return out
 
 
-def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask):
+def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask, deferred=False):
     """K2, int8full mode: queries quantized per token on the device, then
-    int8 x int8 -> int32 on the tensor cores."""
+    int8 x int8 -> int32 on the tensor cores. ``deferred=True``: K2b
+    (:func:`maxsim_cuda_int8full_deferred`), the same scores."""
+    if deferred:
+        return maxsim_cuda_int8full_deferred(Q, P_i8, scales, qmask, pmask)
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask)
-    _check_shapes(Q, P_i8, qmask, pmask, scales)
-    _check_int8(P_i8, scales)
-    nq, lq, d = Q.shape
-    nd, lp, _ = P_i8.shape
-    Q_i8, qw = quantize_queries_int8(Q, qmask)
-    out = _launch("maxsim_int8", "evdr_maxsim_int8full", Q_i8.contiguous(),
-                  qw.contiguous(), P_i8, scales, pmask, nq, lq, nd, lp, d)
+    out = _launch_int8("maxsim_int8", "evdr_maxsim_int8full", Q, P_i8, scales,
+                       qmask, pmask, int8_queries=True)
     maxsim_cuda_int8full.launches += 1
+    return out
+
+
+def maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask):
+    """K2b, int8 mode (``pallas_maxsim.py:_kernel_int8_defer``): K2's int8
+    mode with each doc's epilogue deferred one page tile; bit-equal to
+    :func:`maxsim_cuda_int8`, so its plain version is K2's."""
+    if not _on_cuda(Q, P_i8, scales, qmask, pmask):
+        return maxsim_int8_plain(Q, P_i8, scales, qmask, pmask)
+    out = _launch_int8("maxsim_int8_defer", "evdr_maxsim_int8_defer", Q, P_i8,
+                       scales, qmask, pmask, int8_queries=False)
+    maxsim_cuda_int8_deferred.launches += 1
+    return out
+
+
+def maxsim_cuda_int8full_deferred(Q, P_i8, scales, qmask, pmask):
+    """K2b, int8full mode: bit-equal to :func:`maxsim_cuda_int8full`."""
+    if not _on_cuda(Q, P_i8, scales, qmask, pmask):
+        return maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask)
+    out = _launch_int8("maxsim_int8_defer", "evdr_maxsim_int8full_defer", Q,
+                       P_i8, scales, qmask, pmask, int8_queries=True)
+    maxsim_cuda_int8full_deferred.launches += 1
     return out
 
 
@@ -521,7 +560,8 @@ def maxsim_cuda_pqfull(Q, codes, qmask, pmask, books):
 
 
 KERNEL_WRAPPERS = (maxsim_cuda, maxsim_cuda_f32, maxsim_cuda_int8,
-                   maxsim_cuda_int8full, maxsim_cuda_int4,
+                   maxsim_cuda_int8full, maxsim_cuda_int8_deferred,
+                   maxsim_cuda_int8full_deferred, maxsim_cuda_int4,
                    maxsim_cuda_int4full, maxsim_cuda_pq, maxsim_cuda_pqfull)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0

@@ -15,24 +15,26 @@ Counterpart of ``maxsim_pallas``'s ``custom_vjp``
   (``pallas_maxsim_bwd.py:18-20``); ``torch.amax``'s autograd splits it
   evenly, so the plain version is written in the indicator form, not as
   autograd of ``maxsim_torch``.
+- ``compute_dtype=torch.float32`` (the TPU kernels at Precision.HIGHEST)
+  hands both to their float32 modes, ``maxsim_cuda_fwd_train_f32`` (K1's
+  float32 tile with the M store) and ``maxsim_cuda_bwd_f32`` (3xTF32
+  gradient products, E kept in f32), each with its own launch count.
 - ``MaxSimFn``: forward K5 when Q or P needs a gradient, else K1 (with
   ``compute_dtype`` float32 K1's float32 mode); backward K6; the gradients
   come back in Q's and P's dtypes (``pallas_maxsim.py:635``).
 
 Routing as in ``cuda_maxsim``: CUDA tensors launch the kernel or raise,
-CPU tensors take the plain version. On the GPU, K5 and K6 compute in
-bfloat16 only; their float32 mode is queued in ROADMAP.md (queue 2) and
-raises ``NotImplementedError`` here. The plain versions take both.
+CPU tensors take the plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from evdr_tpu_torch.ops.cuda_maxsim import (_check_shapes, _on_cuda,
-                                            _plain_core, call_kernel,
-                                            mask_sentinel, maxsim_cuda,
-                                            plain_sims)
+from evdr_tpu_torch.ops.cuda_maxsim import (F32_MAX_D, _check_shapes,
+                                            _on_cuda, _plain_core,
+                                            call_kernel, mask_sentinel,
+                                            maxsim_cuda, plain_sims)
 
 # Above this many 128-row query blocks the backward chunks the query axis,
 # so the per-query-block dP partials stay under 8 x |dP| (as the TPU's
@@ -77,44 +79,83 @@ def maxsim_bwd_plain(Q, P, qmask, pmask, M, g, compute=torch.bfloat16):
 # --------------------------------------------------------------- kernels
 
 
-def _check_train(compute_dtype):
-    if compute_dtype == torch.float32:
-        raise NotImplementedError(
-            "K5/K6 in float32 mode are not ported to the GPU yet (ROADMAP "
-            "queue 2); use compute_dtype=torch.bfloat16, or CPU tensors for "
-            "the plain float32 version")
-    if compute_dtype != torch.bfloat16:
-        raise TypeError(f"K5/K6 compute in bfloat16, got {compute_dtype}")
+def _check_compute(compute_dtype):
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K5/K6 compute in bfloat16 or float32, got "
+                        f"{compute_dtype}")
 
 
-def maxsim_cuda_fwd_train(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
-    """K5: (scores (nq, nd) f32, M (nq * Lq, nd) f32)."""
-    if not _on_cuda(Q, P, qmask, pmask):
-        return maxsim_fwd_train_plain(Q, P, qmask, pmask, compute_dtype)
+def _fwd_train(func, dtype, Q, P, qmask, pmask):
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
-    _check_train(compute_dtype)
-    q = Q.to(torch.bfloat16).contiguous()
-    p = P.to(torch.bfloat16).contiguous()
+    q = Q.to(dtype).contiguous()
+    p = P.to(dtype).contiguous()
     out = torch.empty((nq, nd), dtype=torch.float32, device=Q.device)
     M = torch.empty((nq * lq, nd), dtype=torch.float32, device=Q.device)
-    call_kernel("maxsim_train", "evdr_maxsim_fwd_train",
+    call_kernel("maxsim_train", func,
                 (q, qmask.float().contiguous(), p, pmask, out, M),
                 nq, lq, nd, lp, d, aligned=(q, p))
+    return out, M
+
+
+def maxsim_cuda_fwd_train(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
+    """K5: (scores (nq, nd) f32, M (nq * Lq, nd) f32). ``compute_dtype``
+    torch.float32 runs its float32 mode (:func:`maxsim_cuda_fwd_train_f32`)."""
+    _check_compute(compute_dtype)
+    if compute_dtype == torch.float32:
+        return maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask)
+    if not _on_cuda(Q, P, qmask, pmask):
+        return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.bfloat16)
+    out, M = _fwd_train("evdr_maxsim_fwd_train", torch.bfloat16, Q, P, qmask,
+                        pmask)
     maxsim_cuda_fwd_train.launches += 1
+    return out, M
+
+
+def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
+    """K5 in float32 mode: K1's float32 scores (split-TF32 products, bit for
+    bit) and M from the same similarities."""
+    if not _on_cuda(Q, P, qmask, pmask):
+        return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.float32)
+    if Q.shape[-1] > F32_MAX_D:
+        raise ValueError(f"K5's float32 mode takes D <= {F32_MAX_D}, got "
+                         f"{Q.shape[-1]}")
+    out, M = _fwd_train("evdr_maxsim_fwd_train_f32", torch.float32, Q, P,
+                        qmask, pmask)
+    maxsim_cuda_fwd_train_f32.launches += 1
     return out, M
 
 
 def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):
     """K6: (dQ (nq, Lq, D) f32, dP (nd, Lp, D) f32) for the upstream
-    gradient ``g`` (nq, nd) and K5's ``M``."""
+    gradient ``g`` (nq, nd) and K5's ``M``. ``compute_dtype`` torch.float32
+    runs its float32 mode (:func:`maxsim_cuda_bwd_f32`)."""
+    _check_compute(compute_dtype)
+    if compute_dtype == torch.float32:
+        return maxsim_cuda_bwd_f32(Q, P, qmask, pmask, M, g)
     if not _on_cuda(Q, P, qmask, pmask, M, g):
-        return maxsim_bwd_plain(Q, P, qmask, pmask, M, g, compute_dtype)
+        return maxsim_bwd_plain(Q, P, qmask, pmask, M, g, torch.bfloat16)
+    return _bwd(maxsim_cuda_bwd, "evdr_maxsim_bwd", torch.bfloat16, Q, P,
+                qmask, pmask, M, g)
+
+
+def maxsim_cuda_bwd_f32(Q, P, qmask, pmask, M, g):
+    """K6 in float32 mode: E in f32, dQ and dP in 3xTF32 against the M of
+    :func:`maxsim_cuda_fwd_train_f32`."""
+    if not _on_cuda(Q, P, qmask, pmask, M, g):
+        return maxsim_bwd_plain(Q, P, qmask, pmask, M, g, torch.float32)
+    return _bwd(maxsim_cuda_bwd_f32, "evdr_maxsim_bwd_f32", torch.float32, Q,
+                P, qmask, pmask, M, g)
+
+
+def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
+    """K6's host side for either mode: checks, the query-axis chunking, the
+    partial buffers, the launch (counted on ``wrapper``), the partials'
+    sums."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
-    _check_train(compute_dtype)
     if d % 32 or d > K6_MAX_D:
         raise ValueError(f"K6 takes D a multiple of 32 up to {K6_MAX_D}, "
                          f"got {d}")
@@ -127,14 +168,13 @@ def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):
         dQs, dP = [], None
         for s in range(0, nq, step):
             e = min(s + step, nq)
-            dq_c, dp_c = maxsim_cuda_bwd(Q[s:e], P, qmask[s:e], pmask,
-                                         M[s * lq:e * lq], g[s:e],
-                                         compute_dtype)
+            dq_c, dp_c = wrapper(Q[s:e], P, qmask[s:e], pmask,
+                                 M[s * lq:e * lq], g[s:e])
             dQs.append(dq_c)
             dP = dp_c if dP is None else dP + dp_c
         return torch.cat(dQs), dP
-    q = Q.to(torch.bfloat16).contiguous()
-    p = P.to(torch.bfloat16).contiguous()
+    q = Q.to(dtype).contiguous()
+    p = P.to(dtype).contiguous()
     has = pmask.any(dim=-1).float()
     g2 = (g.float() * has[None, :]).contiguous()
     n_slices = max(1, min(nd, -(-_TARGET_CTAS // n_qb)))
@@ -144,11 +184,11 @@ def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):
                           device=Q.device)
     dp_part = torch.empty((n_qb, nd, lp, d), dtype=torch.float32,
                           device=Q.device)
-    call_kernel("maxsim_train", "evdr_maxsim_bwd",
+    call_kernel("maxsim_train", func,
                 (q, qmask.float().contiguous(), p, pmask,
                  M.float().contiguous(), g2, dq_part, dp_part),
                 nq, lq, nd, lp, d, db, aligned=(q, p))
-    maxsim_cuda_bwd.launches += 1
+    wrapper.launches += 1
     # the partials' sums, in a fixed order (no atomics)
     dQ = dq_part.sum(dim=0) if n_slices > 1 else dq_part[0]
     dP = dp_part.sum(dim=0) if n_qb > 1 else dp_part[0]
@@ -175,6 +215,7 @@ class MaxSimFn(torch.autograd.Function):
         return dQ.to(Q.dtype), dP.to(P.dtype), None, None, None
 
 
-KERNEL_WRAPPERS = (maxsim_cuda_fwd_train, maxsim_cuda_bwd)
+KERNEL_WRAPPERS = (maxsim_cuda_fwd_train, maxsim_cuda_fwd_train_f32,
+                   maxsim_cuda_bwd, maxsim_cuda_bwd_f32)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0

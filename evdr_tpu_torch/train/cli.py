@@ -11,8 +11,10 @@ on the GPU:
 ``--score_impl pallas`` (or ``auto``) scores the teacher precompute with K1's
 float32 mode, ``--eval_impl auto`` (the default) evaluates with it; the
 student is always scored by the plain differentiable ``maxsim_torch``.
-``--device cpu`` runs the plain PyTorch path on the host. Settings not
-ported yet (``--aug mixup|hardtoken``, ``--qat``, ``--mesh_docs > 1``,
+``--device cpu`` runs the plain PyTorch path on the host. ``--aug
+qnoise|mixup|hardtoken`` and ``--qat int8|int4|pq|opq`` (with
+``--qat_start_frac``, ``--qat_select_all``, ``--qat_pq_m``) run as in the
+JAX trainer. Settings not ported yet (``--mesh_docs > 1``,
 ``--checkpoint_backend orbax``, multi-host flags) raise
 ``NotImplementedError``.
 """

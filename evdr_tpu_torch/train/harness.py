@@ -26,10 +26,18 @@ As in the JAX package:
   (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay);
 - checkpoints are one npz with the JAX package's leaf layout (param, Adam
   step count, first and second moments), so a checkpoint of either package
-  resumes in the other.
+  resumes in the other;
+- the augmentations ``qnoise``, ``mixup`` and ``hardtoken`` and QAT
+  (``--qat int8|int4|pq|opq``, ``qat_start_frac``, ``qat_select_post``)
+  follow the JAX step and loop line for line. Their random draws come from
+  the step's seed through :func:`mixup_draws` and
+  :func:`virtual_query_noise` (other numbers than JAX's; the parity tests
+  hand both packages the same draws).
 
-Not ported yet (``check_ported`` raises ``NotImplementedError``): the mixup
-and hardtoken augmentations, QAT, ``mesh_docs > 1`` and orbax checkpoints.
+Not ported yet (``check_ported`` raises ``NotImplementedError``):
+``mesh_docs > 1`` and orbax checkpoints (they need the
+``orbax-checkpoint`` package, which the port does not depend on; npz is
+what both packages read).
 The JAX package's persistent compilation cache
 (``utils/timing.enable_persistent_cache``) has no counterpart: PyTorch runs
 eagerly and the kernels are built once per source hash.
@@ -71,6 +79,7 @@ from evdr_tpu_torch.losses.distill import (
     combined_loss,
 )
 from evdr_tpu_torch.ops.maxsim import maxsim, maxsim_torch
+from evdr_tpu_torch.ops.qat import qat_apply
 from evdr_tpu_torch.train.config import TrainConfig
 from evdr_tpu_torch.utils.logging_utils import get_logger, log_json
 from evdr_tpu_torch.utils.prng import PRNGSequence, generator_for, set_seed
@@ -90,17 +99,11 @@ _ROADMAP_TRAINING = "ROADMAP.md queue 1, 'Training, the rest'"
 
 def check_ported(cfg: TrainConfig) -> None:
     """Refuse the settings the port does not run yet (never ignore them)."""
-    refused = {
-        f"aug={cfg.aug!r}": cfg.aug in ("mixup", "hardtoken"),
-        f"qat={cfg.qat!r}": cfg.qat != "none",
-        f"checkpoint_backend={cfg.checkpoint_backend!r}":
-            cfg.checkpoint_backend == "orbax",
-    }
-    for what, hit in refused.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to evdr_tpu_torch yet "
-                f"({_ROADMAP_TRAINING})")
+    if cfg.checkpoint_backend == "orbax":
+        raise NotImplementedError(
+            "checkpoint_backend='orbax' is not ported to evdr_tpu_torch yet "
+            f"({_ROADMAP_TRAINING}): it needs the orbax-checkpoint package; "
+            "npz checkpoints resume in both packages")
     if cfg.mesh_docs > 1:
         raise NotImplementedError(
             "mesh_docs > 1 (multi-device training) is not ported to "
@@ -368,15 +371,37 @@ def make_optimizer(cfg: TrainConfig, param: torch.Tensor) -> torch.optim.AdamW:
                              weight_decay=cfg.weight_decay)
 
 
+def mixup_draws(alpha: float, n_docs: int, host_rng: np.random.Generator,
+                gen: torch.Generator):
+    """One mixup step's draws: lambda ~ Beta(alpha, alpha) (a 0-d f32
+    tensor on ``gen``'s device) from ``host_rng``, a numpy generator seeded
+    by the step's seed (``torch.distributions.Beta`` takes no generator),
+    and a permutation of the docs from ``gen``. Tests replace this function
+    to hand the port the JAX step's draws."""
+    lam = torch.tensor(host_rng.beta(alpha, alpha), dtype=torch.float32,
+                       device=gen.device)
+    return lam, torch.randperm(n_docs, generator=gen, device=gen.device)
+
+
+def virtual_query_noise(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard normal noise for the hard-token virtual queries, from the
+    step's generator. Tests replace this function to hand the port the JAX
+    step's noise."""
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
-                     pmask_student: torch.Tensor, optimizer):
+                     pmask_student: torch.Tensor, optimizer, qat_books=None):
     """One step: gather batch -> score -> loss -> AdamW, on the parameter
     that ``optimizer`` holds (updated in place).
 
     Returns ``run_step(idx, seed) -> parts``: ``idx`` is one batch of query
     indices (B,), or (K, B) with ``cfg.steps_per_dispatch`` K > 1; ``seed``
-    seeds the step's noise generator (one draw of ``PRNGSequence``). Parts
-    are 0-d tensors on the device (read them at logging cadence only).
+    seeds the step's noise generator (one draw of ``PRNGSequence``) and the
+    host generator of the mixup lambda. Parts are 0-d tensors on the device
+    (read them at logging cadence only). ``run_step.data["qat_books"]``
+    holds the QAT-pq codebooks the step reads; the evaluation's refit swaps
+    them there (the JAX step takes them as a jit argument).
     """
     loss_fn = make_loss_fn(cfg)
     needs_labels = cfg.loss == "infonce_sup"
@@ -384,6 +409,7 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
     aug = cfg.aug
     param = optimizer.param_groups[0]["params"][0]
     device = param.device
+    n_docs = bundle.n_docs
     pmask_s = pmask_student
     pmask_f = pmask_s[..., None].to(torch.float32)
     Q_all, qm_all = bundle.Q_train, bundle.qmask_train
@@ -391,8 +417,10 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
     pos_all = (torch.as_tensor(bundle.pos_idx, dtype=torch.long, device=device)
                if bundle.pos_idx is not None else None)
     P_t, pm_t = bundle.P_teacher_norm, bundle.pmask_teacher
+    data = {"qat_books": (None if qat_books is None else
+                          torch.as_tensor(qat_books, device=device))}
 
-    def step(idx, gen):
+    def step(idx, gen, host_rng):
         Qb = Q_all[idx]
         qmb = qm_all[idx]
         labels = pos_all[idx] if needs_labels else None
@@ -416,11 +444,37 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
                 sc_t = maxsim_torch(Qb, P_t, qmb, pm_t, chunk_p=chunk_p)
 
         optimizer.zero_grad(set_to_none=True)
-        Ps = l2_normalize(param * pmask_f)
+        P_masked = param * pmask_f
+        Ps = l2_normalize(P_masked)
+        if cfg.qat != "none":
+            # quantization-aware distillation: score the exact serving
+            # reconstruction (STE gradients); hardtoken mining below sees
+            # the same form (harness.py:398-409)
+            Ps = qat_apply(Ps, cfg.qat, data["qat_books"], pmask=pmask_s)
         # the student is scored by the plain differentiable op, as the JAX
         # step does (harness.py:372-373)
         sc_s = maxsim_torch(Qb, Ps, qmb, pmask_s, chunk_p=chunk_p)
         total, parts = loss_fn(sc_s, sc_t, labels)
+
+        if aug == "mixup" and n_docs > 1:
+            # document mixup (mainv3_iter_liscore_mixup.py:313-331)
+            lam, perm = mixup_draws(cfg.mixup_alpha, n_docs, host_rng, gen)
+            pmask_mix = pmask_s & pmask_s[perm]
+            P_mix = lam * P_masked + (1.0 - lam) * P_masked[perm]
+            Ps_mix = l2_normalize(P_mix * pmask_mix[..., None].to(P_mix.dtype))
+            sc_s_mix = maxsim_torch(Qb, Ps_mix, qmb, pmask_mix,
+                                    chunk_p=chunk_p)
+            sc_t_mix = lam * sc_t + (1.0 - lam) * sc_t[:, perm]
+            loss_score_mix = torch.mean((sc_s_mix - sc_t_mix.detach()) ** 2)
+            loss_mix = cfg.lambda_score * loss_score_mix
+            total = total + cfg.lambda_mix * loss_mix
+            parts = dict(parts, mix=loss_mix, score_mix=loss_score_mix)
+
+        if aug == "hardtoken":
+            total, parts = _hardtoken_aux(cfg, total, parts, Ps, sc_s, sc_t,
+                                          Qb, qmb, P_t, pm_t, pmask_s,
+                                          chunk_p, gen, loss_fn)
+
         total.backward()
         parts = {k: v.detach() for k, v in parts.items()}
         if cfg.debug_invariants:
@@ -436,18 +490,92 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
     def run_step(idx, seed):
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
         gen = generator_for(seed, device)
+        host_rng = np.random.default_rng(seed)
         if idx.dim() == 1:
-            return step(idx, gen)
+            return step(idx, gen, host_rng)
         # K steps per loop turn: the parts come from the last step, plus
         # the sum of all K totals (the JAX package's scan, harness.py:476-483)
         total_sum = torch.zeros((), dtype=torch.float32, device=device)
         for row in idx:
-            parts = step(row, gen)
+            parts = step(row, gen, host_rng)
             total_sum = total_sum + parts["total_loss"]
         parts["total_loss_sum"] = total_sum
         return parts
 
+    run_step.data = data
     return run_step
+
+
+def _stable_argsort_desc(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.argsort(-x)``: a stable sort of the negated values, so equal
+    values keep index order (the port's rule for ``lax.top_k`` ties)."""
+    return torch.argsort(-x, dim=dim, stable=True)
+
+
+def _hardtoken_aux(cfg, total, parts, Ps, sc_s, sc_t, Qb, qmb, P_t, pm_t,
+                   pmask_s, chunk_p, gen, loss_fn):
+    """Hard-token virtual-query auxiliary loss (the JAX package's
+    ``_hardtoken_aux``, ``mainv3_iter_liscore_QA_hardtoken.py:368-440``):
+
+    1. rank gaps between the teacher's and the student's orderings, by a
+       double stable argsort;
+    2. per query the ``aux_docs`` docs of largest |gap| within the teacher
+       top-k (stable descending sorts: ties keep index order);
+    3. for each picked doc, the doc token most similar to any valid query
+       token (+ noise, L2-normalized) becomes a 1-token virtual query;
+    4. aux loss = the same distillation loss on the virtual queries' scores.
+    """
+    b, n = sc_s.shape
+    k = min(int(cfg.k), n)
+    a = min(int(cfg.aux_docs), k)
+    if a <= 0:
+        return total, parts
+
+    sc_t_ng = sc_t.detach()
+    sc_s_ng = sc_s.detach()
+    rank_t = torch.argsort(_stable_argsort_desc(sc_t_ng), dim=-1, stable=True)
+    rank_s = torch.argsort(_stable_argsort_desc(sc_s_ng), dim=-1, stable=True)
+    gap = rank_t - rank_s                                    # exact integers
+
+    # diagnostic: per-doc summed |rank gap|, the top docs logged every
+    # gap_log_every steps (the reference's gap-log block)
+    G = gap.abs().sum(dim=0)                                 # (N,)
+    g_top = min(int(cfg.gap_topk), n)
+    gap_top_idx = _stable_argsort_desc(G)[:g_top]
+    diag = {"_gap_top_val": G[gap_top_idx].to(torch.float32),
+            "_gap_top_idx": gap_top_idx}
+
+    topk_idx = _stable_argsort_desc(sc_t_ng)[:, :k]          # (B, k)
+    gap_topk = gap.gather(1, topk_idx).abs()
+    aux_pos = _stable_argsort_desc(gap_topk)[:, :a]          # (B, a)
+    aux_doc_idx = topk_idx.gather(1, aux_pos)                # (B, a)
+
+    # hard token per (query, aux doc): argmax over doc tokens of the max
+    # similarity to any valid query token
+    flat = aux_doc_idx.reshape(-1)
+    doc_tok = P_t[flat]                                      # (B*a, Lp, D)
+    doc_msk = pm_t[flat]
+    q_rep = Qb.repeat_interleave(a, dim=0)                   # (B*a, Lq, D)
+    qm_rep = qmb.repeat_interleave(a, dim=0)
+    with torch.no_grad():
+        sim = torch.einsum("bld,bmd->blm", q_rep, doc_tok)
+        sim = sim.masked_fill(~qm_rep[:, :, None], float("-inf"))
+        max_over_q = sim.amax(dim=1).masked_fill(~doc_msk, float("-inf"))
+        best_tok = torch.argmax(max_over_q, dim=1)           # first max
+        hard = doc_tok[torch.arange(doc_tok.shape[0], device=doc_tok.device),
+                       best_tok][:, None, :]                 # (B*a, 1, D)
+        if cfg.virt_noise_std > 0:
+            hard = hard + virtual_query_noise(hard.shape, gen) * \
+                cfg.virt_noise_std
+        qv = l2_normalize(hard)
+        qmask_v = torch.ones(qv.shape[:2], dtype=torch.bool, device=qv.device)
+        sc_t_v = maxsim_torch(qv, P_t, qmask_v, pm_t, chunk_p=chunk_p)
+    sc_s_v = maxsim_torch(qv, Ps, qmask_v, pmask_s, chunk_p=chunk_p)
+    aux_total, aux_parts = loss_fn(sc_s_v, sc_t_v, None)
+    total = total + cfg.lambda_aux * aux_total
+    parts = dict(parts, aux=aux_total,
+                 **{f"aux_{k2}": v for k2, v in aux_parts.items()}, **diag)
+    return total, parts
 
 
 # =============================================================================
@@ -466,12 +594,16 @@ def _test_pos_idx(bundle: DatasetBundle) -> Optional[np.ndarray]:
 
 
 def evaluation_loss(cfg: TrainConfig, bundle: DatasetBundle, param,
-                    pmask_student) -> Dict[str, float]:
+                    pmask_student, qat_books=None) -> Dict[str, float]:
     """Distillation loss on test queries (mainv2_iter_liscore.py:343-370);
-    for supervised InfoNCE, the gt-docs eval loss of mainv2_iter_super_infonce."""
+    for supervised InfoNCE, the gt-docs eval loss of mainv2_iter_super_infonce.
+    Under ``cfg.qat`` it scores the serving reconstruction, as the step
+    does."""
     loss_fn = make_loss_fn(cfg)
     with torch.no_grad():
         Ps = l2_normalize(param * pmask_student[..., None].to(torch.float32))
+        if cfg.qat != "none":
+            Ps = qat_apply(Ps, cfg.qat, qat_books, pmask=pmask_student)
         sc_s = maxsim_torch(bundle.Q_test, Ps, bundle.qmask_test,
                             pmask_student, chunk_p=cfg.chunk_p)
         if cfg.loss == "infonce_sup":
@@ -502,6 +634,20 @@ def evaluation_loss(cfg: TrainConfig, bundle: DatasetBundle, param,
     return out
 
 
+def _fit_qat_books(cfg: TrainConfig, Ps, pmask) -> np.ndarray:
+    """Codebooks of the PQ-family QAT tiers in their serving form: compact
+    (M, K, D/M) for qat='pq', expanded rotated (M, K, D) for qat='opq'
+    (``ops/pq.expand_books``), fit on the host from a token sample of the
+    normalized student ``Ps`` (a tensor sends only the sample there); the
+    same books as the JAX package's for the same tokens and seed."""
+    from evdr_tpu_torch.ops.pq import expand_books, train_opq, train_pq
+
+    if cfg.qat == "opq":
+        obooks, rot = train_opq(Ps, pmask, m=cfg.qat_pq_m, seed=cfg.seed)
+        return expand_books(obooks, rot)
+    return train_pq(Ps, pmask, m=cfg.qat_pq_m, seed=cfg.seed)
+
+
 def update_best(best: Optional[Dict[str, Any]], metrics: Dict[str, Any],
                 step: int, kind: str) -> Tuple[Dict[str, Any], bool]:
     """Best tracking with tie-breaks (mainv2_iter_liscore.py:407-426)."""
@@ -522,7 +668,8 @@ def update_best(best: Optional[Dict[str, Any]], metrics: Dict[str, Any],
 
 def save_best_npz(out_dir: Path, fname: str, *, cfg: TrainConfig, dataset: str,
                   mf: int, step: int, best: Dict, metrics: Dict,
-                  param, pmask_student, docid, doc_attn_in, doc_img_in) -> None:
+                  param, pmask_student, docid, doc_attn_in, doc_img_in,
+                  qat_books=None) -> None:
     """Export the student as a compressed index npz.
 
     Convention parity: iter-family scripts save the UNNORMALIZED masked param
@@ -561,6 +708,10 @@ def save_best_npz(out_dir: Path, fname: str, *, cfg: TrainConfig, dataset: str,
             "lambda score": cfg.lambda_score,
             "lr": cfg.lr,
         },
+        # QAT-pq: the codebooks this student was trained (and its best
+        # metrics measured) against; serve with these, not a refit
+        extra=({"qat_books": np.asarray(qat_books, np.float32)}
+               if qat_books is not None else None),
     )
 
 
@@ -657,14 +808,52 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
             encoding="utf-8")
 
     evaluator = CustomRetrievalEvaluator()
+    pm_f = pmask_student[..., None].to(torch.float32)
+    # QAT-pq codebooks (numpy, the form the best npz exports): fit by every
+    # eval on the CURRENT student, so the STE grid tracks the drifting
+    # embeddings (a grid frozen on the init measured worse than post-hoc
+    # quantization; RESULTS.md QAT section). The JAX loop also fits them
+    # once before the step-0 (or resume) eval, which refits them on the same
+    # student; here that first eval fits them. The step reads them from
+    # train_step.data, where each refit swaps them.
+    qat_books = None
+    train_step = None
 
     def eval_now(step):
-        metrics = eval_retrieval(
-            evaluator, bundle.Q_test, bundle.qmask_test, param.detach(),
-            pmask_student, bundle.relevant_docs_test,
-            bundle.docidx_2_docid_test, bundle.qsidx_2_query_test,
-            chunk_p=cfg.chunk_p, impl=cfg.eval_impl)
-        ev_loss = evaluation_loss(cfg, bundle, param.detach(), pmask_student)
+        nonlocal qat_books
+        if cfg.qat != "none":
+            # QAT: evaluate (and select best checkpoints by) the serving
+            # reconstruction, not the raw f32 student (harness.py:982-1021)
+            with torch.no_grad():
+                P_now = l2_normalize(param.detach() * pm_f)
+            if cfg.qat in ("pq", "opq"):
+                qat_books = _fit_qat_books(cfg, P_now, pmask_student)
+                if train_step is not None:
+                    train_step.data["qat_books"] = torch.as_tensor(
+                        qat_books, device=bundle.device)
+            with torch.no_grad():
+                Pq = qat_apply(P_now, cfg.qat, qat_books, pmask=pmask_student)
+
+            def qat_score_fn():
+                # the reconstruction is made above (serving quantizes at
+                # build time); eval latency times the scoring only
+                return maxsim(bundle.Q_test, Pq, bundle.qmask_test,
+                              pmask_student, chunk_p=cfg.chunk_p,
+                              impl=cfg.eval_impl,
+                              compute_dtype=torch.float32)
+
+            metrics = eval_retrieval(
+                evaluator, bundle.Q_test, bundle.qmask_test, None, None,
+                bundle.relevant_docs_test, bundle.docidx_2_docid_test,
+                bundle.qsidx_2_query_test, score_fn=qat_score_fn)
+        else:
+            metrics = eval_retrieval(
+                evaluator, bundle.Q_test, bundle.qmask_test, param.detach(),
+                pmask_student, bundle.relevant_docs_test,
+                bundle.docidx_2_docid_test, bundle.qsidx_2_query_test,
+                chunk_p=cfg.chunk_p, impl=cfg.eval_impl)
+        ev_loss = evaluation_loss(cfg, bundle, param.detach(), pmask_student,
+                                  qat_books=qat_books)
         scalars = {
             "dataset": dataset, "mf": mf, "step": int(step),
             "eval/eval loss": ev_loss["total_loss"],
@@ -684,6 +873,11 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
     ckpt_path = out_dir / "ckpt.npz"
     resuming = cfg.resume and ckpt_path.exists()
     adam_state = None
+    # QAT fine-tune selection window (cfg.qat_select_post): best-checkpoint
+    # updates only from the STE switch on, so a QAT artifact is never a
+    # checkpoint the quantizer never trained (harness.py:1069-1090)
+    select_post = (cfg.qat != "none" and cfg.qat_start_frac > 0
+                   and cfg.qat_select_post)
     if not resuming:
         # step-0 eval (regression baseline: init metrics must match the
         # pooled index); skipped on resume, the checkpoint carries the best
@@ -691,8 +885,14 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         metrics0 = eval_now(0)
         log_json(logger, {"dataset": dataset, "mf": mf, "step": 0,
                           "note": "init Pbar before training"})
-        best_r1, _ = update_best(None, metrics0, 0, "r1")
-        best_nd5, _ = update_best(None, metrics0, 0, "nd5")
+        if select_post:
+            best_r1 = best_nd5 = None  # seeded by the first in-window eval
+            log_json(logger, {"note": "qat_select_post: best-checkpoint "
+                              "window starts at the STE switch",
+                              "qat_start_frac": cfg.qat_start_frac})
+        else:
+            best_r1, _ = update_best(None, metrics0, 0, "r1")
+            best_nd5, _ = update_best(None, metrics0, 0, "nd5")
         last_metrics = metrics0
     else:
         param, adam_state, step0, best_r1, best_nd5 = load_checkpoint(
@@ -710,7 +910,14 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         # that reflect the resumed index, not the discarded init
         last_metrics = eval_now(step0)
 
-    train_step = build_train_step(cfg, bundle, pmask_student, optimizer)
+    train_step = build_train_step(cfg, bundle, pmask_student, optimizer,
+                                  qat_books=qat_books)
+    step_phase1 = None
+    if cfg.qat != "none" and cfg.qat_start_frac > 0:
+        # QAT fine-tune phase 1: the plain (no-STE) step, the trajectory of
+        # a qat='none' run under the same seed
+        step_phase1 = build_train_step(dataclasses.replace(cfg, qat="none"),
+                                       bundle, pmask_student, optimizer)
 
     n_train = int(bundle.Q_train.shape[0])
     if cfg.trainer == "iter":
@@ -741,6 +948,7 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         1 if cfg.trainer == "iter" else steps_per_epoch)
         if cfg.save_period else 0)
     checkpoint_every = cfg.checkpoint_every
+    gap_log_every = cfg.gap_log_every
     if K > 1:
         # all cadences snap to multiples of K: the loop visits only those
         def _snap(x):
@@ -751,6 +959,14 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         max_steps = _snap(max_steps)
         save_every = _snap(save_every)
         checkpoint_every = _snap(checkpoint_every)
+        gap_log_every = _snap(gap_log_every)
+    # the QAT fine-tune's switch: dispatches whose last step is <= it run
+    # the plain step, the rest the STE step; snapped to dispatch boundaries
+    qat_switch = 0
+    if step_phase1 is not None:
+        qat_switch = int(cfg.qat_start_frac * max_steps)
+        if K > 1:
+            qat_switch = -(-qat_switch // K) * K
     if step0:
         if step0 % K:
             raise ValueError(
@@ -768,7 +984,9 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
             idx = next(stream)
         else:
             idx = np.stack([next(stream) for _ in range(K)])
-        parts = train_step(idx, rngs.next())
+        fn = (step_phase1 if step_phase1 is not None and step <= qat_switch
+              else train_step)
+        parts = fn(idx, rngs.next())
         loss_cum = loss_cum + parts.get("total_loss_sum", parts["total_loss"])
         loss_cnt += K
 
@@ -791,6 +1009,15 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
                     **{f"train/loss_{k2}": v
                        for k2, v in scalar_parts.items() if k2 != "total_loss"},
                 })
+
+        if ("_gap_top_val" in parts and gap_log_every
+                and step % gap_log_every == 0):
+            # hard-token rank-gap diagnostic (the reference's gap-log block)
+            log_json(logger, {
+                "dataset": dataset, "mf": mf, "step": step,
+                "gaplog/top_docidx": parts["_gap_top_idx"].tolist(),
+                "gaplog/top_gap": parts["_gap_top_val"].tolist(),
+            })
 
         if cfg.debug_invariants and step % log_every == 0:
             # masked-token invariants (mainv1.py:74-87): gradients AND
@@ -819,8 +1046,15 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         if (step % eval_every == 0) or (step == max_steps):
             metrics = eval_now(step)
             last_metrics = metrics
-            best_r1, upd_r1 = update_best(best_r1, metrics, step, "r1")
-            best_nd5, upd_nd5 = update_best(best_nd5, metrics, step, "nd5")
+            if select_post and step <= qat_switch:
+                # pre-switch eval: logged for the trajectory, outside the
+                # best-checkpoint window (the dispatch AT qat_switch still
+                # ran the plain step)
+                upd_r1 = upd_nd5 = False
+            else:
+                best_r1, upd_r1 = update_best(best_r1, metrics, step, "r1")
+                best_nd5, upd_nd5 = update_best(best_nd5, metrics, step,
+                                                "nd5")
             if upd_r1:
                 logger.info(
                     f"best recall step| {step} | nDCG@5={best_r1['NDCG@5']:.5f} | "
@@ -829,7 +1063,8 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
                               mf=mf, step=step, best=best_r1, metrics=metrics,
                               param=param.detach(), pmask_student=pmask_student,
                               docid=bundle.docid_teacher,
-                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in)
+                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in,
+                              qat_books=qat_books)
             if upd_nd5:
                 logger.info(
                     f"best nDCG@5 step| {step} | nDCG@5={best_nd5['NDCG@5']:.5f} | "
@@ -838,7 +1073,8 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
                               mf=mf, step=step, best=best_nd5, metrics=metrics,
                               param=param.detach(), pmask_student=pmask_student,
                               docid=bundle.docid_teacher,
-                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in)
+                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in,
+                              qat_books=qat_books)
 
         if checkpoint_every and step % checkpoint_every == 0:
             save_checkpoint(ckpt_path, param, optimizer, step, best_r1,

@@ -243,16 +243,19 @@ def test_int4_and_pq_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp,
         assert cuda_maxsim.launch_counts()[kern.__name__] == n0 + 1
 
 
-def _untie(Q, qm, P, pm, gap=1e-5):
+def _untie(Q, qm, P, pm, gap=1e-5, dtype=torch.bfloat16):
     """Mask out each runner-up page token whose exact similarity (f64, on
-    the bf16-rounded operands) to a valid query row lies within ``gap`` of
-    that row's max for its doc: another f32 summation order could make it
-    the argmax, and K6's indicator would then move a whole token's
-    gradient (chip_smoke.untie does the same at the train step's shape)."""
-    rows = Q.to(torch.bfloat16).double().reshape(-1, Q.shape[-1])
+    the operands rounded to the compute ``dtype``) to a valid query row lies
+    within ``gap`` of that row's max for its doc: another f32 summation
+    order could make it the argmax, and K6's indicator would then move a
+    whole token's gradient (chip_smoke.untie does the same at the train
+    step's shape)."""
+    if P.shape[1] < 2:
+        return  # one token a page: nothing to tie with
+    rows = Q.to(dtype).double().reshape(-1, Q.shape[-1])
     rows = rows[qm.reshape(-1)]
     for _ in range(3):
-        sim = torch.einsum("rd,cmd->rcm", rows, P.to(torch.bfloat16).double())
+        sim = torch.einsum("rd,cmd->rcm", rows, P.to(dtype).double())
         top = sim.masked_fill(~pm[None], float("-inf")).topk(2, dim=-1)
         v = top.values
         r, c = ((v[..., 0] - v[..., 1] < gap)
@@ -307,3 +310,132 @@ def test_train_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp, d):
     counts = cuda_maxsim.launch_counts()
     for name, n in want.items():
         assert counts[name] == n0[name] + n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,lq,nd,lp,d", [
+    (9, 7, 13, 71, 32), (7, 128, 5, 65, 64), (300, 33, 17, 64, 128),
+    (40, 32, 300, 155, 96), (5, 16, 9, 1, 128)])
+def test_f32_train_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp,
+                                                            d):
+    """K5 and K6 in float32 mode against their plain float32 versions at
+    ragged shapes (odd Lp, Lp = 1, D 32-128, several query blocks), with a
+    doc that has no valid token, on tie-free data. 3xTF32 products against
+    full-f32 ones: K5's scores and M within 1e-4, K6's dQ and dP within 1e-4
+    relative (Frobenius); K5's scores equal K1 float32's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.set_float32_matmul_precision("highest")
+    ct = cuda_maxsim_train
+    rng = np.random.default_rng(nq + lq + lp + d)
+    dev = "cuda"
+    Q = torch.from_numpy(rng.normal(size=(nq, lq, d)).astype(np.float32))
+    Q = (Q / Q.norm(dim=-1, keepdim=True)).to(dev)
+    P = torch.from_numpy(rng.normal(size=(nd, lp, d)).astype(np.float32))
+    P = (P / P.norm(dim=-1, keepdim=True)).to(dev)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    qm[:, 0] = True
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    pm[:, 0] = True
+    pm[nd // 2] = False
+    _untie(Q, qm, P, pm, dtype=torch.float32)
+    g = torch.from_numpy(rng.normal(size=(nq, nd)).astype(np.float32)).to(dev)
+    n0 = dict(cuda_maxsim.launch_counts())
+    out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, torch.float32)
+    out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, torch.float32)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(M, M_p, rtol=0, atol=1e-4)
+    assert torch.equal(out, cuda_maxsim.maxsim_cuda_f32(Q, P, qm, pm))
+    dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, torch.float32)
+    dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, torch.float32)
+    for a, b in ((dq, dq_p), (dp, dp_p)):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+    assert float(out[:, nd // 2].abs().max()) == 0.0
+    assert float(dp[nd // 2].abs().max()) == 0.0
+    n_qb = -(-nq // (128 // lq))
+    want = {"maxsim_cuda_fwd_train_f32": 1, "maxsim_cuda_f32": 1,
+            "maxsim_cuda_bwd_f32": -(-n_qb // ct.MAX_QB_BLOCKS),
+            "maxsim_cuda_fwd_train": 0, "maxsim_cuda_bwd": 0}
+    counts = cuda_maxsim.launch_counts()
+    for name, n in want.items():
+        assert counts[name] == n0[name] + n, name
+
+
+@pytest.mark.gpu
+def test_maxsimfn_f32_end_to_end_on_the_card():
+    """maxsim(impl='pallas', compute_dtype=float32) under autograd on CUDA
+    tensors runs K5 f32 then K6 f32, and its scores and gradients match the
+    same call on CPU copies (the plain float32 versions) within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.maxsim import maxsim
+
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(5)
+    Q = torch.from_numpy(rng.normal(size=(24, 20, 128)).astype(np.float32))
+    Q = Q / Q.norm(dim=-1, keepdim=True)
+    P = torch.from_numpy(rng.normal(size=(40, 77, 128)).astype(np.float32))
+    P = P / P.norm(dim=-1, keepdim=True)
+    qm = torch.from_numpy(rng.random((24, 20)) > 0.2)
+    pm = torch.from_numpy(rng.random((40, 77)) > 0.2)
+    pm[3] = False
+    _untie(Q, qm, P, pm, dtype=torch.float32)
+    g = torch.from_numpy(rng.normal(size=(24, 40)).astype(np.float32))
+    grads = []
+    n0 = dict(cuda_maxsim.launch_counts())
+    for dev in ("cuda", "cpu"):
+        q = Q.to(dev).requires_grad_(True)
+        p = P.to(dev).requires_grad_(True)
+        out = maxsim(q, p, qm.to(dev), pm.to(dev), impl="pallas",
+                     compute_dtype=torch.float32)
+        out.backward(g.to(dev))
+        grads.append([out.detach().cpu(), q.grad.cpu(), p.grad.cpu()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    counts = cuda_maxsim.launch_counts()
+    for name in ("maxsim_cuda_fwd_train_f32", "maxsim_cuda_bwd_f32"):
+        assert counts[name] == n0[name] + 1, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,lq,nd,lp,d", [
+    (9, 7, 13, 71, 32), (7, 128, 5, 65, 48), (256, 32, 301, 64, 128),
+    (130, 5, 11, 1, 16), (33, 17, 900, 20, 64)])
+def test_deferred_int8_kernels_equal_k2_on_the_card(nq, lq, nd, lp, d):
+    """K2b (both modes) against K2 on the same inputs: bit-equal (the same
+    sums in the same order); and within K2's tolerance of the plain version,
+    at odd Lp, Lp = 1 (a doc ends every tile) and many doc blocks, with a
+    doc that has no valid token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(nq + lq + lp + d)
+    dev = "cuda"
+    Q = torch.from_numpy(rng.normal(size=(nq, lq, d)).astype(np.float32))
+    Q = (Q / Q.norm(dim=-1, keepdim=True)).to(dev)
+    P = torch.from_numpy(rng.normal(size=(nd, lp, d)).astype(np.float32))
+    P = (P / P.norm(dim=-1, keepdim=True)).to(dev)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    pm[nd // 2] = False
+    codes, sc = quantize_tokens_int8(P, pm)
+    args = (Q, codes, sc, qm, pm)
+    for k2, k2b, plain in [
+            (cuda_maxsim.maxsim_cuda_int8,
+             cuda_maxsim.maxsim_cuda_int8_deferred,
+             cuda_maxsim.maxsim_int8_plain),
+            (cuda_maxsim.maxsim_cuda_int8full,
+             cuda_maxsim.maxsim_cuda_int8full_deferred,
+             cuda_maxsim.maxsim_int8full_plain)]:
+        n0 = cuda_maxsim.launch_counts()
+        got = k2(*args, deferred=True)
+        want = k2(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        torch.testing.assert_close(got, plain(*args), rtol=0, atol=1e-4)
+        assert got[:, nd // 2].abs().max().item() == 0.0
+        n = cuda_maxsim.launch_counts()
+        assert n[k2b.__name__] == n0[k2b.__name__] + 1
+        assert n[k2.__name__] == n0[k2.__name__] + 1

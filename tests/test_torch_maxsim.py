@@ -214,3 +214,61 @@ def test_list_scorers_match_jax_package():
         rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         score_multi_vector([], ps, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["int8full", "int8"])
+def test_deferred_int8_plain_route_matches_pallas_deferred(mode):
+    """K2b through its entry points (``deferred=True``) on CPU tensors takes
+    K2's plain version (the same scores), against the TPU's deferred kernel
+    in interpret mode at a tiling that engages it (tests/test_maxsim.py's:
+    128 queries x 4 tokens, 3 docs x 16 tokens, D = 32). Only the order of
+    the sums differs -> 1e-5."""
+    from evdr_tpu.ops.pallas_maxsim import _pick_tiles, _resolve_epilogue
+
+    nq, lq, nd, lp, d, rows, cols = 128, 4, 3, 16, 32, 1024, 128
+    qb, _, db, _ = _pick_tiles(lq, lp, rows, cols, nq=nq)
+    assert _resolve_epilogue("auto", qb, db, deferred=True)[1]
+    rng = np.random.default_rng(11)
+    Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
+    P = rng.normal(size=(nd, lp, d)).astype(np.float32)
+    qm = rng.random((nq, lq)) > 0.2
+    pm = rng.random((nd, lp)) > 0.2
+    codes, scales = jax_quantize(P * pm[..., None], pm)
+    jfn, tfn = ((maxsim_pallas_int8full, cuda_maxsim.maxsim_cuda_int8full)
+                if mode == "int8full" else
+                (maxsim_pallas_int8, cuda_maxsim.maxsim_cuda_int8))
+    want = np.asarray(jfn(*_j(Q, codes, scales, qm, pm), interpret=True,
+                          target_rows=rows, target_cols=cols, deferred=True))
+    args = _t(Q, codes, scales, qm, pm)
+    before = cuda_maxsim.launch_counts()
+    got = tfn(*args, deferred=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tfn(*args))
+    assert cuda_maxsim.launch_counts() == before  # no kernel launched
+
+
+def test_deferred_int8_routes_to_k2b_on_the_card(monkeypatch):
+    # with the device check and the launch stubbed: deferred=True hands the
+    # same operands to K2b's entries (their own library and launch counts)
+    calls = []
+    monkeypatch.setattr(cuda_maxsim, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_maxsim, "call_kernel",
+                        lambda lib, func, ops, *a, aligned=(): calls.append(
+                            (lib, func, ops[0].dtype)))
+    for w in cuda_maxsim.KERNEL_WRAPPERS:
+        monkeypatch.setattr(w, "launches", 0)
+    Q, P, qm, pm = _case(4)
+    args = _t(Q, *quantize_tokens_int8(P, pm), qm, pm)
+    for deferred in (False, True):
+        cuda_maxsim.maxsim_cuda_int8(*args, deferred=deferred)
+        cuda_maxsim.maxsim_cuda_int8full(*args, deferred=deferred)
+    assert calls == [
+        ("maxsim_int8", "evdr_maxsim_int8", torch.bfloat16),
+        ("maxsim_int8", "evdr_maxsim_int8full", torch.int8),
+        ("maxsim_int8_defer", "evdr_maxsim_int8_defer", torch.bfloat16),
+        ("maxsim_int8_defer", "evdr_maxsim_int8full_defer", torch.int8)]
+    counts = cuda_maxsim.launch_counts()
+    assert all(counts[w.__name__] == 1 for w in (
+        cuda_maxsim.maxsim_cuda_int8, cuda_maxsim.maxsim_cuda_int8full,
+        cuda_maxsim.maxsim_cuda_int8_deferred,
+        cuda_maxsim.maxsim_cuda_int8full_deferred))

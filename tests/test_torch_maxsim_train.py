@@ -105,7 +105,7 @@ def test_plain_k5_k6_match_jax(case, tdtype, jdtype):
     np.testing.assert_allclose(dp.numpy(), want_dp, rtol=1e-5, atol=1e-5)
 
 
-def test_wrappers_route_cpu_tensors_to_the_plain_versions():
+def test_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     Q, P, qm, pm, g = _case(3)
     Qt, Pt, qmt, pmt, gt = _t(Q, P, qm, pm, g)
     before = cuda_maxsim.launch_counts()
@@ -124,8 +124,28 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     assert cuda_maxsim.launch_counts() == before  # no kernel launched
     assert {w.__name__ for w in cuda_maxsim_train.KERNEL_WRAPPERS} <= set(
         before)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_maxsim_train._check_train(torch.float32)
+    # compute_dtype float32 takes the float32 kernels (no longer refused):
+    # with the device check and the launch stubbed, the wrappers hand f32
+    # operands to the _f32 entries and count on the _f32 wrappers
+    calls = []
+    monkeypatch.setattr(cuda_maxsim_train, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_maxsim_train, "call_kernel",
+                        lambda lib, func, ops, *a, aligned=(): calls.append(
+                            (func, ops[0].dtype, ops[2].dtype)))
+    for w in cuda_maxsim_train.KERNEL_WRAPPERS:
+        monkeypatch.setattr(w, "launches", 0)
+    maxsim_cuda_fwd_train(Qt, Pt, qmt, pmt, torch.float32)
+    maxsim_cuda_bwd(Qt, Pt, qmt, pmt, M, gt, torch.float32)
+    maxsim_cuda_bwd(Qt, Pt, qmt, pmt, M, gt)
+    assert calls == [("evdr_maxsim_fwd_train_f32",) + (torch.float32,) * 2,
+                     ("evdr_maxsim_bwd_f32",) + (torch.float32,) * 2,
+                     ("evdr_maxsim_bwd",) + (torch.bfloat16,) * 2]
+    assert {w.__name__: w.launches
+            for w in cuda_maxsim_train.KERNEL_WRAPPERS} == {
+        "maxsim_cuda_fwd_train": 0, "maxsim_cuda_fwd_train_f32": 1,
+        "maxsim_cuda_bwd": 1, "maxsim_cuda_bwd_f32": 1}
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        maxsim_cuda_fwd_train(Qt, Pt, qmt, pmt, torch.float16)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -378,9 +378,7 @@ def test_trainer_raises_without_a_gpu(fixture_root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(aug="mixup"), dict(aug="hardtoken"), dict(qat="int8"),
-    dict(mesh_docs=2), dict(checkpoint_backend="orbax"),
-    dict(qat="int4"), dict(qat="pq")])
+    dict(mesh_docs=2), dict(checkpoint_backend="orbax")])
 def test_unported_settings_raise(fixture_root, tmp_path, setting):
     cfg = TrainConfig(**_kw(fixture_root, tmp_path, **setting))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
