@@ -40,12 +40,18 @@ line each:
 9. a train step through the differentiable op: the liscore loss and one
    AdamW step on the student with its pages scored by MaxSimFn (K5, then
    K6), held against the same step through maxsim_torch;
-10. times of K1's float32 mode, K5 and K6 at those shapes;
+10. times of K1's float32 mode at the eval shape and at the teacher
+    precompute's (256 queries of the train split against the 1,000
+    teacher pages), of K5 and K6 at the train step's, with K1 float32's
+    CTAs per SM;
 11. capacity-tier parity at the serving shape (1,000 pages): K4 (int4 and
     int4full, at Lp 768 and at an odd Lp of 767) and K3 (pq and pqfull,
     with compact PQ books and with expanded OPQ books) against their plain
     versions, with a doc that has no valid token and a valid token of
-    scale 0;
+    scale 0; K3 on the first 4, 12, 20, 36 and 68 queries (1, 3, 5, 9 and
+    17 query blocks: a cluster of one and clusters with padding CTAs)
+    bit-equal to the same rows of the 256-query call (clusters of 2 CTAs
+    at most with compact books, of 8 with expanded ones);
 12. the int4 tier: RetrievalEngine(dtype='int4') with and without
     quantize_queries over 50,000 pages whose packed codes are made on the
     device and enter through build_from_codes4;
@@ -58,8 +64,10 @@ line each:
     pq files from an interchange npz, RetrievalEngine.from_npz and
     tools/search.main load them (rank 1 equals search_dense), and
     tools/serve_http serves the pq engine (/healthz, /search);
-15. times of K4 and K3's four modes at the 50,000-page shapes (plain
-    versions on the first 10,000 pages);
+15. times of K4 and K3's four modes at the 50,000-page shapes, and of K3's
+    expanded-books path on the same codes with expand_books of a random
+    rotation (plain versions on the first 10,000 pages), with K3's cluster
+    size and CTAs per SM;
 16. K5 and K6 in float32 mode at the train step's shape (32 queries x 32
     tokens against 1,000 pages x 154 tokens) against their plain float32
     versions, on tie-free data and with a doc that has no valid token; one
@@ -84,7 +92,10 @@ line. Any failure raises: the script exits nonzero and prints no result
 line. Launch counts in the kernels line come from the main paths' runs
 only: phases 4-5 (serving: K1 bf16, K2), phase 8 (the trainer: K1 float32),
 phase 9 (the train step: K5, K6) and phases 12-14 (the capacity tiers: K4,
-K3), each with the counts set to 0 just before it. The float32 modes of
+K3), each with the counts set to 0 just before it; K1 float32's and K3's
+also by kernel function and shape (``cuda_maxsim.launch_shapes``; K3's
+compact-books pq and pqfull and its expanded-books path are three
+entries). The float32 modes of
 K5/K6 and K2b have no trainer or engine path, in the JAX package either
 (its student is scored by maxsim_xla, its engine never passes
 ``deferred``): their launches come from their entry points' calls in
@@ -305,6 +316,14 @@ def valid_ops(qmask, pmask):
     return 2.0 * D * float(qmask.sum()) * float(pmask.sum())
 
 
+def launch_shapes(cm, wrapper, func=None):
+    """The launches of one wrapper (and kernel function) since the counts
+    were last set to 0, by shape: [{nq, lq, nd, lp, launches}, ...]."""
+    return [{"nq": nq, "lq": lq, "nd": nd, "lp": lp, "launches": n}
+            for (w, f, nq, lq, nd, lp), n in sorted(cm.launch_shapes.items())
+            if w == wrapper and func in (None, f)]
+
+
 def rel_err(a, b) -> float:
     """Relative Frobenius error of a against b."""
     return float((a.double() - b.double()).norm() / b.double().norm())
@@ -431,6 +450,7 @@ def run_trainer(cm, work, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     counts = cm.launch_counts()
+    shapes = launch_shapes(cm, "maxsim_cuda_f32")
 
     out_dir = work / "results" / "smoke" / f"mf{MF}" / FIXTURE_KEY
     log_path = out_dir / "train.log"
@@ -453,13 +473,14 @@ def run_trainer(cm, work, seed):
     log(f"phase 8 trainer: {TRAIN_STEPS} steps in {wall:.1f} s (CLI wall "
         f"time, teacher precompute, fixture load and 3 evals included); "
         f"eval NDCG@5 step 0 {nd0:.5f} -> step {evals[-1]['step']} "
-        f"{nd_end:.5f}, best {best}; launches {counts}")
+        f"{nd_end:.5f}, best {best}; launches {counts}; K1 float32 by "
+        f"shape {shapes}")
     log(f"phase 8 trainer rate: {steps_s:.1f} steps/s (train.log, steps "
         f"20-{EVAL_EVERY}), eval {eval_ms:.4f} ms/query (median of "
         f"{len(evals)} evals, K1 float32 scoring + host copy)")
     check(nd_end > nd0, f"NDCG@5 rose from step 0 ({nd0} -> {nd_end})")
     check(counts["maxsim_cuda_f32"] > 0, "K1 float32 launched by the trainer")
-    return counts, kw, init, best, steps_s, eval_ms
+    return counts, kw, init, best, steps_s, eval_ms, shapes
 
 
 def check_best_artifact(bundle, init, best):
@@ -544,25 +565,59 @@ def train_step_phase(cm, ct, bundle, param0, pm_s):
     return counts, (Qb, l2_normalize(param0 * pm_f), qmb, pm_s)
 
 
-def training_times(cm, ct, eval_args, step_args, gen, counts_of, parity,
-                   smi):
-    """Phase 10: K1 float32 at the eval shape, K5 and K6 at the train
-    step's shape: median of 7 CUDA-event timings, bound, plain time."""
+def training_times(cm, ct, eval_args, teacher_args, step_args, gen,
+                   counts_of, f32_shapes, parity, smi):
+    """Phase 10: K1 float32 at the teacher precompute's shape and at the
+    eval shape, K5 and K6 at the train step's shape: median of 7 CUDA-event
+    timings, bound, plain time."""
     Qb, Ps, qmb, pm_s = step_args
     _, M = ct.maxsim_cuda_fwd_train(Qb, Ps, qmb, pm_s)
     g = torch.randn((Qb.shape[0], Ps.shape[0]), device=DEVICE, generator=gen)
     bwd_args = (Qb, Ps, qmb, pm_s, M, g)
     nq, lq = Qb.shape[:2]
     nd, lp = pm_s.shape
-    qe, pe = eval_args[2], eval_args[3]
     rows_docs = float(qmb.sum()) * float(pm_s.any(dim=1).sum())
+
+    def f32_plain(*a):
+        return cm.maxsim_plain(*a, compute=torch.float32)
+
+    def f32_bound(a):
+        return bound(tensor_bytes(*a) + a[0].shape[0] * a[3].shape[0] * 4,
+                     valid_ops(a[2], a[3]), "tf32")
+
+    # K1 float32 at its two shapes on the trainer's path, each held to its
+    # plain version on the same inputs; the kernels line gives the teacher
+    # precompute's (most of its launches) and both
+    f32_times = {}
+    for label, args in (("teacher", teacher_args), ("eval", eval_args)):
+        err = (cm.maxsim_cuda_f32(*args) - f32_plain(*args)).abs().max().item()
+        check(err <= 1e-4, f"maxsim_f32 at the {label} shape against its "
+                           f"plain version ({err})")
+        ms, lo, hi = cuda_ms(lambda: cm.maxsim_cuda_f32(*args), 7)
+        plain_ms, _, _ = cuda_ms(lambda: f32_plain(*args), 3)
+        bms, by = f32_bound(args)
+        n = sum(x["launches"] for x in f32_shapes
+                if (x["nd"], x["lp"]) == tuple(args[3].shape))
+        f32_times[label] = dict(
+            nq=args[0].shape[0], lq=args[0].shape[1], nd=args[3].shape[0],
+            lp=args[3].shape[1], launches=n, max_abs_err=err, tol=1e-4,
+            ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by)
+        per_sm, rows, cols = cm.f32_occupancy(D)
+        f32_times[label].update(ctas_per_sm=per_sm, tile=[rows, cols])
+        log(f"phase 10 time maxsim_f32 at the {label} shape: {ms:.3f} ms "
+            f"median of 7 (spread {lo:.3f}-{hi:.3f}) at "
+            f"{tuple(args[0].shape)} queries x {tuple(args[1].shape)} "
+            f"pages, {n} launches of this page shape in phase 8; max abs "
+            f"error against the plain version {err:.3e} (tol 1e-4); bound "
+            f"{bms:.3f} ms by {by} (tf32 peak); plain {plain_ms:.3f} ms "
+            f"(median of 3); tile {rows} x {cols}, {per_sm} CTAs per SM; "
+            f"{smi}")
     timed = [
         # name, wrapper, plain, args, bytes moved, operations, peak, source,
         # replaces
-        ("maxsim_f32", cm.maxsim_cuda_f32,
-         lambda *a: cm.maxsim_plain(*a, compute=torch.float32), eval_args,
-         tensor_bytes(*eval_args) + qe.shape[0] * pe.shape[0] * 4,
-         valid_ops(qe, pe), "tf32", "evdr_tpu_torch/csrc/maxsim_f32.cu",
+        ("maxsim_f32", cm.maxsim_cuda_f32, f32_plain, teacher_args,
+         None, None, "tf32", "evdr_tpu_torch/csrc/maxsim_f32.cu",
          "evdr_tpu/ops/pallas_maxsim.py:433"),
         ("maxsim_fwd_train", ct.maxsim_cuda_fwd_train,
          ct.maxsim_fwd_train_plain, step_args,
@@ -579,6 +634,23 @@ def training_times(cm, ct, eval_args, step_args, gen, counts_of, parity,
     ]
     kernels = []
     for kname, kern, plain, kargs, nbytes, ops, peak, src, repl in timed:
+        err, tol, rel = parity[kname]
+        entry = {
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": counts_of[kname], "max_abs_err": err, "tol": tol,
+            "library_ms": None}
+        if kname == "maxsim_f32":
+            t = f32_times["teacher"]
+            # every number of the entry at the teacher shape (phase 7's
+            # eval-shape parity stays in its own check)
+            entry.update({k: t[k] for k in ("max_abs_err", "tol", "ms",
+                                            "ms_min", "ms_max", "plain_ms",
+                                            "bound_ms", "bound_by")})
+            entry.update(shapes=[dict(x, label=k)
+                                 for k, x in f32_times.items()],
+                         launches_by_shape=f32_shapes)
+            kernels.append(entry)
+            continue
         ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
         plain_ms, _, _ = cuda_ms(lambda: plain(*kargs), 3)
         bms, by = bound(nbytes, ops, peak)
@@ -587,12 +659,8 @@ def training_times(cm, ct, eval_args, step_args, gen, counts_of, parity,
             f"{tuple(kargs[1].shape)} pages; bound {bms:.3f} ms by {by} "
             f"({peak} peak); plain {plain_ms:.3f} ms (median of 3); library: "
             f"none; {smi}")
-        err, tol, rel = parity[kname]
-        entry = {
-            "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts_of[kname], "max_abs_err": err, "tol": tol,
-            "ms": ms, "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+        entry.update(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by)
         if rel is not None:
             entry.update(rel_err=rel, rel_tol=1e-3)
         kernels.append(entry)
@@ -628,7 +696,8 @@ def training_phases(cm, ct, gen, seed, smi, work):
     del Qe, qme, P, pm
 
     # 8. the trainer
-    trainer_counts, kw, init, best, _, _ = run_trainer(cm, work, seed)
+    trainer_counts, kw, init, best, _, _, f32_shapes = run_trainer(
+        cm, work, seed)
     cfg = TrainConfig(**kw)
     bundle = load_dataset_bundle(cfg, FIXTURE_KEY, device=DEVICE)
     check_best_artifact(bundle, init, best)
@@ -640,11 +709,14 @@ def training_phases(cm, ct, gen, seed, smi, work):
     # 10. times
     Ps0 = step_args[1]
     eval_args = (bundle.Q_test, Ps0, bundle.qmask_test, pm_s)
+    # one chunk of the teacher precompute (chunk_q=256, harness.py)
+    teacher_args = (bundle.Q_train[:256], bundle.P_teacher_norm,
+                    bundle.qmask_train[:256], bundle.pmask_teacher)
     counts_of = {"maxsim_f32": trainer_counts["maxsim_cuda_f32"],
                  "maxsim_fwd_train": step_counts["maxsim_cuda_fwd_train"],
                  "maxsim_bwd": step_counts["maxsim_cuda_bwd"]}
-    return training_times(cm, ct, eval_args, step_args, gen, counts_of,
-                          parity, smi), bundle
+    return training_times(cm, ct, eval_args, teacher_args, step_args, gen,
+                          counts_of, f32_shapes, parity, smi), bundle
 
 
 # -------------------------------------------------------- capacity tiers
@@ -716,16 +788,35 @@ def tier_parity(cm, gen, seed):
         codes = encode_pq_device(P, books, pm, rot=r)
         kargs = (Q, codes, qm, pm, torch.from_numpy(b).to(DEVICE))
         # pqfull scores int8 x int8 on compact books; on expanded ones it
-        # casts the int8 queries up and scores in bf16, as pq does
-        cases += [("maxsim_pq", label, cm.maxsim_cuda_pq, cm.maxsim_pq_plain,
-                   kargs, 2e-2),
-                  ("maxsim_pqfull", label, cm.maxsim_cuda_pqfull,
+        # casts the int8 queries up and scores in bf16, as pq does (both
+        # wrappers then run the expanded-books kernel)
+        ex = "" if r is None else "_expanded"
+        cases += [("maxsim_pq" + ex, label + ", pq", cm.maxsim_cuda_pq,
+                   cm.maxsim_pq_plain, kargs, 2e-2),
+                  (("maxsim_pqfull" if r is None else "maxsim_pq_expanded"),
+                   label + ", pqfull", cm.maxsim_cuda_pqfull,
                    cm.maxsim_pqfull_plain, kargs, 1e-3 if r is None else 2e-2)]
     parity = {}
     for kname, label, kern, plain, kargs, tol in cases:
         err = parity_case(11, kname, label, kern, plain, kargs, tol, 7)
         if kname not in parity or err > parity[kname][0]:
             parity[kname] = (err, tol)
+        if kern in (cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull):
+            # fewer query blocks: a cluster of one, and clusters whose last
+            # CTAs are padding; the decode's split changes no value
+            full = kern(*kargs)
+            compact = kname != "maxsim_pq_expanded"
+            sizes = []
+            for nq in (4, 12, 20, 36, 68):
+                sub = (kargs[0][:nq], kargs[1], kargs[2][:nq], *kargs[3:])
+                check(torch.equal(kern(*sub), full[:nq]),
+                      f"{kname} ({label}) on {nq} queries equals the "
+                      f"256-query call")
+                sizes.append(f"{nq} queries: C="
+                             f"{cm.pq_cluster(nq, LQ, compact)}")
+            log(f"phase 11 partial clusters {kname} ({label}): bit-equal to "
+                f"the 256-query call (C={cm.pq_cluster(NQ, LQ, compact)}) "
+                f"at " + ", ".join(sizes))
     return parity
 
 
@@ -888,15 +979,25 @@ def tier_entry_points(opq_data, work):
     check_http(14, pq_eng, Q, qm)
 
 
-def tier_times(cm, args4, argspq, counts, parity, smi):
-    """Phase 15: K4 and K3's four modes at the 50,000-page shapes: median
-    of 7 CUDA-event timings, bound, the plain version's time on the first
-    PLAIN_TIME_DOCS pages."""
+def tier_times(cm, args4, argspq, counts, pq_shapes, parity, smi, seed):
+    """Phase 15: K4 and K3's four modes at the 50,000-page shapes, and K3's
+    expanded-books path on the same codes (books expanded with a random
+    rotation, as phase 11's): median of 7 CUDA-event timings, bound, the
+    plain version's time on the first PLAIN_TIME_DOCS pages; K3's cluster
+    size and CTAs per SM."""
+    from evdr_tpu_torch.ops.pq import expand_books
+
     n = PLAIN_TIME_DOCS
     Q4, P4, sc4, qm4, pm4 = args4
     Qp, cp, qmp, pmp, books = argspq
+    rng = np.random.default_rng(seed)
+    rot = np.linalg.qr(rng.normal(size=(D, D)))[0].astype(np.float32)
+    books_ex = torch.from_numpy(expand_books(books.cpu().numpy(), rot)).to(
+        DEVICE)
+    argsex = (Qp, cp, qmp, pmp, books_ex)
     slice4 = (Q4, P4[:n], sc4[:n], qm4, pm4[:n])
     slicepq = (Qp, cp[:n], qmp, pmp[:n], books)
+    sliceex = (Qp, cp[:n], qmp, pmp[:n], books_ex)
     timed = [
         # name, wrapper, plain, args, the plain version's args, peak, source,
         # replaces
@@ -913,7 +1014,12 @@ def tier_times(cm, args4, argspq, counts, parity, smi):
         ("maxsim_pqfull", cm.maxsim_cuda_pqfull, cm.maxsim_pqfull_plain,
          argspq, slicepq, "int8", "evdr_tpu_torch/csrc/maxsim_pq.cu",
          "evdr_tpu/ops/pallas_maxsim.py:1109"),
+        ("maxsim_pq_expanded", cm.maxsim_cuda_pq, cm.maxsim_pq_plain, argsex,
+         sliceex, "bf16", "evdr_tpu_torch/csrc/maxsim_pq.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1109"),
     ]
+    pq_modes = {"maxsim_pq": "pq", "maxsim_pqfull": "pqfull",
+                "maxsim_pq_expanded": "pq_sum"}
     kernels = []
     for kname, kern, plain, kargs, pargs, peak, src, repl in timed:
         ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
@@ -922,17 +1028,29 @@ def tier_times(cm, args4, argspq, counts, parity, smi):
         nd = pmask.shape[0]
         bms, by = bound(tensor_bytes(*kargs) + NQ * nd * 4,
                         valid_ops(qmask, pmask), peak)
+        extra, entry = "", {}
+        if kname in pq_modes:
+            c = cm.pq_cluster(NQ, LQ, pq_modes[kname] != "pq_sum")
+            per_sm, clusters = cm.pq_occupancy(pq_modes[kname], D, PQ_M, c)
+            extra = (f"; cluster of {c} CTAs (each tile decoded once per "
+                     f"cluster), {per_sm} CTAs per SM, {clusters} clusters "
+                     f"resident")
+            entry = {"cluster": c, "ctas_per_sm": per_sm,
+                     "clusters_resident": clusters,
+                     "launches_by_shape": pq_shapes[kname]}
         log(f"phase 15 time {kname}: {ms:.3f} ms median of 7 (spread "
             f"{lo:.3f}-{hi:.3f}) at {NQ}x{LQ} queries x {nd}x{LP} pages; "
             f"bound {bms:.3f} ms by {by} ({peak} peak); plain {plain_ms:.3f} "
-            f"ms (median of 3, on the first {n} pages); library: none; {smi}")
+            f"ms (median of 3, on the first {n} pages); library: none"
+            f"{extra}; {smi}")
         err, tol = parity[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[kern.__name__], "max_abs_err": err,
-            "tol": tol, "ms": ms, "ms_min": lo, "ms_max": hi,
-            "plain_ms": plain_ms, "plain_docs": n, "bound_ms": bms,
-            "bound_by": by, "library_ms": None})
+            "launches": counts[kname if kname in pq_modes
+                               else kern.__name__],
+            "max_abs_err": err, "tol": tol, "ms": ms, "ms_min": lo,
+            "ms_max": hi, "plain_ms": plain_ms, "plain_docs": n,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, **entry})
     return kernels
 
 
@@ -953,13 +1071,24 @@ def tier_phases(cm, gen, seed, smi, root):
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.synchronize()
     counts = cm.launch_counts()
-    log(f"phase 12-14 launches: {counts}")
-    for w in (cm.maxsim_cuda_int4, cm.maxsim_cuda_int4full,
-              cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull):
-        check(counts[w.__name__] > 0, f"{w.__name__} never launched on the "
-                                      "capacity tiers' path")
+    # K3's three kernels, by function and shape
+    pq_shapes = {
+        "maxsim_pq": launch_shapes(cm, "maxsim_cuda_pq", "evdr_maxsim_pq"),
+        "maxsim_pqfull": launch_shapes(cm, "maxsim_cuda_pqfull",
+                                       "evdr_maxsim_pqfull"),
+        "maxsim_pq_expanded": (
+            launch_shapes(cm, "maxsim_cuda_pq", "evdr_maxsim_pq_sum")
+            + launch_shapes(cm, "maxsim_cuda_pqfull", "evdr_maxsim_pq_sum"))}
+    for k, v in pq_shapes.items():
+        counts[k] = sum(x["launches"] for x in v)
+    log(f"phase 12-14 launches: {counts}; K3 by shape: {pq_shapes}")
+    for name in ("maxsim_cuda_int4", "maxsim_cuda_int4full", "maxsim_pq",
+                 "maxsim_pqfull", "maxsim_pq_expanded"):
+        check(counts[name] > 0, f"{name} never launched on the capacity "
+                                "tiers' path")
     del opq_data
-    kernels = tier_times(cm, args4, argspq, counts, parity, smi)
+    kernels = tier_times(cm, args4, argspq, counts, pq_shapes, parity, smi,
+                         seed)
     log("phase 15 search_dense end to end: " + ", ".join(
         f"{k} {v:.1f} q/s" for k, v in e2e.items()))
     log(f"phases 11-15: {time.perf_counter() - t0:.1f} s")
@@ -1498,8 +1627,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phases 1-18: {time.perf_counter() - t_start:.1f} s")
-    check(len(kernels) == 14 and all(k["launches"] > 0 for k in kernels),
-          f"14 kernels, each launched on its path: "
+    check(len(kernels) == 15 and all(k["launches"] > 0 for k in kernels),
+          f"15 kernels, each launched on its path: "
           f"{[(k['name'], k['launches']) for k in kernels]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)

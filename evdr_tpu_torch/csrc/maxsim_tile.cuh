@@ -1,9 +1,12 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
-// maxsim_bf16.cu (K1, bf16), maxsim_f32.cu (K1, float32), maxsim_int8.cu
-// (K2, and K2b, K2 with its doc epilogue deferred one tile), maxsim_int4.cu
-// (K4), maxsim_pq.cu (K3) and maxsim_train.cu (K5 in bf16 and float32,
-// which also stores the per-row max M; K6 recomputes the same similarity
-// tiles through tile_mma below, a copy of the kernel's k-loop).
+// maxsim_bf16.cu (K1, bf16), maxsim_int8.cu (K2, and K2b, K2 with its doc
+// epilogue deferred one tile), maxsim_int4.cu (K4) and maxsim_train.cu (K5
+// in bf16 and float32, which also stores the per-row max M; K6 recomputes
+// the same similarity tiles through tile_mma below, a copy of the kernel's
+// k-loop). maxsim_pq.cu (K3, a kernel of its own: thread-block clusters
+// share the PQ decode) and maxsim_f32.cu (K1's float32 mode, a kernel of
+// its own: 64 x 32 outputs a warp on 256 x 64 tiles, one CTA per SM at D =
+// 128) reuse the helpers and tile_mma.
 //
 // score[q, d] = sum_t qw[q, t] * f(max_m sim[q, t, d, m]), with
 //   sim = <Q[q, t], P[d, m]> * s[d, m] for a valid doc token (s = 1 for a
@@ -36,11 +39,11 @@
 // - blockIdx.x (the query block) varies fastest, so the CTAs that are in
 //   flight together share a few docs and read their pages from L2: device
 //   memory streams the index about once per call.
-// - Staged modes (K2's int8 mode, K4, K3) bring their stored tile (int8
-//   codes, packed int4 bytes, PQ codes) into a raw buffer by cp.async and
-//   turn it into the MMA operand tile in shared memory once it has landed
-//   (widen, unpack nibbles, decode codes). Each such stage sits behind
-//   `if constexpr` on the mode, so the other modes compile as before.
+// - Staged modes (K2's int8 mode, K4) bring their stored tile (int8 codes,
+//   packed int4 bytes) into a raw buffer by cp.async and turn it into the
+//   MMA operand tile in shared memory once it has landed (widen, unpack
+//   nibbles). Each such stage sits behind `if constexpr` on the mode, so
+//   the other modes compile as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,30 +64,20 @@ constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 // int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P by split
 // TF32 products (K1, compute_dtype float32). kInt4Bf16 / kInt4Int8: the
 // same two K2 modes over token-pair packed int4 codes unpacked in shared
-// memory (K4). kPqBf16 / kPqInt8: PQ codes decoded by concatenating rows
-// of compact int8 books held in shared memory, then K1's bf16 or K2's
-// int8 x int8 loop (K3). kPqSumBf16: PQ codes decoded by summing rows of
-// full-width int8 books read through L2 (expanded OPQ books), the int32
-// sum rounded to bf16 (K3).
+// memory (K4).
 enum Mode {
   kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2, kF32 = 3,
-  kInt4Bf16 = 4, kInt4Int8 = 5, kPqBf16 = 6, kPqInt8 = 7, kPqSumBf16 = 8
+  kInt4Bf16 = 4, kInt4Int8 = 5
 };
 
 template <int MODE> constexpr bool is_int4 = MODE == kInt4Bf16 ||
                                              MODE == kInt4Int8;
-template <int MODE> constexpr bool is_pq = MODE == kPqBf16 ||
-                                           MODE == kPqInt8 ||
-                                           MODE == kPqSumBf16;
 // the page tile lands in a raw buffer and is converted into the operand
 template <int MODE> constexpr bool is_staged = MODE == kInt8Bf16 ||
-                                               is_int4<MODE> || is_pq<MODE>;
+                                               is_int4<MODE>;
 // int8 x int8 tensor-core products
 template <int MODE> constexpr bool is_int8_mma = MODE == kInt8Int8 ||
-                                                 MODE == kInt4Int8 ||
-                                                 MODE == kPqInt8;
-
-constexpr int kPqRows = 256;  // PQ books padded to 256 rows (uint8 codes)
+                                                 MODE == kInt4Int8;
 
 // The tile kernel's launch bound. A source may ask for EVDR_MIN_CTAS blocks
 // per SM (maxsim_int8_defer.cu does, for K2b); the others compile with the
@@ -110,21 +103,12 @@ template <> struct Traits<kInt8Int8> {
 template <> struct Traits<kF32> {
   using TQ = float; using TP = float; using TAcc = float;
 };
-// K4 and K3 store bytes: packed nibble pairs or PQ codes
+// K4 stores bytes: packed nibble pairs
 template <> struct Traits<kInt4Bf16> {
   using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
 };
 template <> struct Traits<kInt4Int8> {
   using TQ = signed char; using TP = uint8_t; using TAcc = int;
-};
-template <> struct Traits<kPqBf16> {
-  using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
-};
-template <> struct Traits<kPqInt8> {
-  using TQ = signed char; using TP = uint8_t; using TAcc = int;
-};
-template <> struct Traits<kPqSumBf16> {
-  using TQ = __nv_bfloat16; using TP = uint8_t; using TAcc = float;
 };
 
 __host__ __device__ inline size_t align128(size_t x) {
@@ -141,37 +125,32 @@ template <int MODE> __host__ __device__ inline int mma_units(int d) {
 
 // Bytes of one raw page-tile buffer of a staged mode (two are kept): the
 // int8 codes of K2's int8 mode (kCols rows), K4's packed bytes (kCols / 2
-// rows, each holding two tokens), K3's codes (kCols * m_sub bytes, plus 4
-// for the word alignment of the copy, see stage_codes).
+// rows, each holding two tokens).
 template <int MODE> __host__ __device__ inline size_t raw_tile_bytes(
-    int raw_units, int m_sub) {
+    int raw_units) {
   if (MODE == kInt8Bf16) return (size_t)(raw_units + 1) * 16 * kCols;
   if (is_int4<MODE>) return (size_t)(raw_units + 1) * 16 * (kCols / 2);
-  if (is_pq<MODE>) return align128((size_t)kCols * m_sub + 4);
   return 0;
 }
 
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
-// (units + 1) * 16 bytes. K3 with compact books also holds the int8 books
-// (kPqRows rows of d bytes over the M subspaces) at `books`. K2b (`defer`)
-// keeps two `part` and two `red` buffers, one of each per doc parity.
+// (units + 1) * 16 bytes. K2b (`defer`) keeps two `part` and two `red`
+// buffers, one of each per doc parity.
 template <int MODE> struct Smem {
   int units, raw_units;
-  size_t a, b, raw, colscale, qw, part, red, books, total;
-  __host__ __device__ explicit Smem(int d, int m_sub = 0, bool defer = false) {
+  size_t a, b, raw, colscale, qw, part, red, total;
+  __host__ __device__ explicit Smem(int d, bool defer = false) {
     units = mma_units<MODE>(d);
     raw_units = d / 16;  // int8 page units staged before widening
     const size_t row = (size_t)(units + 1) * 16;
     a = 0;
     b = align128(a + row * kRows);
     raw = align128(b + row * kCols * (is_staged<MODE> ? 1 : 2));
-    colscale = align128(raw + raw_tile_bytes<MODE>(raw_units, m_sub) * 2);
+    colscale = align128(raw + raw_tile_bytes<MODE>(raw_units) * 2);
     qw = align128(colscale + sizeof(float) * kCols * 2);
     part = align128(qw + sizeof(float) * kRows);
     red = align128(part + sizeof(float) * (defer ? 4 : 2) * kRows);
-    books = align128(red + sizeof(float) * (defer ? 2 : 1) * kRows);
-    total = books + ((MODE == kPqBf16 || MODE == kPqInt8)
-                         ? align128((size_t)kPqRows * d) : 0);
+    total = align128(red + sizeof(float) * (defer ? 2 : 1) * kRows);
   }
 };
 
@@ -315,7 +294,7 @@ __device__ inline void cp_async4(void* dst, const void* src, int n) {
                "l"(src), "r"(n));
 }
 
-// K3: the `n` code bytes of a tile, which start at byte `start` of the
+// The `n` PQ code bytes of a tile (K3), which start at byte `start` of the
 // code array, into `dst` by 4-byte words. The copy starts at the word that
 // holds byte `start`, so the tile's first code sits at dst[start & 3]; the
 // last word reads only up to the tile's end.
@@ -378,80 +357,21 @@ __device__ inline void unpack_int4_tile(unsigned char* dst,
   }
 }
 
-// K3, compact books in shared memory: token t's subspace m fills dims
-// [m * w, (m + 1) * w) with row codes[t][m] of book m (kPqRows rows of w
-// int8 bytes each, w a multiple of 4). Exact int8 values.
-template <typename TS>
-__device__ inline void decode_pq_compact(unsigned char* dst,
-                                         const unsigned char* codes,
-                                         const signed char* books, int m_sub,
-                                         int w, int units, int tid) {
-  const size_t ds = (size_t)(units + 1) * 16;
-  for (int i = tid; i < kCols * m_sub; i += kThreads) {
-    const int t = i / m_sub, m = i % m_sub;
-    const signed char* src =
-        books + ((size_t)m * kPqRows + codes[t * m_sub + m]) * w;
-    unsigned char* row = dst + t * ds;
-    for (int s = 0; s < w; s += 4) {
-      const uint32_t v = *reinterpret_cast<const uint32_t*>(src + s);
-      const int o = m * w + s;  // the first of the four dims
-      if constexpr (sizeof(TS) == 1) {
-        *reinterpret_cast<uint32_t*>(row + o) = v;
-      } else {
-        *reinterpret_cast<uint2*>(row + 2 * o) = bf16x4(v);
-      }
-    }
-  }
-}
-
-// K3, full-width books read through L2: token t's dims [16c, 16c + 16) are
-// the exact int32 sum over m of row codes[t][m] of book m (kPqRows rows of
-// d int8 bytes), rounded to bf16 (nearest even; sums above 256 round).
-__device__ inline void decode_pq_sum(unsigned char* dst,
-                                     const unsigned char* codes,
-                                     const signed char* __restrict__ books,
-                                     int m_sub, int d, int units, int tid) {
-  const size_t ds = (size_t)(units + 1) * 16;
-  const int chunks = d / 16;
-  for (int i = tid; i < kCols * chunks; i += kThreads) {
-    const int t = i / chunks, c = i % chunks;
-    int acc[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] = 0;
-    for (int m = 0; m < m_sub; ++m) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-          books + ((size_t)m * kPqRows + codes[t * m_sub + m]) * d + c * 16));
-      const signed char* b = reinterpret_cast<const signed char*>(&v);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] += b[e];
-    }
-    uint32_t o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      __nv_bfloat162 h =
-          __floats2bfloat162_rn((float)acc[2 * e], (float)acc[2 * e + 1]);
-      o[e] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    uint4* out = reinterpret_cast<uint4*>(dst + t * ds + c * 32);
-    out[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    out[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
-
 __device__ inline float masked(float s, float cs) {
   return cs >= 0.f ? s * cs : kNegInit;
 }
 
-// One 128 x 64 similarity tile for K6's recompute: acc[i][j] receives rows
-// wm*32 + i*16 + {g, g+8} and columns wn*32 + j*8 + 2t + {0, 1} of As
-// (kRows query-token rows) against B (kCols doc-token rows), summed over D
-// in k-steps of two units, in order. It is maxsim_kernel's k-loop below,
-// instruction for instruction (the same ldmatrix fragments, operand roles,
-// MMA shape and k order), so each similarity K6 recomputes is bit-identical
-// to the one K5 took the max of, which K6's (sim == M) indicator needs.
-// Keep the two loops identical. The kernel does not call this function:
-// doing so cost K2's int8 mode 4% on the H100 (more registers, another
-// schedule; scripts/torch_kernel_ab.py, PERF.md).
+// One 128 x 64 similarity tile for K6's recompute and for K3: acc[i][j]
+// receives rows wm*32 + i*16 + {g, g+8} and columns wn*32 + j*8 + 2t +
+// {0, 1} of As (kRows query-token rows) against B (kCols doc-token rows),
+// summed over D in k-steps of two units, in order. It is maxsim_kernel's
+// k-loop below, instruction for instruction (the same ldmatrix fragments,
+// operand roles, MMA shape and k order), so each similarity K6 recomputes
+// is bit-identical to the one K5 took the max of, which K6's (sim == M)
+// indicator needs, and K3 scores as it did inside maxsim_kernel. Keep the
+// two loops identical. maxsim_kernel does not call this function: doing so
+// cost K2's int8 mode 4% on the H100 (more registers, another schedule;
+// scripts/torch_kernel_ab.py, PERF.md).
 template <int MODE>
 __device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
                                 const unsigned char* As,
@@ -512,8 +432,7 @@ __device__ inline void defer_sum(const float* rr, float* out, int q0,
 // STORE_M: K5, which also stores each row's max in m_out. A template flag,
 // so the serving kernels compile without that store. DEFER: K2b, the doc
 // epilogue of K2 moved one tile later (see the doc-end block below); also
-// a template flag. `books` and `m_sub`: K3's int8 codebooks (kPqRows rows
-// per subspace) and its subspace count; unused by the other modes.
+// a template flag.
 template <int MODE, bool STORE_M, bool DEFER = false>
 __global__ void EVDR_LAUNCH_BOUNDS
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
@@ -522,8 +441,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ scales,
               const uint8_t* __restrict__ pmask, float* __restrict__ out,
               float* __restrict__ m_out, int nq, int lq, int nd, int lp,
-              int d, int qb, int db, const signed char* __restrict__ books,
-              int m_sub) {
+              int d, int qb, int db) {
   using TQ = typename Traits<MODE>::TQ;
   using TP = typename Traits<MODE>::TP;
   using TAcc = typename Traits<MODE>::TAcc;
@@ -531,7 +449,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   using TS = typename Traits<MODE>::TQ;
   static_assert(!(STORE_M && DEFER), "K5 keeps the in-step epilogue");
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<MODE> lay(d, m_sub, DEFER);
+  const Smem<MODE> lay(d, DEFER);
   const int units = lay.units;
   const size_t stride = (size_t)(units + 1) * 16;
   unsigned char* As = smem + lay.a;
@@ -565,13 +483,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     for (int i = tid; i < kCols * (int)stride / 16; i += kThreads)
       reinterpret_cast<uint4*>(Bs)[i] = make_uint4(0, 0, 0, 0);
   }
-  if constexpr (MODE == kPqBf16 || MODE == kPqInt8) {
-    // compact books: kPqRows * d bytes, read once, held for the whole CTA
-    for (int i = tid; i < kPqRows * d / 16; i += kThreads)
-      reinterpret_cast<uint4*>(smem + lay.books)[i] =
-          reinterpret_cast<const uint4*>(books)[i];
-  }
-  const size_t raw_bytes = raw_tile_bytes<MODE>(lay.raw_units, m_sub);
+  const size_t raw_bytes = raw_tile_bytes<MODE>(lay.raw_units);
 
   const int d_begin = blockIdx.y * db;
   const int n_tiles = (lp + kCols - 1) / kCols;
@@ -589,8 +501,6 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
           p + ((size_t)dd * ((lp + 1) / 2) + l0 / 2) * d;
       stage_async<kCols / 2>(Braw + buf * raw_bytes, src, (ntok + 1) / 2,
                              p_units, lay.raw_units, tid);
-    } else if constexpr (is_pq<MODE>) {
-      stage_codes(Braw + buf * raw_bytes, p, tok0 * m_sub, ntok * m_sub, tid);
     } else {
       const unsigned char* src =
           reinterpret_cast<const unsigned char*>(p + tok0 * d);
@@ -604,7 +514,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     if (tid < kCols) {
       float cs = -1.f;  // the invalid-token sentinel (also an odd Lp's pad)
       if (tid < ntok && pmask[tok0 + tid]) {
-        if constexpr (MODE == kBf16 || MODE == kF32 || is_pq<MODE>) cs = 1.f;
+        if constexpr (MODE == kBf16 || MODE == kF32) cs = 1.f;
         else cs = scales[tok0 + tid];
       }
       colscale[buf * kCols + tid] = cs;
@@ -634,20 +544,6 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     } else if constexpr (is_int4<MODE>) {
       unpack_int4_tile<TS>(Bs, Braw + buf * raw_bytes, lay.raw_units, units,
                            tid);
-      __syncthreads();
-      B = Bs;
-    } else if constexpr (is_pq<MODE>) {
-      // the tile's first code sits at the word offset of its first byte
-      const size_t tok0 =
-          (size_t)(d_begin + it / n_tiles) * lp + (it % n_tiles) * kCols;
-      const unsigned char* codes =
-          Braw + buf * raw_bytes + ((tok0 * m_sub) & 3);
-      if constexpr (MODE == kPqSumBf16)
-        decode_pq_sum(Bs, codes, books, m_sub, d, units, tid);
-      else
-        decode_pq_compact<TS>(
-            Bs, codes, reinterpret_cast<const signed char*>(smem + lay.books),
-            m_sub, d / m_sub, units, tid);
       __syncthreads();
       B = Bs;
     }
@@ -766,23 +662,15 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 // Host launcher: validates what the kernel cannot take, sizes shared
 // memory, launches on `stream` and returns cudaGetLastError().
 // ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
-// unused (null) otherwise. ``books`` and ``m_sub``: K3's int8 books
-// (m_sub x kPqRows rows, of d / m_sub bytes for compact books, of d bytes
-// for kPqSumBf16) and subspace count. DEFER: K2b (K2's modes only).
+// unused (null) otherwise. DEFER: K2b (K2's modes only).
 template <int MODE, bool STORE_M = false, bool DEFER = false>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
            const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
-           int lp, int d, void* stream, const void* books = nullptr,
-           int m_sub = 0) {
+           int lp, int d, void* stream) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || d < 16 ||
       d % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (is_pq<MODE> && (m_sub < 1 || books == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if ((MODE == kPqBf16 || MODE == kPqInt8) &&
-      (d % m_sub != 0 || (d / m_sub) % 4 != 0))
-    return (int)cudaErrorInvalidValue;
-  const Smem<MODE> lay(d, m_sub, DEFER);
+  const Smem<MODE> lay(d, DEFER);
   if (lay.total > 232448) return (int)cudaErrorInvalidValue;
   auto* kern = maxsim_kernel<MODE, STORE_M, DEFER>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -798,7 +686,7 @@ int launch(const void* q, const void* qw, const void* p, const void* scales,
       static_cast<const typename Traits<MODE>::TP*>(p),
       static_cast<const float*>(scales), static_cast<const uint8_t*>(pmask),
       static_cast<float*>(out), static_cast<float*>(m_out), nq, lq, nd, lp, d,
-      qb, db, static_cast<const signed char*>(books), m_sub);
+      qb, db);
   return (int)cudaGetLastError();
 }
 

@@ -46,15 +46,17 @@ LIBRARIES = {
     },
     "maxsim_f32": {
         "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
+        "evdr_f32_occupancy": [_I, _P],
     },
     "maxsim_int4": {
         "evdr_maxsim_int4full": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int4": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_pq": {
-        "evdr_maxsim_pq": [_P] * 6 + [_I] * 6 + [_P],
-        "evdr_maxsim_pqfull": [_P] * 6 + [_I] * 6 + [_P],
-        "evdr_maxsim_pq_sum": [_P] * 6 + [_I] * 6 + [_P],
+        "evdr_maxsim_pq": [_P] * 6 + [_I] * 7 + [_P],
+        "evdr_maxsim_pqfull": [_P] * 6 + [_I] * 7 + [_P],
+        "evdr_maxsim_pq_sum": [_P] * 6 + [_I] * 7 + [_P],
+        "evdr_pq_occupancy": [_I] * 4 + [_P],
     },
     "maxsim_train": {
         "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],

@@ -12,7 +12,9 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
   ``maxsim_cuda_f32``.
 - ``maxsim_cuda_f32`` (K1, float32 mode, the TPU kernel's
   ``compute_dtype=float32``): split-TF32 products with f32 accumulation,
-  the scorer of the trainer's evaluation and teacher precompute.
+  the scorer of the trainer's evaluation and teacher precompute; a kernel
+  of its own (64 x 32 outputs a warp, its tile configuration chosen by D,
+  :func:`f32_occupancy`).
 - ``maxsim_cuda_int8`` (K2, int8 mode): bf16 queries x int8 codes.
 - ``maxsim_cuda_int8full`` (K2, int8full mode): queries quantized per token
   on the device (``quantize_queries_int8``), int8 x int8 -> int32.
@@ -23,12 +25,16 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 - ``maxsim_cuda_int4`` / ``maxsim_cuda_int4full`` (K4): the same two modes
   over token-pair packed int4 codes (``ops/int4.py``).
 - ``maxsim_cuda_pq`` / ``maxsim_cuda_pqfull`` (K3): PQ codes decoded into
-  tokens from int8-quantized codebooks, then the bf16 or int8 x int8 loop.
+  tokens from int8-quantized codebooks, then the bf16 or int8 x int8 loop;
+  thread-block clusters of :func:`pq_cluster` CTAs share each page tile's
+  decode.
 
 Routing: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it returns its plain version. There is no other fallback.
 Each wrapper counts its launches in a plain integer attribute
-(``maxsim_cuda.launches`` ...), raised by one exactly where it launches.
+(``maxsim_cuda.launches`` ...), raised by one exactly where it launches;
+K1's float32 mode and K3 also count them by kernel function and shape in
+``launch_shapes``.
 
 The plain versions reproduce the kernels' numerics: bf16 casts of the
 inputs, f32 sums, the -1e30 fill of an invalid doc token, the rule that a
@@ -40,6 +46,9 @@ order. On a GPU they need full-precision f32 matmuls (no TF32).
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+
 import torch
 
 from evdr_tpu_torch.ops import _cuda_build
@@ -49,6 +58,16 @@ NEG_THRESH = -1e29  # a running max below this: the doc had no valid token
 
 # rows x columns of the similarity block one plain chunk materializes
 _PLAIN_CHUNK_ELEMS = 1 << 27
+
+KERNEL_ROWS = 128   # query-token rows per CTA (maxsim_tile.cuh kRows)
+# K3's largest cluster: 8 (the portable size) where the decode sums
+# full-width book rows from L2, 2 where it concatenates compact rows from
+# shared memory (measured, PERF.md)
+MAX_CLUSTER = {"compact": 2, "full": 8}
+
+# (wrapper name, kernel function, nq, Lq, nd, Lp) -> launches, for the
+# wrappers of K1's float32 mode and of K3
+launch_shapes: Counter = Counter()
 
 
 def quantize_queries_int8(Q: torch.Tensor, qmask: torch.Tensor):
@@ -380,7 +399,7 @@ def maxsim_cuda_f32(Q, P, qmask, pmask):
     out = _launch("maxsim_f32", "evdr_maxsim_f32", Q.float().contiguous(),
                   qmask.float().contiguous(), P.float().contiguous(), None,
                   pmask, nq, lq, nd, lp, d)
-    maxsim_cuda_f32.launches += 1
+    _count(maxsim_cuda_f32, "evdr_maxsim_f32", nq, lq, nd, lp)
     return out
 
 
@@ -499,6 +518,47 @@ def maxsim_cuda_int4full(Q, P_u8, scales, qmask, pmask):
     return out
 
 
+def pq_cluster(nq: int, lq: int, compact: bool = False) -> int:
+    """K3's cluster size C for nq queries of Lq tokens: the largest power of
+    two <= MAX_CLUSTER (of compact or full-width books) that does not exceed
+    the number of 128-row query blocks (1 for a single block). The launcher
+    pads grid x up to a multiple of C."""
+    n_blocks = -(-nq // (KERNEL_ROWS // lq))
+    top = MAX_CLUSTER["compact" if compact else "full"]
+    c = 1
+    while 2 * c <= min(top, n_blocks):
+        c *= 2
+    return c
+
+
+def pq_occupancy(mode: str, d: int, m: int, cluster: int) -> tuple:
+    """K3's (CTAs per SM, clusters of ``cluster`` CTAs the card holds at
+    once) in ``mode`` 'pq', 'pqfull' or 'pq_sum', on the current GPU."""
+    out = (ctypes.c_int * 2)()
+    rc = _cuda_build.kernel("maxsim_pq", "evdr_pq_occupancy")(
+        ("pq", "pqfull", "pq_sum").index(mode), d, m, cluster,
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"evdr_pq_occupancy failed: cudaError {rc}")
+    return out[0], out[1]
+
+
+def f32_occupancy(d: int) -> tuple:
+    """The tile configuration K1 float32 runs at width ``d``, on the
+    current GPU: (CTAs per SM, query-token rows, page-tile tokens)."""
+    out = (ctypes.c_int * 3)()
+    rc = _cuda_build.kernel("maxsim_f32", "evdr_f32_occupancy")(
+        d, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"evdr_f32_occupancy failed: cudaError {rc}")
+    return tuple(out)
+
+
+def _count(wrapper, func, nq, lq, nd, lp):
+    wrapper.launches += 1
+    launch_shapes[(wrapper.__name__, func, nq, lq, nd, lp)] += 1
+
+
 def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     """K3's host side, then the launch: books quantized to int8 with one
     global scale (folded into ``qw``), padded to 256 rows. Compact books
@@ -507,7 +567,8 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     (expanded OPQ books, or compact ones embedded block-diagonally) to the
     kernel that sums full-width rows read through L2. ``Qk`` is int8 for
     the int8 x int8 loop, which needs compact books (an exact int8 tile);
-    otherwise int8 queries score cast up to bf16 (exact)."""
+    otherwise int8 queries score cast up to bf16 (exact). Returns (scores,
+    the kernel function launched)."""
     if codes.dim() != 3 or books.dim() != 3:
         raise ValueError("codes and books must be 3-D")
     nq, lq, d = Qk.shape
@@ -518,7 +579,8 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
                         f" got {codes.dtype} {tuple(codes.shape)}")
     compact, books_q, s = pq_books(books, d, codes.device)
     _, k, w = books_q.shape
-    if compact and w % 4 == 0:
+    in_smem = compact and w % 4 == 0
+    if in_smem:
         kb = torch.zeros((m, PQ_KMAX, w), dtype=torch.int8,
                          device=codes.device)
         kb[:, :k] = books_q
@@ -532,8 +594,9 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     Qk = Qk.contiguous()
     call_kernel("maxsim_pq", func, (Qk, (qw * s).contiguous(), codes, kb,
                                     pmask, out),
-                nq, lq, nd, lp, d, m, aligned=(Qk, codes, kb))
-    return out
+                nq, lq, nd, lp, d, m, pq_cluster(nq, lq, in_smem),
+                aligned=(Qk, codes, kb))
+    return out, func
 
 
 def maxsim_cuda_pq(Q, codes, qmask, pmask, books):
@@ -541,9 +604,9 @@ def maxsim_cuda_pq(Q, codes, qmask, pmask, books):
     their f32 books, compact (M, K, D/M) or expanded OPQ (M, K, D)."""
     if not _on_cuda(Q, codes, qmask, pmask, books):
         return maxsim_pq_plain(Q, codes, qmask, pmask, books)
-    out = _launch_pq(Q.to(torch.bfloat16), qmask.float(), codes, qmask,
-                     pmask, books, int8_queries=False)
-    maxsim_cuda_pq.launches += 1
+    out, func = _launch_pq(Q.to(torch.bfloat16), qmask.float(), codes,
+                           qmask, pmask, books, int8_queries=False)
+    _count(maxsim_cuda_pq, func, *Q.shape[:2], *pmask.shape)
     return out
 
 
@@ -553,9 +616,9 @@ def maxsim_cuda_pqfull(Q, codes, qmask, pmask, books):
     if not _on_cuda(Q, codes, qmask, pmask, books):
         return maxsim_pqfull_plain(Q, codes, qmask, pmask, books)
     Q_i8, qw = quantize_queries_int8(Q, qmask)
-    out = _launch_pq(Q_i8, qw, codes, qmask, pmask, books,
-                     int8_queries=True)
-    maxsim_cuda_pqfull.launches += 1
+    out, func = _launch_pq(Q_i8, qw, codes, qmask, pmask, books,
+                           int8_queries=True)
+    _count(maxsim_cuda_pqfull, func, *Q.shape[:2], *pmask.shape)
     return out
 
 
@@ -572,6 +635,7 @@ def reset_launch_counts() -> None:
     module's and ``cuda_maxsim_train``'s)."""
     for w in all_wrappers():
         w.launches = 0
+    launch_shapes.clear()
 
 
 def launch_counts() -> dict:

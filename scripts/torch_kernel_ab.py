@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Time the torch port's serving kernels (K1 bf16, K2 int8, K2 int8full,
-and K2b's two modes where the checkout has them) of several checkouts on
-one GPU, in turns, to compare kernel versions within one call.
+"""Time the torch port's kernels of several checkouts on one GPU, in
+turns, to compare kernel versions within one call.
 
     python3 scripts/torch_kernel_ab.py ROOT_A ROOT_B ROOT_B ROOT_A \
-        [--docs N] [--lp LP]
+        [--docs N] [--lp LP] [--only NAME,...]
 
 Each ROOT is the root of a checkout that holds ``evdr_tpu_torch/``. Each
 runs in a process of its own (the packages share a name), builds its
 kernels from its own ``csrc/`` into its own ``build/``, and prints one JSON
 line: the root, each library's ptxas register counts, a hash of each of
 its kernels' SASS (``cuobjdump -sass``; equal hashes across roots mean the
-same machine code), and the median of 7 CUDA-event timings of each kernel
-at 256 x 32 queries against N x LP pages (default 20,000 x 768; D = 128),
-made on the device from seed 0, with ~10% invalid tokens. K2b's times are
-checked bit-equal to K2's scores. The card's name and power limit come
-first.
+same machine code), and, per kernel, the median of 7 CUDA-event timings and
+a hash of its output (equal hashes across roots mean bit-equal scores).
+Inputs are made on the device from seed 0, with ~10% invalid tokens:
+- K1 bf16, K2 int8 and int8full, and K2b's two modes where the checkout has
+  them (checked bit-equal to K2), at 256 x 32 queries against N x LP pages
+  (default 20,000 x 768; D = 128);
+- K3 over the same N x LP pages as PQ codes (M = 16): pq and pqfull with
+  compact (16, 256, 8) books, pq with expanded (16, 256, 128) books;
+- K1 float32 at the trainer's two shapes: the eval (1,000 x 32 queries
+  against 1,000 x 137 pages) and the teacher precompute (256 x 32 against
+  1,000 x 768), checked bit-equal to K5 float32's scores.
+``--only`` keeps the kernels whose names start with one of the given
+prefixes (e.g. ``maxsim_pq,maxsim_f32``). The card's name and power limit
+come first.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ import subprocess
 import sys
 
 NQ, LQ, D = 256, 32, 128
+PQ_M = 16
+F32_SHAPES = {"eval": (1_000, 137, 1_000), "teacher": (256, 768, 1_000)}
+LIBS = ("maxsim_bf16", "maxsim_int8", "maxsim_int8_defer", "maxsim_int4",
+        "maxsim_train", "maxsim_f32", "maxsim_pq")
 
 
 def sass_hashes(lib_path) -> list:
@@ -50,18 +62,19 @@ def sass_hashes(lib_path) -> list:
     return sorted(h.hexdigest()[:12] for h in kernels)
 
 
-def one(root: str, docs: int, lp: int) -> dict:
+def one(root: str, docs: int, lp: int, only=None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     from evdr_tpu_torch.ops import _cuda_build
     from evdr_tpu_torch.ops import cuda_maxsim as cm
+    from evdr_tpu_torch.ops import cuda_maxsim_train as ct
     from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
     if not cm.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {cm.__file__}, not from {root}")
-    libs = [n for n in ("maxsim_bf16", "maxsim_int8", "maxsim_int8_defer")
-            if n in _cuda_build.LIBRARIES]
+    torch.set_float32_matmul_precision("highest")
+    libs = [n for n in LIBS if n in _cuda_build.LIBRARIES]
     _cuda_build.build_all(libs)
     regs = {n: [ln.split("Used ")[1].split(" registers")[0]
                 for ln in _cuda_build.build_log(n).splitlines()
@@ -73,12 +86,15 @@ def one(root: str, docs: int, lp: int) -> dict:
     def unit(x):
         return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
 
+    def rand_mask(*shape):
+        return torch.rand(shape, device="cuda", generator=gen) > 0.1
+
     Q = unit(torch.randn((NQ, LQ, D), device="cuda", generator=gen))
     qm = torch.rand((NQ, LQ), device="cuda", generator=gen) > 0.15
     codes = torch.empty((docs, lp, D), dtype=torch.int8, device="cuda")
     scales = torch.empty((docs, lp), dtype=torch.float32, device="cuda")
     Pb = torch.empty((docs, lp, D), dtype=torch.bfloat16, device="cuda")
-    pm = torch.rand((docs, lp), device="cuda", generator=gen) > 0.1
+    pm = rand_mask(docs, lp)
     step = max(1, 768_000 // lp)
     for i in range(0, docs, step):
         x = unit(torch.randn((min(step, docs - i), lp, D), device="cuda",
@@ -86,6 +102,17 @@ def one(root: str, docs: int, lp: int) -> dict:
         codes[i:i + step], scales[i:i + step] = quantize_tokens_int8(
             x, pm[i:i + step])
         Pb[i:i + step] = x.to(torch.bfloat16)
+    pq_codes = torch.randint(0, 256, (docs, lp, PQ_M), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+    compact = torch.randn((PQ_M, 256, D // PQ_M), device="cuda",
+                          generator=gen) * 0.3
+    expanded = torch.randn((PQ_M, 256, D), device="cuda", generator=gen) * 0.1
+    f32 = {}
+    for name, (nq, plp, nd) in F32_SHAPES.items():
+        Qf = unit(torch.randn((nq, LQ, D), device="cuda", generator=gen))
+        qmf = torch.rand((nq, LQ), device="cuda", generator=gen) > 0.15
+        Pf = unit(torch.randn((nd, plp, D), device="cuda", generator=gen))
+        f32[name] = (Qf, Pf, qmf, rand_mask(nd, plp))
 
     def ms(fn):
         fn()
@@ -101,20 +128,41 @@ def one(root: str, docs: int, lp: int) -> dict:
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
+    def digest(t):
+        return hashlib.sha1(t.contiguous().cpu().numpy().tobytes()
+                            ).hexdigest()[:12]
+
     i8 = (Q, codes, scales, qm, pm)
-    times = {
-        "maxsim_bf16": ms(lambda: cm.maxsim_cuda(Q, Pb, qm, pm)),
-        "maxsim_int8": ms(lambda: cm.maxsim_cuda_int8(*i8)),
-        "maxsim_int8full": ms(lambda: cm.maxsim_cuda_int8full(*i8))}
+    calls = {
+        "maxsim_bf16": lambda: cm.maxsim_cuda(Q, Pb, qm, pm),
+        "maxsim_int8": lambda: cm.maxsim_cuda_int8(*i8),
+        "maxsim_int8full": lambda: cm.maxsim_cuda_int8full(*i8),
+        "maxsim_pq": lambda: cm.maxsim_cuda_pq(Q, pq_codes, qm, pm, compact),
+        "maxsim_pqfull": lambda: cm.maxsim_cuda_pqfull(Q, pq_codes, qm, pm,
+                                                       compact),
+        "maxsim_pq_expanded": lambda: cm.maxsim_cuda_pq(Q, pq_codes, qm, pm,
+                                                        expanded)}
+    for name, args in f32.items():
+        calls[f"maxsim_f32_{name}"] = lambda a=args: cm.maxsim_cuda_f32(*a)
+    checks = {}
     if hasattr(cm, "maxsim_cuda_int8_deferred"):
         for k2, k2b in ((cm.maxsim_cuda_int8, cm.maxsim_cuda_int8_deferred),
                         (cm.maxsim_cuda_int8full,
                          cm.maxsim_cuda_int8full_deferred)):
             if not torch.equal(k2(*i8), k2b(*i8)):
                 raise RuntimeError(f"{k2b.__name__} differs from K2")
-            times[k2b.__name__] = ms(lambda: k2b(*i8))
+            calls[k2b.__name__] = lambda k=k2b: k(*i8)
+    for name, args in f32.items():
+        checks[f"maxsim_f32_{name} == K5 f32"] = bool(torch.equal(
+            cm.maxsim_cuda_f32(*args), ct.maxsim_cuda_fwd_train_f32(*args)[0]))
+    if only:
+        calls = {k: v for k, v in calls.items() if k.startswith(tuple(only))}
+    times, outs = {}, {}
+    for name, fn in calls.items():
+        outs[name] = digest(fn())
+        times[name] = ms(fn)
     return {"root": root, "docs": docs, "lp": lp, "registers": regs,
-            "sass": sass, "ms": times}
+            "sass": sass, "ms": times, "out_sha1": outs, "checks": checks}
 
 
 def main(argv=None) -> int:
@@ -122,10 +170,12 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--docs", type=int, default=20_000)
     ap.add_argument("--lp", type=int, default=768)
+    ap.add_argument("--only", default="")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one is not None:
-        print(json.dumps(one(args.one, args.docs, args.lp)), flush=True)
+        only = [x for x in args.only.split(",") if x]
+        print(json.dumps(one(args.one, args.docs, args.lp, only)), flush=True)
         return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -134,8 +184,8 @@ def main(argv=None) -> int:
     for root in args.roots:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--one", root, "--docs", str(args.docs),
-                            "--lp", str(args.lp)],
-                           capture_output=True, text=True, timeout=600)
+                            "--lp", str(args.lp), "--only", args.only],
+                           capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stderr, file=sys.stderr)
             return r.returncode

@@ -439,3 +439,101 @@ def test_deferred_int8_kernels_equal_k2_on_the_card(nq, lq, nd, lp, d):
         n = cuda_maxsim.launch_counts()
         assert n[k2b.__name__] == n0[k2b.__name__] + 1
         assert n[k2.__name__] == n0[k2.__name__] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks,lq,d,lp", [
+    (1, 32, 128, 77), (2, 32, 128, 64), (3, 128, 48, 65), (5, 32, 48, 129),
+    (9, 7, 64, 33), (17, 32, 128, 767)])
+def test_pq_kernel_clusters_match_plain_versions_on_the_card(n_blocks, lq, d,
+                                                             lp):
+    """K3 (pq and pqfull; compact books in shared memory, compact books of
+    2-byte subvectors and expanded books, both through the L2 sum decode)
+    at 1, 2, 3, 5, 9 and 17 query blocks (clusters of 1, 2, 2, 4, 8 and 8
+    CTAs with full-width books, of 1 or 2 with compact ones; the last
+    cluster partly padding), Lq 128, odd Lp, M = 12 at D =
+    48, with a doc that has no valid token, against the plain versions
+    (summation order alone differs: 1e-4, 1e-5 relative). A call on the
+    first query block alone (a cluster of one) gives the same scores bit
+    for bit: the split of the decode between CTAs changes no value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.set_float32_matmul_precision("highest")
+    cm = cuda_maxsim
+    rng = np.random.default_rng(n_blocks + lq + d + lp)
+    dev = "cuda"
+    qb = 128 // lq
+    nq, nd = n_blocks * qb - (1 if qb > 1 else 0), 9
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q = unit(nq, lq, d)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    pm[nd // 2] = False
+    m = 12 if d == 48 else 16
+    books = {"compact": unit(m, 256, d // m) * 0.5,
+             "compact2": unit(d // 2, 200, 2) * 0.5,
+             "expanded": unit(4, 40, d) * 0.5}
+    top = 1 << (n_blocks.bit_length() - 1)
+    assert cm.pq_cluster(nq, lq) == min(8, top)
+    assert cm.pq_cluster(nq, lq, compact=True) == min(
+        cm.MAX_CLUSTER["compact"], top)
+    for name, b in books.items():
+        top = min(b.shape[1], 256)
+        codes = torch.from_numpy(rng.integers(0, top, (nd, lp, b.shape[0]),
+                                              np.uint8)).to(dev)
+        for kern, plain in ((cm.maxsim_cuda_pq, cm.maxsim_pq_plain),
+                            (cm.maxsim_cuda_pqfull, cm.maxsim_pqfull_plain)):
+            n0 = cm.launch_counts()[kern.__name__]
+            got = kern(Q, codes, qm, pm, b)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, plain(Q, codes, qm, pm, b),
+                                       rtol=1e-5, atol=1e-4)
+            assert got[:, nd // 2].abs().max().item() == 0.0, name
+            assert cm.launch_counts()[kern.__name__] == n0 + 1
+            one = kern(Q[:qb], codes, qm[:qb], pm, b)
+            assert torch.equal(one, got[:qb]), (name, kern.__name__)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [32, 14])
+@pytest.mark.parametrize("lp,d", [(1, 16), (137, 128), (154, 96),
+                                  (767, 192), (137, 32), (64, 64),
+                                  (767, 128)])
+def test_f32_kernel_matches_plain_version_and_k5_on_the_card(lp, d, lq):
+    """K1 in float32 mode at Lp 1, 137, 154 and 767 and D 16-192 (several
+    query blocks, a partial last one, a doc with no valid token; both of
+    its tile configurations: 128 x 32 at D = 192, 256 x 64 at D <= 128), at
+    Lq 32 and at the teacher precompute's Lq 14, which does not divide the
+    tile's rows (18 queries a block, 4 rows empty): within 1e-4 of its
+    plain version (3xTF32 against full f32 products, summation order), and
+    bit-equal to K5 float32's scores (the same three products per k-step
+    in the same order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(lp + d + lq)
+    nq, nd = 41, 13
+    Q = torch.from_numpy(rng.normal(size=(nq, lq, d)).astype(np.float32))
+    Q = (Q / Q.norm(dim=-1, keepdim=True)).to("cuda")
+    P = torch.from_numpy(rng.normal(size=(nd, lp, d)).astype(np.float32))
+    P = (P / P.norm(dim=-1, keepdim=True)).to("cuda")
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to("cuda")
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to("cuda")
+    pm[:, 0] = True
+    pm[nd // 2] = False
+    n0 = cuda_maxsim.launch_counts()["maxsim_cuda_f32"]
+    got = cuda_maxsim.maxsim_cuda_f32(Q, P, qm, pm)
+    torch.cuda.synchronize()
+    assert cuda_maxsim.launch_counts()["maxsim_cuda_f32"] == n0 + 1
+    torch.testing.assert_close(
+        got, cuda_maxsim.maxsim_plain(Q, P, qm, pm, compute=torch.float32),
+        rtol=0, atol=1e-4)
+    assert got[:, nd // 2].abs().max().item() == 0.0
+    out, _ = cuda_maxsim_train.maxsim_cuda_fwd_train_f32(Q, P, qm, pm)
+    assert torch.equal(got, out)
+    per_sm, rows, cols = cuda_maxsim.f32_occupancy(d)
+    assert (rows, cols, per_sm) == ((128, 32, 1) if d > 128 else (256, 64, 1))

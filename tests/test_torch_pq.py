@@ -361,3 +361,121 @@ def test_from_npz_serves_qat_books_as_the_jax_engine(tmp_path, books,
     # int8 books and bf16 queries against the f32 LUT oracle: 5e-2
     np.testing.assert_allclose(eng.score_all(Q, qm), jeng.score_all(Q, qm),
                                atol=5e-2)
+
+
+@pytest.mark.parametrize("nq,lq", [(1, 32), (4, 32), (5, 32), (12, 32),
+                                   (20, 32), (36, 32), (256, 32), (3, 128),
+                                   (17, 128), (1000, 7), (9, 1)])
+def test_pq_cluster_covers_every_query_block(nq, lq):
+    # K3's cluster: a power of two <= 8 (full-width books) or MAX_CLUSTER's
+    # compact cap, and <= the query-block count, so the launcher's grid x
+    # (the blocks padded up to a multiple of C) has fewer than C padding
+    # CTAs; a single block (one HTTP request) runs alone
+    blocks = -(-nq // (cuda_maxsim.KERNEL_ROWS // lq))
+    for compact, top in ((False, 8),
+                         (True, cuda_maxsim.MAX_CLUSTER["compact"])):
+        c = cuda_maxsim.pq_cluster(nq, lq, compact)
+        assert c in (1, 2, 4, 8) and c <= max(1, blocks)
+        assert c == min(top, 1 << (blocks.bit_length() - 1))
+        if blocks == 1:
+            assert c == 1
+    # the serving batch (64 blocks): clusters of 8 with full-width books
+    if (nq, lq) == (256, 32):
+        assert cuda_maxsim.pq_cluster(nq, lq) == 8
+        assert (cuda_maxsim.pq_cluster(nq, lq, True)
+                == cuda_maxsim.MAX_CLUSTER["compact"])
+
+
+def _shares(n, c):
+    # the [lo, hi) share of each of a cluster's c CTAs in K3's decode of n
+    # items, as maxsim_pq.cu computes it: rank n / c to (rank + 1) n / c
+    return [(r * n // c, (r + 1) * n // c) for r in range(c)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 12, 16, 17, 32, 64])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_pq_shares_cover_each_item_once(n, c):
+    # subspaces (compact books) or tokens of a page tile (full-width books):
+    # the c shares are contiguous, in rank order, and cover 0..n-1 once,
+    # uneven where c does not divide n, empty where n < c
+    shares = _shares(n, c)
+    assert len(shares) == c
+    covered = [i for lo, hi in shares for i in range(lo, hi)]
+    assert covered == list(range(n))
+    sizes = [hi - lo for lo, hi in shares]
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) <= -(-n // c)
+
+
+@pytest.mark.parametrize("expanded", [False, True])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_pq_decode_by_shares_equals_pq_decode_int(expanded, c):
+    # the kernel's split decode in plain torch: compact books share by
+    # subspace (CTA r fills the dims of its subspaces for every token),
+    # full-width books by token (CTA r sums whole rows for its tokens);
+    # concatenated, the shares are pq_decode_int's tokens exactly (M = 12,
+    # uneven shares at C = 8)
+    rng = np.random.default_rng(c + 10 * expanded)
+    m, k, d = 12, 256, 48
+    w = d if expanded else d // m
+    books = torch.from_numpy(rng.normal(size=(m, k, w)).astype(np.float32))
+    tile = 64  # a page tile's tokens (maxsim_tile.cuh kCols)
+    codes = torch.from_numpy(rng.integers(0, k, (2, tile, m), dtype=np.uint8))
+    compact, books_q, _ = cuda_maxsim.pq_books(books, d, "cpu")
+    assert compact != expanded
+    want = cuda_maxsim.pq_decode_int(
+        codes, cuda_maxsim.pq_full_books(books_q, compact, d))
+    idx = codes.long()
+    if compact:
+        parts = [books_q[torch.arange(lo, hi), idx[..., lo:hi]].flatten(-2)
+                 for lo, hi in _shares(m, c)]
+        got = torch.cat(parts, dim=-1).to(torch.int32)
+    else:
+        parts = [sum(books_q[j][idx[:, lo:hi, j]].to(torch.int32)
+                     for j in range(m))
+                 for lo, hi in _shares(idx.shape[1], c)]
+        got = torch.cat(parts, dim=1)
+    assert got.shape == want.shape == (2, tile, d)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,func,kb_shape,cluster", [
+    ("compact", "evdr_maxsim_pq", (8, 256, 4), 2),
+    ("compact2", "evdr_maxsim_pq_sum", (16, 256, 32), 8),
+    ("expanded", "evdr_maxsim_pq_sum", (4, 256, 32), 8)])
+def test_pq_host_side_picks_kernel_books_and_cluster(monkeypatch, kind,
+                                                     func, kb_shape,
+                                                     cluster):
+    # K3's host side up to the launch (the kernel replaced by a recorder):
+    # compact books of 4-byte subvectors go to the shared-memory kernel as
+    # int8 rows padded to 256, clusters of 2 at the serving batch; 2-byte
+    # subvectors are embedded block-diagonally and, like expanded books,
+    # summed through L2, clusters of 8
+    rng = np.random.default_rng(3)
+    d, m = 32, {"compact": 8, "compact2": 16, "expanded": 4}[kind]
+    w = d if kind == "expanded" else d // m
+    books = torch.from_numpy(rng.normal(size=(m, 40, w)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 40, (3, 5, m), dtype=np.uint8))
+    Q = torch.from_numpy(rng.normal(size=(256, 32, d)).astype(np.float32))
+    qm, pm = torch.ones(256, 32, dtype=torch.bool), torch.ones(3, 5,
+                                                               dtype=torch.bool)
+    seen = {}
+
+    def record(lib, name, operands, *args, aligned=()):
+        seen.update(lib=lib, func=name, kb=operands[3], args=args)
+
+    monkeypatch.setattr(cuda_maxsim, "call_kernel", record)
+    out, name = cuda_maxsim._launch_pq(Q.to(torch.bfloat16), qm.float(),
+                                       codes, qm, pm, books,
+                                       int8_queries=False)
+    assert name == seen["func"] == func and seen["lib"] == "maxsim_pq"
+    assert seen["kb"].dtype == torch.int8
+    assert tuple(seen["kb"].shape) == kb_shape
+    assert seen["args"] == (256, 32, 3, 5, d, m, cluster)
+    assert out.shape == (256, 3)
+    compact, books_q, _ = cuda_maxsim.pq_books(books, d, "cpu")
+    full = cuda_maxsim.pq_full_books(books_q, compact, d)
+    if func == "evdr_maxsim_pq":
+        assert torch.equal(seen["kb"][:, :40], books_q)
+        assert not seen["kb"][:, 40:].any()
+    else:  # the full-width rows the kernel sums decode as pq_decode_int
+        assert torch.equal(seen["kb"].to(torch.int32), full)
