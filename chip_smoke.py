@@ -85,7 +85,15 @@ line each:
     from step 0, each log must end with its summary line, and (b)'s best
     npz must carry its codebooks and serve through
     ``RetrievalEngine.from_npz(dtype='pq')`` with rank 1 equal to the f32
-    scoring of the exported reconstruction (but for near-ties).
+    scoring of the exported reconstruction (but for near-ties);
+19. every query length and width: an index of D = 72 (stored zero-padded
+    to 80 at build) on every tier (bf16, int8, int4 and PQ at M = 8, each
+    quantized tier with and without quantize_queries) answering queries
+    of 200 tokens through search_dense, against the plain versions on the
+    same index (K1 and K3 score them in two slices of 128 and 72 tokens,
+    K2 and K4 in one launch of their 256-row tiles); then tools/serve_http
+    over the bf16 engine, one request of 200 tokens coalesced with three of
+    32 tokens, every request answered with search_dense's top-1.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
@@ -136,6 +144,10 @@ PQ_SAMPLE, PLAIN_TIME_DOCS = 16_384, 10_000
 # K2b's short-page shape: 100,000 pages x 64 tokens (0.82 GB of codes), a
 # doc ending every page tile
 SHORT_DOCS, SHORT_LP = 100_000, 64
+# every query length and width (phase 19): 3,000 pages of D = 72 (stored
+# zero-padded to 80) and queries of 200 tokens (K1 and K3 score them in
+# two slices, 128 + 72 tokens; K2 and K4 take 256 in one launch)
+SHAPES_DOCS, SHAPES_D, SHAPES_LQ, SHAPES_PQ_M = 3_000, 72, 200, 8
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -195,18 +207,20 @@ def make_int8_pages(n, gen, quantize, chunk=1000, rows=None,
     return codes, scales, pm
 
 
-def planted_queries(tokens_of, n_docs, gen, nq=NQ):
-    """Queries that each copy 32 tokens of one doc, plus noise of norm ~0.5,
-    with ~15% of query tokens masked. Returns Q, qmask, the planted docs."""
+def planted_queries(tokens_of, n_docs, gen, nq=NQ, lq=LQ):
+    """Queries that each copy ``lq`` tokens of one doc, plus noise of norm
+    ~0.5, with ~15% of query tokens masked. Returns Q, qmask, the planted
+    docs."""
     targets = (torch.arange(nq, device=DEVICE) * 7919 + 11) % n_docs
     pages = tokens_of(targets)
-    pos = torch.randint(0, pages.shape[1], (nq, LQ), device=DEVICE,
+    d = pages.shape[-1]
+    pos = torch.randint(0, pages.shape[1], (nq, lq), device=DEVICE,
                         generator=gen)
     base = pages[torch.arange(nq, device=DEVICE)[:, None], pos]
-    noise = torch.randn((nq, LQ, D), device=DEVICE, generator=gen) * (
-        0.5 / D ** 0.5)
+    noise = torch.randn((nq, lq, d), device=DEVICE, generator=gen) * (
+        0.5 / d ** 0.5)
     Q = unit(base + noise)
-    qm = torch.rand((nq, LQ), device=DEVICE, generator=gen) > 0.15
+    qm = torch.rand((nq, lq), device=DEVICE, generator=gen) > 0.15
     qm[:, 0] = True
     return Q, qm, targets
 
@@ -216,6 +230,8 @@ def check_engine(phase, label, eng, Q, qm, tgt, plain, tol):
     be >= 0.99, and against the plain version on the engine's own index,
     top-1 of 16 queries equal and the top-K scores within ``tol``. Returns
     the queries/s of the timed call (after a warm one)."""
+    from evdr_tpu_torch.parallel.sharded_index import pad_queries
+
     nq = Q.shape[0]
     eng.search_dense(Q, qm, k=K)  # warm
     t1 = time.perf_counter()
@@ -225,6 +241,7 @@ def check_engine(phase, label, eng, Q, qm, tgt, plain, tol):
           f"{label} output shape/finite")
     hit = float(np.mean(idx[:, 0] == tgt.cpu().numpy()))
     ix = eng.index
+    Q = pad_queries(Q, ix)  # an index of D off 16 is stored zero-padded
     if ix.books is not None:
         args16 = (Q[:16], ix.P, qm[:16], ix.pmask, ix.books)
     elif ix.scales is not None:
@@ -1040,9 +1057,9 @@ def tier_times(cm, args4, argspq, counts, pq_shapes, parity, smi, seed):
                      "launches_by_shape": pq_shapes[kname]}
         log(f"phase 15 time {kname}: {ms:.3f} ms median of 7 (spread "
             f"{lo:.3f}-{hi:.3f}) at {NQ}x{LQ} queries x {nd}x{LP} pages; "
-            f"bound {bms:.3f} ms by {by} ({peak} peak); plain {plain_ms:.3f} "
-            f"ms (median of 3, on the first {n} pages); library: none"
-            f"{extra}; {smi}")
+            f"bound {bms:.3f} ms by {by} ({peak} peak; {bms / ms:.1%} of "
+            f"the time); plain {plain_ms:.3f} ms (median of 3, on the first "
+            f"{n} pages); library: none{extra}; {smi}")
         err, tol = parity[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -1318,6 +1335,125 @@ def defer_phase(cm, gen, smi):
     return kernels
 
 
+# ------------------------------------- every query length and width (19)
+
+
+def post_concurrently(url, bodies):
+    """POST each body to ``url`` from a thread of its own, all at once;
+    returns [(status, reply)] in order."""
+    replies = [None] * len(bodies)
+
+    def one(i):
+        req = urllib.request.Request(
+            url, data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies[i] = (r.status, json.loads(r.read()))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return replies
+
+
+def shapes_phase(cm, gen):
+    """Phase 19: an index of D = 72 (not a multiple of the kernels' 16)
+    on every tier (bf16; int8 and int4, each with and without
+    quantize_queries; PQ at M = 8, with and without), built through
+    RetrievalEngine.build, answering queries of 200 tokens (above K1's and
+    K3's 128 query-token rows a launch) through search_dense, each against
+    the plain version on its own index; then tools/serve_http over the
+    int8 engine, one request of 200 tokens coalesced with three of 32, all
+    answered with search_dense's top-1."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.data.packing import preprocess_queries
+    from evdr_tpu_torch.tools.serve_http import make_server
+
+    t0 = time.perf_counter()
+    n, d = SHAPES_DOCS, SHAPES_D
+    P = torch.empty((n, LP, d), dtype=torch.float32, device=DEVICE)
+    for i in range(0, n, 1_000):
+        c = min(1_000, n - i)
+        P[i:i + c] = unit(torch.randn((c, LP, d), device=DEVICE,
+                                      generator=gen))
+    pm = torch.rand((n, LP), device=DEVICE, generator=gen) > 0.1
+    P = P * pm[..., None]
+    Q, qm, tgt = planted_queries(lambda t: P[t], n, gen, lq=SHAPES_LQ)
+    cm.reset_launch_counts()
+    tiers = [("bfloat16", False, cm.maxsim_plain, 2e-2),
+             ("int8", True, cm.maxsim_int8full_plain, 5e-3),
+             ("int8", False, cm.maxsim_int8_plain, 2e-2),
+             ("int4", True, cm.maxsim_int4full_plain, 5e-3),
+             ("int4", False, cm.maxsim_int4_plain, 2e-2),
+             ("pq", True, cm.maxsim_pqfull_plain, 5e-3),
+             ("pq", False, cm.maxsim_pq_plain, 2e-2)]
+    rates, built = {}, {}
+    for dtype, q8, plain, tol in tiers:
+        label = dtype + ("+quantize_queries" if q8 else "")
+        eng = RetrievalEngine(dtype=dtype, quantize_queries=q8,
+                              pq_m=SHAPES_PQ_M)
+        if dtype in built:  # one index a tier (PQ books train on the host)
+            eng.index = built[dtype].index
+        else:
+            built[dtype] = eng.build(P, pm)
+        ix = eng.index
+        width = (ix.books.shape[0] * ix.books.shape[-1]
+                 if ix.books is not None else ix.P.shape[-1])
+        check(eng.dim == d and width % cm.D_GRANULE == 0 and width >= d,
+              f"{label}: dim {eng.dim}, stored width {width}")
+        rates[label] = check_engine(19, f"{label} (Lq {SHAPES_LQ}, D {d}, "
+                                    f"stored {width})", eng, Q, qm, tgt,
+                                    plain, tol)
+    counts = cm.launch_counts()
+    log(f"phase 19 launches: {counts}; by shape: "
+        f"{sorted((k[0], k[3]) for k in cm.launch_shapes)}")
+    for w in (cm.maxsim_cuda, cm.maxsim_cuda_int8, cm.maxsim_cuda_int8full,
+              cm.maxsim_cuda_int4, cm.maxsim_cuda_int4full,
+              cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull):
+        check(counts[w.__name__] > 0, f"{w.__name__} launched in phase 19")
+    check(any(k[0] == "maxsim_cuda" and k[3] == SHAPES_LQ - cm.ROW_CAP[
+        "maxsim_bf16"] for k in cm.launch_shapes),
+        "K1 scored the 200-token queries in slices")
+
+    # one HTTP group: a 200-token request beside three of 32 tokens
+    eng_bf = built["bfloat16"]
+    srv = make_server(eng_bf, port=0, batch_wait_ms=500.0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/search"
+        lens = [SHAPES_LQ, 32, 32, 32]
+        qs = [Q[i, :n_tok][qm[i, :n_tok]].cpu().numpy()
+              for i, n_tok in enumerate(lens)]
+        replies = post_concurrently(url, [
+            {"queries": [q.tolist()], "k": K} for q in qs])
+        check(all(r is not None and r[0] == 200 for r in replies),
+              f"every request of the group answered: "
+              f"{[None if r is None else r[0] for r in replies]}")
+        grouped = max(r[1]["batched_with"] for r in replies)
+        top1 = []
+        for q, (_, reply) in zip(qs, replies):
+            qobj = np.empty(1, dtype=object)
+            qobj[0] = q
+            Qh, qmh = preprocess_queries(qobj, None, length_multiple=8)
+            _, idx = eng_bf.search_dense(Qh, qmh, k=K)
+            top1.append(reply["docids"][0][0] == eng_bf.ids_for(idx)[0][0])
+        log(f"phase 19 serve_http: requests of {lens} tokens answered "
+            f"(coalesced up to {grouped} a group), top-1 equal to "
+            f"search_dense: {top1}")
+        check(grouped > 1 and all(top1), "HTTP group with a 200-token query")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s; search_dense q/s at "
+        f"Lq {SHAPES_LQ}, D {d}: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rates.items()))
+
+
 # ------------------------------------------------- training, the rest (18)
 
 
@@ -1587,8 +1723,8 @@ def main(argv=None) -> int:
         nd = pmask.shape[0]
         log(f"phase 6 time {kname}: {ms:.3f} ms median of 7 (spread "
             f"{lo:.3f}-{hi:.3f}) at {NQ}x{LQ} queries x {nd}x{LP} pages; "
-            f"bound {bms:.3f} ms by {by}; plain {plain_ms:.3f} ms (median "
-            f"of 3); library: none; {smi}")
+            f"bound {bms:.3f} ms by {by} ({bms / ms:.1%} of the time); "
+            f"plain {plain_ms:.3f} ms (median of 3); library: none; {smi}")
         err, tol = parity[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -1626,7 +1762,13 @@ def main(argv=None) -> int:
         rest_of_training(cm, work, args.seed, bundle)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"phases 1-18: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 19. every query length and width
+    shapes_phase(cm, gen)
+    log(f"phases 1-19: {time.perf_counter() - t_start:.1f} s")
+    for k in kernels:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     check(len(kernels) == 15 and all(k["launches"] > 0 for k in kernels),
           f"15 kernels, each launched on its path: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

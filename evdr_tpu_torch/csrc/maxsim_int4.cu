@@ -25,10 +25,17 @@
 // tokens) into a double-buffered raw area, and once it lands the threads
 // unpack both nibble planes into the MMA operand tile in shared memory
 // (per-byte sign extension by __vsub4), in token order; K2's mma.sync loop
-// and register-held running max follow unchanged. The TPU kernel's
-// even/odd-plane split is a VMEM layout device and is not needed here.
-// PTX's s4 mma shapes would need 4-bit queries, which would change the
-// result, so the codes widen to the queries' type instead.
+// and register-held running max follow unchanged, on K2's wide tile
+// configuration (256 x 64 a CTA, 64 x 32 outputs a warp, 8 docs a CTA:
+// 18-20% faster than 128 rows on an H100, the same scores bit for bit,
+// PERF.md).
+// Unpacking in registers instead (ldmatrix of the packed rows: one load
+// gives a thread dims 4t .. 4t + 3 of an even and an odd token) tied in
+// int4full mode and ran 18% slower in int4 mode, where each warp widens to
+// bf16. The TPU kernel's even/odd-plane split is a VMEM layout device and
+// is not needed here. PTX's s4 mma shapes would need 4-bit queries, which
+// would change the result, so the codes widen to the queries' type
+// instead.
 //
 // C interface: q (nq, lq, d) int8 or bf16, qw (nq, lq) f32, p (nd,
 // ceil(lp / 2), d) uint8, scales (nd, lp) f32, pmask (nd, lp) bool as
@@ -40,14 +47,14 @@ extern "C" int evdr_maxsim_int4full(const void* q, const void* qw,
                                     const void* pmask, void* out, int nq,
                                     int lq, int nd, int lp, int d,
                                     void* stream) {
-  return evdr::launch<evdr::kInt4Int8>(q, qw, p, scales, pmask, out, nullptr,
-                                       nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt4Int8, false, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
 }
 
 extern "C" int evdr_maxsim_int4(const void* q, const void* qw, const void* p,
                                 const void* scales, const void* pmask,
                                 void* out, int nq, int lq, int nd, int lp,
                                 int d, void* stream) {
-  return evdr::launch<evdr::kInt4Bf16>(q, qw, p, scales, pmask, out, nullptr,
-                                       nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt4Bf16, false, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
 }

@@ -16,21 +16,27 @@
 //   token's scale when the queries were quantized.
 //
 // Design:
-// - One CTA of 256 threads owns kRows = 128 query-token rows: the
-//   floor(128 / Lq) whole queries starting at blockIdx.x * qb, staged once
-//   in shared memory. It walks db docs (blockIdx.y), and each doc's Lp
-//   tokens in tiles of kCols = 64.
-// - Each tile's 128 x 64 similarity block comes from mma.sync tensor-core
+// - One CTA of 256 threads owns CFG::kR query-token rows (a tile
+//   configuration, TileCfg below): the floor(kR / Lq) whole queries
+//   starting at blockIdx.x * qb, staged once in shared memory. It walks db
+//   docs (blockIdx.y), and each doc's Lp tokens in tiles of kCols = 64.
+//   Two configurations: CfgBase, 128 rows and 4 docs a CTA, 32 x 32
+//   outputs a warp (K1 bf16, K2b, K5, and the k-loop K6 and K3 repeat
+//   through tile_mma); CfgWide, 256 rows and 8 docs a CTA, 64 x 32 a warp,
+//   the query block brought by cp.async with the first page tile (K2 and
+//   K4: measured on an H100 18-20% faster than CfgBase at the serving
+//   shape, with the same scores bit for bit, PERF.md).
+// - Each tile's similarity block comes from mma.sync tensor-core
 //   instructions (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, or three
 //   m16n8k8 tf32 products per k-step for float32, see mma() below): 8 warps
-//   in a 4 x 2 grid, 32 x 32 outputs each, fed by ldmatrix. Operand rows
-//   sit in shared memory as 16-byte units with an odd row stride
-//   (units + 1), so the 8 rows an ldmatrix phase reads hit 32 distinct
-//   banks.
+//   in a 4 x 2 grid, fed by ldmatrix. Operand rows sit in shared memory as
+//   16-byte units with an odd row stride (units + 1), so the 8 rows an
+//   ldmatrix phase reads hit 32 distinct banks. Each output's k order is
+//   the same in both configurations.
 // - The masked, scaled running max is taken straight from the accumulator
-//   registers (each thread holds 4 rows x 8 columns of a tile) and kept in
-//   registers across the doc's Lp loop: the (nq, nd, Lq, Lp) similarity
-//   tensor never leaves the registers.
+//   registers (each thread holds 2 rows per 16-row block x 8 columns of a
+//   tile) and kept in registers across the doc's Lp loop: the (nq, nd, Lq,
+//   Lp) similarity tensor never leaves the registers.
 // - Page tiles arrive by cp.async into two buffers: the next tile (which
 //   may belong to the next doc) loads while this one multiplies.
 // - At each doc's end the four threads of a quad and the two column warps
@@ -43,7 +49,9 @@
 //   packed int4 bytes) into a raw buffer by cp.async and turn it into the
 //   MMA operand tile in shared memory once it has landed (widen, unpack
 //   nibbles). Each such stage sits behind `if constexpr` on the mode, so
-//   the other modes compile as before.
+//   the other modes compile as before. Converting in registers instead
+//   (ldmatrix of the raw tile, each warp widening its own fragments) was
+//   measured and lost, or tied for int4full (PERF.md).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,10 +60,27 @@
 
 namespace evdr {
 
-constexpr int kRows = 128;         // query-token rows per CTA
+constexpr int kRows = 128;         // query-token rows per CTA (CfgBase)
 constexpr int kCols = 64;          // doc tokens per tile
-constexpr int kThreads = 256;      // 8 warps: 4 (rows) x 2 (cols), 32 x 32 each
+constexpr int kThreads = 256;      // 8 warps: 4 (rows) x 2 (cols)
 constexpr int kMaxGridY = 65535;
+
+// A tile configuration of maxsim_kernel: ROWS query-token rows per CTA
+// against 64-token page tiles, the 8 warps standing 4 x 2, so a warp holds
+// kI blocks of 16 rows x kJ blocks of 8 columns (kI ldmatrix.x4 of A and
+// two of B per k-step); DOCS docs per CTA (blockIdx.y). CfgBase is the
+// layout of K1 bf16, K2b and K5 (32 x 32 a warp), which their machine code
+// keeps; CfgWide the one K2 and K4 run (64 x 32 a warp on 256 x 64 tiles,
+// as K1 float32 in maxsim_f32.cu: half the A and B ldmatrix bytes per
+// product, and each page tile converted once per 256 query rows).
+template <int ROWS, int DOCS> struct TileCfg {
+  static constexpr int kR = ROWS, kDocs = DOCS;
+  static constexpr int kWM = 4, kWN = 2;
+  static constexpr int kWarpRows = ROWS / kWM, kWarpCols = kCols / kWN;
+  static constexpr int kI = kWarpRows / 16, kJ = kWarpCols / 8;
+};
+using CfgBase = TileCfg<kRows, 4>;
+using CfgWide = TileCfg<2 * kRows, 8>;
 constexpr float kNegInit = -1e30f;    // pallas_maxsim.py NEG_INIT
 constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 
@@ -136,7 +161,7 @@ template <int MODE> __host__ __device__ inline size_t raw_tile_bytes(
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
 // (units + 1) * 16 bytes. K2b (`defer`) keeps two `part` and two `red`
 // buffers, one of each per doc parity.
-template <int MODE> struct Smem {
+template <int MODE, class CFG = CfgBase> struct Smem {
   int units, raw_units;
   size_t a, b, raw, colscale, qw, part, red, total;
   __host__ __device__ explicit Smem(int d, bool defer = false) {
@@ -144,13 +169,13 @@ template <int MODE> struct Smem {
     raw_units = d / 16;  // int8 page units staged before widening
     const size_t row = (size_t)(units + 1) * 16;
     a = 0;
-    b = align128(a + row * kRows);
+    b = align128(a + row * CFG::kR);
     raw = align128(b + row * kCols * (is_staged<MODE> ? 1 : 2));
     colscale = align128(raw + raw_tile_bytes<MODE>(raw_units) * 2);
     qw = align128(colscale + sizeof(float) * kCols * 2);
-    part = align128(qw + sizeof(float) * kRows);
-    red = align128(part + sizeof(float) * (defer ? 4 : 2) * kRows);
-    total = align128(red + sizeof(float) * (defer ? 2 : 1) * kRows);
+    part = align128(qw + sizeof(float) * CFG::kR);
+    red = align128(part + sizeof(float) * (defer ? 4 : 2) * CFG::kR);
+    total = align128(red + sizeof(float) * (defer ? 2 : 1) * CFG::kR);
   }
 };
 
@@ -432,8 +457,8 @@ __device__ inline void defer_sum(const float* rr, float* out, int q0,
 // STORE_M: K5, which also stores each row's max in m_out. A template flag,
 // so the serving kernels compile without that store. DEFER: K2b, the doc
 // epilogue of K2 moved one tile later (see the doc-end block below); also
-// a template flag.
-template <int MODE, bool STORE_M, bool DEFER = false>
+// a template flag. CFG: the tile configuration (TileCfg).
+template <int MODE, bool STORE_M, bool DEFER = false, class CFG = CfgBase>
 __global__ void EVDR_LAUNCH_BOUNDS
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ qw,
@@ -447,9 +472,12 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   using TAcc = typename Traits<MODE>::TAcc;
   // the MMA operand type: bf16 unless both sides are int8 (f32 for kF32)
   using TS = typename Traits<MODE>::TQ;
+  constexpr int R = CFG::kR, kI = CFG::kI, kJ = CFG::kJ;
   static_assert(!(STORE_M && DEFER), "K5 keeps the in-step epilogue");
+  static_assert(!DEFER || R == kRows, "K2b keeps the 128-row layout");
+  static_assert(kJ == 4, "two B ldmatrix.x4 a k-step");
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<MODE> lay(d, DEFER);
+  const Smem<MODE, CFG> lay(d, DEFER);
   const int units = lay.units;
   const size_t stride = (size_t)(units + 1) * 16;
   unsigned char* As = smem + lay.a;
@@ -463,8 +491,8 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int wm = warp % 4;  // rows wm*32 .. +32
-  const int wn = warp / 4;  // cols wn*32 .. +32
+  const int wm = warp % CFG::kWM;  // rows wm*kWarpRows .. +kWarpRows
+  const int wn = warp / CFG::kWM;  // cols wn*32 .. +32
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * qb;
   const int nq_here = min(qb, nq - q0);
@@ -472,10 +500,15 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   const size_t row0 = (size_t)q0 * lq;
   const int p_units = d * (int)sizeof(TP) / 16;
 
-  // the query block: staged once, reused for every doc token
-  stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d), kRows,
-             nrows, d * (int)sizeof(TQ) / 16, units, tid);
-  for (int r = tid; r < kRows; r += kThreads)
+  // the query block, reused for every doc token: staged once, before the
+  // loop (CfgBase), or as one cp.async group with the first page tile
+  if constexpr (R == kRows)
+    stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
+               kRows, nrows, d * (int)sizeof(TQ) / 16, units, tid);
+  else
+    stage_async<R>(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
+                   nrows, d * (int)sizeof(TQ) / 16, units, tid);
+  for (int r = tid; r < R; r += kThreads)
     qw_s[r] = r < nrows ? qw[row0 + r] : 0.f;
   if constexpr (is_staged<MODE> && MODE != kInt8Bf16) {
     // the operand tile's pad units (int8 rows pad to an even unit count)
@@ -521,9 +554,9 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     }
   };
 
-  float mx[2][2];  // running max of rows wm*32 + i*16 + h*8 + g
+  float mx[kI][2];  // running max of rows wm*kWarpRows + i*16 + h*8 + g
 #pragma unroll
-  for (int i = 0; i < 2; ++i) mx[i][0] = mx[i][1] = kNegInit;
+  for (int i = 0; i < kI; ++i) mx[i][0] = mx[i][1] = kNegInit;
   // K2b: the docs due for stage 1 and for stage 2 of their epilogue
   [[maybe_unused]] int pend1 = -1, pend2 = -1;
 
@@ -548,29 +581,31 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       B = Bs;
     }
 
-    // the tile's similarities; tile_mma above repeats this loop for K6
-    TAcc acc[2][4][4];
+    // the tile's similarities; tile_mma above repeats this loop (CfgBase)
+    // for K6
+    TAcc acc[kI][kJ][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    const unsigned char* a_row = As + (wm * 32 + lane % 16) * stride;
+    const unsigned char* a_row =
+        As + (wm * CFG::kWarpRows + lane % 16) * stride;
     const unsigned char* b_row =
         B + (wn * 32 + lane % 8 + (lane / 16) * 8) * stride;
     for (int k = 0; k < units; k += 2) {
-      uint32_t a[2][4], b[2][4];
+      uint32_t a[kI][4], b[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kI; ++i)
         ldsm_x4(a[i], a_row + i * 16 * stride + (k + lane / 16) * 16);
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj)
         ldsm_x4(b[jj], b_row + jj * 16 * stride + (k + (lane / 8) % 2) * 16);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kJ; ++j)
           mma(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1],
               TS());
     }
@@ -578,10 +613,10 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     // masked, scaled max of this tile's 8 columns per thread
     const float* cs = colscale + buf * kCols + wn * 32 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const float c0 = cs[j * 8], c1 = cs[j * 8 + 1];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kI; ++i) {
         mx[i][0] = fmaxf(mx[i][0], fmaxf(masked((float)acc[i][j][0], c0),
                                          masked((float)acc[i][j][1], c1)));
         mx[i][1] = fmaxf(mx[i][1], fmaxf(masked((float)acc[i][j][2], c0),
@@ -612,21 +647,22 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       const int dd = d_begin + it / n_tiles;
       float* pp = DEFER ? part + (dd & 1) * 2 * kRows : part;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float m = mx[i][h];
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          if (t == 0) pp[wn * kRows + wm * 32 + i * 16 + h * 8 + g] = m;
+          if (t == 0)
+            pp[wn * R + wm * CFG::kWarpRows + i * 16 + h * 8 + g] = m;
           mx[i][h] = kNegInit;
         }
       if constexpr (DEFER) {
         pend1 = dd;
       } else {
         __syncthreads();
-        if (tid < kRows) {
-          const float m = fmaxf(part[tid], part[kRows + tid]);
+        if (tid < R) {  // R <= kThreads: one row a thread
+          const float m = fmaxf(part[tid], part[R + tid]);
           // K5: the row's raw max (before the no-valid-token rule), the
           // residual K6 compares recomputed similarities against
           if constexpr (STORE_M) {
@@ -662,22 +698,25 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 // Host launcher: validates what the kernel cannot take, sizes shared
 // memory, launches on `stream` and returns cudaGetLastError().
 // ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
-// unused (null) otherwise. DEFER: K2b (K2's modes only).
-template <int MODE, bool STORE_M = false, bool DEFER = false>
+// unused (null) otherwise. DEFER: K2b (K2's modes only). CFG: the tile
+// configuration; a call takes Lq <= CFG::kR query tokens and D a multiple
+// of 16 (the wrappers slice longer queries and zero-pad D).
+template <int MODE, bool STORE_M = false, bool DEFER = false,
+          class CFG = CfgBase>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
            const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
            int lp, int d, void* stream) {
-  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || d < 16 ||
+  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > CFG::kR || d < 16 ||
       d % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Smem<MODE> lay(d, DEFER);
+  const Smem<MODE, CFG> lay(d, DEFER);
   if (lay.total > 232448) return (int)cudaErrorInvalidValue;
-  auto* kern = maxsim_kernel<MODE, STORE_M, DEFER>;
+  auto* kern = maxsim_kernel<MODE, STORE_M, DEFER, CFG>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
-  const int qb = kRows / lq;
-  int db = 4;
+  const int qb = CFG::kR / lq;
+  int db = CFG::kDocs;
   if ((nd + db - 1) / db > kMaxGridY) db = (nd + kMaxGridY - 1) / kMaxGridY;
   dim3 grid((nq + qb - 1) / qb, (nd + db - 1) / db);
   kern<<<grid, kThreads, lay.total, (cudaStream_t)stream>>>(

@@ -27,7 +27,8 @@ from evdr_tpu_torch.data.npz_io import load_payload
 from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
                                          preprocess_queries)
 from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
-                                                   build_sharded_index)
+                                                   build_sharded_index,
+                                                   pad_index_dim, pad_queries)
 from evdr_tpu_torch.parallel.topk import sharded_maxsim, sharded_topk
 
 DTYPES = (None, "float32", "bfloat16", "int8", "int4", "pq")
@@ -114,9 +115,8 @@ class RetrievalEngine:
                                           opq=self.pq_opq, device=self.device)
             return self.build_from_pq(codes, books, pmask, docids=docids,
                                       expanded=self.pq_opq)
-        self.index = build_sharded_index(P, pmask, self.device,
-                                         dtype=self.dtype,
-                                         docids=_ids(docids))
+        self.index = pad_index_dim(build_sharded_index(
+            P, pmask, self.device, dtype=self.dtype, docids=_ids(docids)))
         return self
 
     def build_from_codes(self, codes, scales, pmask,
@@ -127,9 +127,9 @@ class RetrievalEngine:
         normalized embeddings (packed files written with --normalize)."""
         if self.dtype != "int8":
             raise ValueError("build_from_codes requires dtype='int8'")
-        self.index = build_sharded_index(codes, pmask, self.device,
-                                         dtype="int8", scales=scales,
-                                         docids=_ids(docids))
+        self.index = pad_index_dim(build_sharded_index(
+            codes, pmask, self.device, dtype="int8", scales=scales,
+            docids=_ids(docids)))
         return self
 
     def build_from_codes4(self, packed, scales, pmask,
@@ -140,9 +140,9 @@ class RetrievalEngine:
         with no unpack/requantize round trip."""
         if self.dtype != "int4":
             raise ValueError("build_from_codes4 requires dtype='int4'")
-        self.index = build_sharded_index(packed, pmask, self.device,
-                                         dtype="int4", scales=scales,
-                                         docids=_ids(docids))
+        self.index = pad_index_dim(build_sharded_index(
+            packed, pmask, self.device, dtype="int4", scales=scales,
+            docids=_ids(docids)))
         return self
 
     def build_from_pq(self, codes, books, pmask,
@@ -153,8 +153,9 @@ class RetrievalEngine:
 
         ``expanded=True`` marks full-width (M, K, D) OPQ codebooks
         (ops/pq.expand_books). The scorers tell the layouts apart from the
-        query dim, but ``dim`` (the serving warm-up's token dim, with no
-        query in hand) reads the recorded ``index.books_expanded`` flag."""
+        query dim, but ``pad_index_dim`` (which pads the books and records
+        ``dim``, with no query in hand) reads the recorded
+        ``index.books_expanded`` flag."""
         if self.dtype != "pq":
             raise ValueError("build_from_pq requires dtype='pq'")
         self.index = build_sharded_index(
@@ -163,6 +164,7 @@ class RetrievalEngine:
         self.index.books = as_tensor(books, self.device,
                                      torch.float32).contiguous()
         self.index.books_expanded = bool(expanded)
+        self.index = pad_index_dim(self.index)
         return self
 
     def build_from_ragged(self, documents_obj, doc_attnmask=None,
@@ -180,10 +182,9 @@ class RetrievalEngine:
         from evdr_tpu_torch.convert import index_from_numpy
 
         eng = cls(**kw)
-        eng.index = index_from_numpy(P, pmask, n_docs, scales=scales,
-                                     docids=docids, books=books,
-                                     books_expanded=books_expanded,
-                                     device=eng.device)
+        eng.index = pad_index_dim(index_from_numpy(
+            P, pmask, n_docs, scales=scales, docids=docids, books=books,
+            books_expanded=books_expanded, device=eng.device))
         return eng
 
     @classmethod
@@ -254,7 +255,10 @@ class RetrievalEngine:
     def _queries(self, Q, qmask):
         if self.index is None:
             raise RuntimeError("engine has no index; call build() first")
-        return (as_tensor(Q, self.device, torch.float32),
+        # queries at the index's true dim meet its padded width here, per
+        # call; the index itself was padded once, at build
+        return (pad_queries(as_tensor(Q, self.device, torch.float32),
+                            self.index),
                 as_tensor(qmask, self.device, torch.bool))
 
     def search_dense(self, Q, qmask, k: int = 10,
@@ -296,17 +300,13 @@ class RetrievalEngine:
 
     @property
     def dim(self) -> int:
-        """Token dim of the built index. A PQ index stores codes, so D comes
-        from the books: their last dim when expanded (``books_expanded``,
-        recorded by build_from_pq), M * D/M when compact. int4's token-pair
-        packing keeps full-width D lanes."""
+        """Token dim of the built index, before any zero-padding for the
+        kernels: ``index.dim``, recorded by ``pad_index_dim`` at every
+        build (a PQ index stores codes, so D comes from its books: their
+        last dim when expanded, M * D/M when compact)."""
         if self.index is None:
             raise RuntimeError("engine has no index; call build() first")
-        b = self.index.books
-        if b is not None:
-            return int(b.shape[-1]) if self.index.books_expanded \
-                else int(b.shape[0] * b.shape[-1])
-        return int(self.index.P.shape[-1])
+        return self.index.dim
 
 
 def _ids(docids):

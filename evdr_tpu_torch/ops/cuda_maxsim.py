@@ -29,12 +29,21 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
   thread-block clusters of :func:`pq_cluster` CTAs share each page tile's
   decode.
 
+Shapes: a launch takes at most ``ROW_CAP[library]`` query tokens (its
+CTA's query-token rows) and D a multiple of ``D_GRANULE``. A wrapper scores
+a longer query in slices of at most that many tokens and adds their
+partial scores (``split_queries``; a tolerance against one pass, since
+only the order of f32 additions changes), and zero-pads a narrower D
+(exact). D above ``MAX_D`` (float32 modes: ``F32_MAX_D``) is refused: a max
+over tokens does not split over D. The engine pads its stored index once,
+at build (``parallel/sharded_index.pad_index_dim``), so the per-call pad
+touches only the queries.
+
 Routing: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it returns its plain version. There is no other fallback.
 Each wrapper counts its launches in a plain integer attribute
-(``maxsim_cuda.launches`` ...), raised by one exactly where it launches;
-K1's float32 mode and K3 also count them by kernel function and shape in
-``launch_shapes``.
+(``maxsim_cuda.launches`` ...), raised by one exactly where it launches,
+and by kernel function and shape in ``launch_shapes``.
 
 The plain versions reproduce the kernels' numerics: bf16 casts of the
 inputs, f32 sums, the -1e30 fill of an invalid doc token, the rule that a
@@ -60,13 +69,26 @@ NEG_THRESH = -1e29  # a running max below this: the doc had no valid token
 _PLAIN_CHUNK_ELEMS = 1 << 27
 
 KERNEL_ROWS = 128   # query-token rows per CTA (maxsim_tile.cuh kRows)
+# The most query tokens one launch of each library takes: its CTA's
+# query-token rows (K2 and K4 stand on 256-row tiles, maxsim_tile.cuh
+# CfgWide). A longer query is scored in slices of at most this many tokens
+# whose partial scores add up (split_queries).
+ROW_CAP = {"maxsim_bf16": KERNEL_ROWS, "maxsim_f32": KERNEL_ROWS,
+           "maxsim_int8": 2 * KERNEL_ROWS, "maxsim_int4": 2 * KERNEL_ROWS,
+           "maxsim_int8_defer": KERNEL_ROWS, "maxsim_pq": KERNEL_ROWS,
+           "maxsim_train": KERNEL_ROWS}
+# The kernels take D a multiple of D_GRANULE (K6: 2 * D_GRANULE); a narrower
+# D is zero-padded up to it, which adds nothing to any product. Above
+# MAX_D the operand tiles leave shared memory, and a max over tokens does
+# not split over D, so wider tokens are refused.
+D_GRANULE = 16
+MAX_D = 256
 # K3's largest cluster: 8 (the portable size) where the decode sums
 # full-width book rows from L2, 2 where it concatenates compact rows from
 # shared memory (measured, PERF.md)
 MAX_CLUSTER = {"compact": 2, "full": 8}
 
-# (wrapper name, kernel function, nq, Lq, nd, Lp) -> launches, for the
-# wrappers of K1's float32 mode and of K3
+# (wrapper name, kernel function, nq, Lq, nd, Lp) -> launches
 launch_shapes: Counter = Counter()
 
 
@@ -317,17 +339,48 @@ def _check_shapes(Q, P, qmask, pmask, scales=None, p_shape=None):
         raise ValueError(f"scales shape {tuple(scales.shape)} != {(nd, lp)}")
     if pmask.dtype != torch.bool:
         raise TypeError(f"pmask must be bool, got {pmask.dtype}")
-    if lq > 128:
-        raise ValueError(f"the kernels take at most 128 tokens per query, "
-                         f"got {lq}")
-    if d % 16 or not 16 <= d <= 256:
-        raise ValueError(f"the kernels take D a multiple of 16 in [16, 256], "
-                         f"got {d}")
+    kernel_dim(d)
     for name, t in (("P", P), ("pmask", pmask), ("scales", scales)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if nq == 0 or nd == 0 or lp == 0:
         raise ValueError("empty MaxSim input")
+
+
+def kernel_dim(d: int, granule: int = D_GRANULE, max_d: int = MAX_D,
+               who: str = "the MaxSim kernels") -> int:
+    """The width a kernel runs token dim ``d`` at: ``d`` rounded up to
+    ``granule`` (the pad lanes are zero). Raises above ``max_d``."""
+    if not 1 <= d <= max_d:
+        raise ValueError(f"{who}: D must lie in [1, {max_d}] (the operand "
+                         f"tiles live in shared memory, and a max over "
+                         f"tokens does not split over D), got {d}")
+    return -(-d // granule) * granule
+
+
+def pad_dim(x: torch.Tensor, d_to: int) -> torch.Tensor:
+    """Zero-pad the last axis of ``x`` to ``d_to``; ``x`` itself where it is
+    that wide already."""
+    d = x.shape[-1]
+    return x if d == d_to else torch.nn.functional.pad(x, (0, d_to - d))
+
+
+def split_queries(score, Q, qw, cap: int):
+    """``score(Q, qw)`` for queries of any length: with Lq above ``cap``
+    (a kernel's query-token rows per CTA), the sum of ``score`` over
+    slices of at most ``cap`` tokens, first to last. MaxSim sums over query
+    tokens, so the slices' partial scores add up to the whole; only the
+    order of the f32 additions differs from one pass (a tolerance, not
+    bit-equality). Within the cap, ``score`` runs once on the inputs as
+    given. ``Q`` (nq, Lq, ...) and ``qw`` (nq, Lq) are sliced on axis 1."""
+    lq = Q.shape[1]
+    if lq <= cap:
+        return score(Q, qw)
+    out = None
+    for s in range(0, lq, cap):
+        part = score(Q[:, s:s + cap], qw[:, s:s + cap])
+        out = part if out is None else out + part
+    return out
 
 
 def call_kernel(lib, func, operands, *args, aligned=()):
@@ -349,11 +402,26 @@ def call_kernel(lib, func, operands, *args, aligned=()):
         raise RuntimeError(f"{func} launch failed: cudaError {rc}")
 
 
-def _launch(lib, func, q, qw, P, scales, pmask, nq, lq, nd, lp, d):
-    out = torch.empty((nq, nd), dtype=torch.float32, device=q.device)
-    call_kernel(lib, func, (q, qw, P, scales, pmask, out), nq, lq, nd, lp, d,
-                aligned=(q, P))
-    return out
+def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
+    """Launch ``func`` of ``lib`` on (nq, Lq, D) queries ``q`` in the
+    kernel's type with post-max weights ``qw`` against ``P`` (whose last
+    axis is D, zero-padded up to the kernel's granule here where it is
+    not), once per slice of at most ROW_CAP[lib] query tokens; each launch
+    counts on ``wrapper``."""
+    nq, _, d = q.shape
+    nd, lp = pmask.shape
+    dk = kernel_dim(d)
+    q, P = pad_dim(q, dk), pad_dim(P, dk)
+
+    def one(qs, qws):
+        qs, qws = qs.contiguous(), qws.contiguous()
+        out = torch.empty((nq, nd), dtype=torch.float32, device=q.device)
+        call_kernel(lib, func, (qs, qws, P, scales, pmask, out), nq,
+                    qs.shape[1], nd, lp, dk, aligned=(qs, P))
+        _count(wrapper, func, nq, qs.shape[1], nd, lp)
+        return out
+
+    return split_queries(one, q, qw, ROW_CAP[lib])
 
 
 def maxsim_cuda(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
@@ -370,17 +438,13 @@ def maxsim_cuda(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
     _check_shapes(Q, P, qmask, pmask)
     if P.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 index, got {P.dtype}")
-    nq, lq, d = Q.shape
-    nd, lp, _ = P.shape
-    out = _launch("maxsim_bf16", "evdr_maxsim_bf16",
-                  Q.to(torch.bfloat16).contiguous(),
-                  qmask.float().contiguous(), P.to(torch.bfloat16), None,
-                  pmask, nq, lq, nd, lp, d)
-    maxsim_cuda.launches += 1
-    return out
+    return _launch(maxsim_cuda, "maxsim_bf16", "evdr_maxsim_bf16",
+                   Q.to(torch.bfloat16), qmask.float(),
+                   P.to(torch.bfloat16), None, pmask)
 
 
-F32_MAX_D = 192  # the f32 query block and two page tiles in shared memory
+# K1/K5 float32: the f32 query block and two page tiles in shared memory
+F32_MAX_D = 192
 
 
 def maxsim_cuda_f32(Q, P, qmask, pmask):
@@ -392,15 +456,10 @@ def maxsim_cuda_f32(Q, P, qmask, pmask):
     _check_shapes(Q, P, qmask, pmask)
     if P.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 index, got {P.dtype}")
-    nq, lq, d = Q.shape
-    nd, lp, _ = P.shape
-    if d > F32_MAX_D:
-        raise ValueError(f"K1's float32 mode takes D <= {F32_MAX_D}, got {d}")
-    out = _launch("maxsim_f32", "evdr_maxsim_f32", Q.float().contiguous(),
-                  qmask.float().contiguous(), P.float().contiguous(), None,
-                  pmask, nq, lq, nd, lp, d)
-    _count(maxsim_cuda_f32, "evdr_maxsim_f32", nq, lq, nd, lp)
-    return out
+    kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K1's float32 mode")
+    return _launch(maxsim_cuda_f32, "maxsim_f32", "evdr_maxsim_f32",
+                   Q.float(), qmask.float(), P.float().contiguous(), None,
+                   pmask)
 
 
 def _check_int8(P_i8, scales):
@@ -410,20 +469,18 @@ def _check_int8(P_i8, scales):
         raise TypeError(f"K2 takes f32 scales, got {scales.dtype}")
 
 
-def _launch_int8(lib, func, Q, P_i8, scales, qmask, pmask, int8_queries):
+def _launch_int8(wrapper, lib, func, Q, P_i8, scales, qmask, pmask,
+                 int8_queries):
     """K2's and K2b's host side: checks, the queries in the kernel's type
     (bf16, or int8 quantized per token with their scale folded into the
-    post-max weight), the launch."""
+    post-max weight), the launches."""
     _check_shapes(Q, P_i8, qmask, pmask, scales)
     _check_int8(P_i8, scales)
-    nq, lq, d = Q.shape
-    nd, lp, _ = P_i8.shape
     if int8_queries:
         Qk, qw = quantize_queries_int8(Q, qmask)
     else:
         Qk, qw = Q.to(torch.bfloat16), qmask.float()
-    return _launch(lib, func, Qk.contiguous(), qw.contiguous(), P_i8, scales,
-                   pmask, nq, lq, nd, lp, d)
+    return _launch(wrapper, lib, func, Qk, qw, P_i8, scales, pmask)
 
 
 def maxsim_cuda_int8(Q, P_i8, scales, qmask, pmask, deferred=False):
@@ -434,10 +491,8 @@ def maxsim_cuda_int8(Q, P_i8, scales, qmask, pmask, deferred=False):
         return maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask)
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8_plain(Q, P_i8, scales, qmask, pmask)
-    out = _launch_int8("maxsim_int8", "evdr_maxsim_int8", Q, P_i8, scales,
-                       qmask, pmask, int8_queries=False)
-    maxsim_cuda_int8.launches += 1
-    return out
+    return _launch_int8(maxsim_cuda_int8, "maxsim_int8", "evdr_maxsim_int8",
+                        Q, P_i8, scales, qmask, pmask, int8_queries=False)
 
 
 def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask, deferred=False):
@@ -448,10 +503,9 @@ def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask, deferred=False):
         return maxsim_cuda_int8full_deferred(Q, P_i8, scales, qmask, pmask)
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask)
-    out = _launch_int8("maxsim_int8", "evdr_maxsim_int8full", Q, P_i8, scales,
-                       qmask, pmask, int8_queries=True)
-    maxsim_cuda_int8full.launches += 1
-    return out
+    return _launch_int8(maxsim_cuda_int8full, "maxsim_int8",
+                        "evdr_maxsim_int8full", Q, P_i8, scales, qmask, pmask,
+                        int8_queries=True)
 
 
 def maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask):
@@ -460,20 +514,18 @@ def maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask):
     :func:`maxsim_cuda_int8`, so its plain version is K2's."""
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8_plain(Q, P_i8, scales, qmask, pmask)
-    out = _launch_int8("maxsim_int8_defer", "evdr_maxsim_int8_defer", Q, P_i8,
-                       scales, qmask, pmask, int8_queries=False)
-    maxsim_cuda_int8_deferred.launches += 1
-    return out
+    return _launch_int8(maxsim_cuda_int8_deferred, "maxsim_int8_defer",
+                        "evdr_maxsim_int8_defer", Q, P_i8, scales, qmask,
+                        pmask, int8_queries=False)
 
 
 def maxsim_cuda_int8full_deferred(Q, P_i8, scales, qmask, pmask):
     """K2b, int8full mode: bit-equal to :func:`maxsim_cuda_int8full`."""
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask)
-    out = _launch_int8("maxsim_int8_defer", "evdr_maxsim_int8full_defer", Q,
-                       P_i8, scales, qmask, pmask, int8_queries=True)
-    maxsim_cuda_int8full_deferred.launches += 1
-    return out
+    return _launch_int8(maxsim_cuda_int8full_deferred, "maxsim_int8_defer",
+                        "evdr_maxsim_int8full_defer", Q, P_i8, scales, qmask,
+                        pmask, int8_queries=True)
 
 
 def _check_int4(Q, P_u8, scales, qmask, pmask):
@@ -488,7 +540,6 @@ def _check_int4(Q, P_u8, scales, qmask, pmask):
     if P_u8.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError(f"K4 takes uint8 packed codes and f32 scales, got "
                         f"{P_u8.dtype} and {scales.dtype}")
-    return Q.shape[0], Q.shape[1], nd, lp, d
 
 
 def maxsim_cuda_int4(Q, P_u8, scales, qmask, pmask):
@@ -496,13 +547,9 @@ def maxsim_cuda_int4(Q, P_u8, scales, qmask, pmask):
     (nd, ceil(Lp/2), D) uint8 with per-token scales (nd, Lp)."""
     if not _on_cuda(Q, P_u8, scales, qmask, pmask):
         return maxsim_int4_plain(Q, P_u8, scales, qmask, pmask)
-    nq, lq, nd, lp, d = _check_int4(Q, P_u8, scales, qmask, pmask)
-    out = _launch("maxsim_int4", "evdr_maxsim_int4",
-                  Q.to(torch.bfloat16).contiguous(),
-                  qmask.float().contiguous(), P_u8, scales, pmask,
-                  nq, lq, nd, lp, d)
-    maxsim_cuda_int4.launches += 1
-    return out
+    _check_int4(Q, P_u8, scales, qmask, pmask)
+    return _launch(maxsim_cuda_int4, "maxsim_int4", "evdr_maxsim_int4",
+                   Q.to(torch.bfloat16), qmask.float(), P_u8, scales, pmask)
 
 
 def maxsim_cuda_int4full(Q, P_u8, scales, qmask, pmask):
@@ -510,12 +557,10 @@ def maxsim_cuda_int4full(Q, P_u8, scales, qmask, pmask):
     int8 x int4 (unpacked to int8) -> int32 on the tensor cores."""
     if not _on_cuda(Q, P_u8, scales, qmask, pmask):
         return maxsim_int4full_plain(Q, P_u8, scales, qmask, pmask)
-    nq, lq, nd, lp, d = _check_int4(Q, P_u8, scales, qmask, pmask)
+    _check_int4(Q, P_u8, scales, qmask, pmask)
     Q_i8, qw = quantize_queries_int8(Q, qmask)
-    out = _launch("maxsim_int4", "evdr_maxsim_int4full", Q_i8.contiguous(),
-                  qw.contiguous(), P_u8, scales, pmask, nq, lq, nd, lp, d)
-    maxsim_cuda_int4full.launches += 1
-    return out
+    return _launch(maxsim_cuda_int4full, "maxsim_int4",
+                   "evdr_maxsim_int4full", Q_i8, qw, P_u8, scales, pmask)
 
 
 def pq_cluster(nq: int, lq: int, compact: bool = False) -> int:
@@ -523,7 +568,7 @@ def pq_cluster(nq: int, lq: int, compact: bool = False) -> int:
     two <= MAX_CLUSTER (of compact or full-width books) that does not exceed
     the number of 128-row query blocks (1 for a single block). The launcher
     pads grid x up to a multiple of C."""
-    n_blocks = -(-nq // (KERNEL_ROWS // lq))
+    n_blocks = -(-nq // (ROW_CAP["maxsim_pq"] // lq))
     top = MAX_CLUSTER["compact" if compact else "full"]
     c = 1
     while 2 * c <= min(top, n_blocks):
@@ -599,15 +644,64 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     return out, func
 
 
+def pq_width(m: int, w: int) -> int:
+    """The subvector width compact (M, K, w) books run at: the smallest w'
+    >= w with M w' a multiple of D_GRANULE."""
+    wk = w
+    while (m * wk) % D_GRANULE:
+        wk += 1
+    return wk
+
+
+def pad_pq_queries(Q: torch.Tensor, m: int, w: int, wk: int) -> torch.Tensor:
+    """(..., M w) queries -> (..., M wk): each subspace's w dims followed by
+    wk - w zeros, to meet compact books padded by :func:`pq_width`."""
+    if wk == w:
+        return Q
+    lead = Q.shape[:-1]
+    return pad_dim(Q.reshape(*lead, m, w), wk).reshape(*lead, m * wk)
+
+
+def pq_kernel_operands(Q, books):
+    """Queries and books at the kernels' width: compact books pad each
+    subspace's rows to :func:`pq_width` (zeros), and the queries each
+    subspace to match; expanded (M, K, D) books and the queries pad their
+    last axis to a multiple of D_GRANULE. Exact: the pad lanes are zero on
+    both sides. Books that match neither layout pass through for
+    :func:`pq_books` to refuse."""
+    d = Q.shape[-1]
+    dk = kernel_dim(d)
+    m, _, w = books.shape
+    if m > 1 and w == d:
+        return pad_dim(Q, dk), pad_dim(books, dk)
+    if m * w != d:
+        return Q, books
+    wk = pq_width(m, w)
+    kernel_dim(m * wk)
+    return pad_pq_queries(Q, m, w, wk), pad_dim(books, wk)
+
+
+def _pq_launches(wrapper, Qk, qw, codes, pmask, books, int8_queries):
+    """K3's launches: the operands at the kernels' width, then one launch
+    per slice of at most ROW_CAP['maxsim_pq'] query tokens."""
+    Qk, books = pq_kernel_operands(Qk, books)
+
+    def one(qs, qws):
+        out, func = _launch_pq(qs, qws, codes, qws, pmask, books,
+                               int8_queries)
+        _count(wrapper, func, qs.shape[0], qs.shape[1], *pmask.shape)
+        return out
+
+    return split_queries(one, Qk, qw, ROW_CAP["maxsim_pq"])
+
+
 def maxsim_cuda_pq(Q, codes, qmask, pmask, books):
     """K3, pq mode: bf16 queries against PQ codes (nd, Lp, M) uint8 and
     their f32 books, compact (M, K, D/M) or expanded OPQ (M, K, D)."""
     if not _on_cuda(Q, codes, qmask, pmask, books):
         return maxsim_pq_plain(Q, codes, qmask, pmask, books)
-    out, func = _launch_pq(Q.to(torch.bfloat16), qmask.float(), codes,
-                           qmask, pmask, books, int8_queries=False)
-    _count(maxsim_cuda_pq, func, *Q.shape[:2], *pmask.shape)
-    return out
+    return _pq_launches(maxsim_cuda_pq, Q.to(torch.bfloat16), qmask.float(),
+                        codes, pmask, books, int8_queries=False)
 
 
 def maxsim_cuda_pqfull(Q, codes, qmask, pmask, books):
@@ -616,10 +710,8 @@ def maxsim_cuda_pqfull(Q, codes, qmask, pmask, books):
     if not _on_cuda(Q, codes, qmask, pmask, books):
         return maxsim_pqfull_plain(Q, codes, qmask, pmask, books)
     Q_i8, qw = quantize_queries_int8(Q, qmask)
-    out, func = _launch_pq(Q_i8, qw, codes, qmask, pmask, books,
-                           int8_queries=True)
-    _count(maxsim_cuda_pqfull, func, *Q.shape[:2], *pmask.shape)
-    return out
+    return _pq_launches(maxsim_cuda_pqfull, Q_i8, qw, codes, pmask, books,
+                        int8_queries=True)
 
 
 KERNEL_WRAPPERS = (maxsim_cuda, maxsim_cuda_f32, maxsim_cuda_int8,

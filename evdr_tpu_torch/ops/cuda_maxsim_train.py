@@ -31,17 +31,22 @@ from __future__ import annotations
 
 import torch
 
-from evdr_tpu_torch.ops.cuda_maxsim import (F32_MAX_D, _check_shapes,
-                                            _on_cuda, _plain_core,
-                                            call_kernel, mask_sentinel,
-                                            maxsim_cuda, plain_sims)
+from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, F32_MAX_D, ROW_CAP,
+                                            _check_shapes, _count, _on_cuda,
+                                            _plain_core, call_kernel,
+                                            kernel_dim, mask_sentinel,
+                                            maxsim_cuda, pad_dim, plain_sims,
+                                            split_queries)
 
-# Above this many 128-row query blocks the backward chunks the query axis,
-# so the per-query-block dP partials stay under 8 x |dP| (as the TPU's
+# Above this many query blocks the backward chunks the query axis, so the
+# per-query-block dP partials stay under 8 x |dP| (as the TPU's
 # _MAX_QB_BLOCKS, pallas_maxsim_bwd.py:213)
 MAX_QB_BLOCKS = 8
+# K6 holds a warp's 32 x D/2 dQ block in registers: D a multiple of 32 up
+# to 128 (a narrower D is zero-padded; its dQ drops the pad columns)
 K6_MAX_D = 128
-_ROWS = 128  # query-token rows per CTA (maxsim_tile.cuh kRows)
+K6_D_GRANULE = 2 * D_GRANULE
+_ROWS = ROW_CAP["maxsim_train"]  # query-token rows per CTA
 _TARGET_CTAS = 264  # two waves of the H100's 132 SMs
 
 
@@ -85,18 +90,32 @@ def _check_compute(compute_dtype):
                         f"{compute_dtype}")
 
 
-def _fwd_train(func, dtype, Q, P, qmask, pmask):
+def _fwd_train(wrapper, func, dtype, Q, P, qmask, pmask):
+    """K5's host side: D zero-padded to the granule (as K1 pads it, so the
+    float32 scores stay K1's), one launch per slice of at most _ROWS query
+    tokens, each with its own rows of M; the slices' scores add up."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
-    q = Q.to(dtype).contiguous()
-    p = P.to(dtype).contiguous()
-    out = torch.empty((nq, nd), dtype=torch.float32, device=Q.device)
-    M = torch.empty((nq * lq, nd), dtype=torch.float32, device=Q.device)
-    call_kernel("maxsim_train", func,
-                (q, qmask.float().contiguous(), p, pmask, out, M),
-                nq, lq, nd, lp, d, aligned=(q, p))
-    return out, M
+    dk = kernel_dim(d)
+    q = pad_dim(Q.to(dtype), dk)
+    p = pad_dim(P.to(dtype), dk).contiguous()
+    Ms = []
+
+    def one(qs, qws):
+        qs, ls = qs.contiguous(), qs.shape[1]
+        out = torch.empty((nq, nd), dtype=torch.float32, device=Q.device)
+        M = torch.empty((nq * ls, nd), dtype=torch.float32, device=Q.device)
+        call_kernel("maxsim_train", func,
+                    (qs, qws.contiguous(), p, pmask, out, M),
+                    nq, ls, nd, lp, dk, aligned=(qs, p))
+        _count(wrapper, func, nq, ls, nd, lp)
+        Ms.append(M.view(nq, ls, nd))
+        return out
+
+    out = split_queries(one, q, qmask.float(), _ROWS)
+    M = Ms[0] if len(Ms) == 1 else torch.cat(Ms, dim=1)
+    return out, M.reshape(nq * lq, nd)
 
 
 def maxsim_cuda_fwd_train(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
@@ -107,10 +126,8 @@ def maxsim_cuda_fwd_train(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
         return maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask)
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.bfloat16)
-    out, M = _fwd_train("evdr_maxsim_fwd_train", torch.bfloat16, Q, P, qmask,
-                        pmask)
-    maxsim_cuda_fwd_train.launches += 1
-    return out, M
+    return _fwd_train(maxsim_cuda_fwd_train, "evdr_maxsim_fwd_train",
+                      torch.bfloat16, Q, P, qmask, pmask)
 
 
 def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
@@ -118,13 +135,9 @@ def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
     bit) and M from the same similarities."""
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.float32)
-    if Q.shape[-1] > F32_MAX_D:
-        raise ValueError(f"K5's float32 mode takes D <= {F32_MAX_D}, got "
-                         f"{Q.shape[-1]}")
-    out, M = _fwd_train("evdr_maxsim_fwd_train_f32", torch.float32, Q, P,
-                        qmask, pmask)
-    maxsim_cuda_fwd_train_f32.launches += 1
-    return out, M
+    kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K5's float32 mode")
+    return _fwd_train(maxsim_cuda_fwd_train_f32, "evdr_maxsim_fwd_train_f32",
+                      torch.float32, Q, P, qmask, pmask)
 
 
 def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):
@@ -150,17 +163,36 @@ def maxsim_cuda_bwd_f32(Q, P, qmask, pmask, M, g):
 
 
 def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
-    """K6's host side for either mode: checks, the query-axis chunking, the
-    partial buffers, the launch (counted on ``wrapper``), the partials'
-    sums."""
+    """K6's host side for either mode: checks; D zero-padded to a multiple
+    of 32 (the pad columns of dQ and dP dropped at the end); queries longer
+    than _ROWS tokens in slices, each with its rows of M, their dQ slices
+    concatenated and their dP summed; then :func:`_bwd_launch`."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
-    nd, lp, _ = P.shape
-    if d % 32 or d > K6_MAX_D:
-        raise ValueError(f"K6 takes D a multiple of 32 up to {K6_MAX_D}, "
-                         f"got {d}")
+    nd = P.shape[0]
+    dk = kernel_dim(d, K6_D_GRANULE, K6_MAX_D, "K6")
     if tuple(M.shape) != (nq * lq, nd) or tuple(g.shape) != (nq, nd):
         raise ValueError("M or g does not match Q / P")
+    Qk, Pk = pad_dim(Q, dk), pad_dim(P, dk).contiguous()
+    M3 = M.view(nq, lq, nd)
+    dQs, dP = [], None
+    for s in range(0, lq, _ROWS):
+        e = min(s + _ROWS, lq)
+        dq_s, dp_s = _bwd_launch(wrapper, func, dtype, Qk[:, s:e], Pk,
+                                 qmask[:, s:e], pmask,
+                                 M3[:, s:e].reshape(nq * (e - s), nd), g)
+        dQs.append(dq_s)
+        dP = dp_s if dP is None else dP + dp_s
+    dQ = dQs[0] if len(dQs) == 1 else torch.cat(dQs, dim=1)
+    return dQ[..., :d], dP[..., :d]
+
+
+def _bwd_launch(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
+    """One K6 pass at Lq <= _ROWS and D at the kernel's width: the
+    query-axis chunking, the partial buffers, the launch (counted on
+    ``wrapper``), the partials' sums."""
+    nq, lq, d = Q.shape
+    nd, lp, _ = P.shape
     qb = _ROWS // lq
     n_qb = -(-nq // qb)
     if n_qb > MAX_QB_BLOCKS:
@@ -168,8 +200,9 @@ def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
         dQs, dP = [], None
         for s in range(0, nq, step):
             e = min(s + step, nq)
-            dq_c, dp_c = wrapper(Q[s:e], P, qmask[s:e], pmask,
-                                 M[s * lq:e * lq], g[s:e])
+            dq_c, dp_c = _bwd_launch(wrapper, func, dtype, Q[s:e], P,
+                                     qmask[s:e], pmask, M[s * lq:e * lq],
+                                     g[s:e])
             dQs.append(dq_c)
             dP = dp_c if dP is None else dP + dp_c
         return torch.cat(dQs), dP
@@ -188,7 +221,7 @@ def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
                 (q, qmask.float().contiguous(), p, pmask,
                  M.float().contiguous(), g2, dq_part, dp_part),
                 nq, lq, nd, lp, d, db, aligned=(q, p))
-    wrapper.launches += 1
+    _count(wrapper, func, nq, lq, nd, lp)
     # the partials' sums, in a fixed order (no atomics)
     dQ = dq_part.sum(dim=0) if n_slices > 1 else dq_part[0]
     dP = dp_part.sum(dim=0) if n_qb > 1 else dp_part[0]

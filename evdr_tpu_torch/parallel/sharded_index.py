@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, pad_dim,
+                                            pad_pq_queries, pq_width)
 from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
 from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
@@ -39,6 +41,9 @@ class ShardedIndex:
     # True for full-width (M, K, D) OPQ codebooks (ops/pq.expand_books): the
     # two layouts cannot be told apart from the books alone (engine.dim)
     books_expanded: bool = False
+    # the token dim D of the indexed pages, where the stored tokens (or PQ
+    # books) were zero-padded wider for the kernels (pad_index_dim)
+    dim: Optional[int] = None
 
     @property
     def n_pad(self) -> int:
@@ -107,3 +112,48 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
         docids=docids,
         scales=scales,
     )
+
+
+def pad_index_dim(index: ShardedIndex) -> ShardedIndex:
+    """Zero-pad the stored token dim once, up to the width the kernels take
+    (a multiple of ``D_GRANULE``), and record the true dim
+    in ``index.dim``. Zero lanes add nothing to a similarity, so the scores
+    are those of the true dim. Quantized codes are padded after
+    quantization (their scales are those of the true tokens); compact PQ
+    books pad each subspace's rows (``cuda_maxsim.pq_width``) and expanded
+    OPQ books their last axis. Queries meet the index through
+    :func:`pad_queries`."""
+    if index.dim is not None:
+        return index
+
+    def width(d):
+        return -(-d // D_GRANULE) * D_GRANULE
+
+    b = index.books
+    if b is None:
+        d = int(index.P.shape[-1])
+        index.P = pad_dim(index.P, width(d)).contiguous()
+    elif index.books_expanded:
+        d = int(b.shape[-1])
+        index.books = pad_dim(b, width(d)).contiguous()
+    else:
+        m, w = int(b.shape[0]), int(b.shape[-1])
+        d = m * w
+        index.books = pad_dim(b, pq_width(m, w)).contiguous()
+    index.dim = d
+    return index
+
+
+def pad_queries(Q: torch.Tensor, index: ShardedIndex) -> torch.Tensor:
+    """(nq, Lq, D) queries at the index's true dim -> the stored width of
+    :func:`pad_index_dim` (zeros; per subspace for compact PQ books).
+    Queries of any other width pass unchanged, for the scorer to refuse."""
+    d = index.dim
+    if d is None or Q.shape[-1] != d:
+        return Q
+    b = index.books
+    if b is not None and not index.books_expanded:
+        m = int(b.shape[0])
+        return pad_pq_queries(Q, m, d // m, int(b.shape[-1]))
+    width = int((b if b is not None else index.P).shape[-1])
+    return pad_dim(Q, width)

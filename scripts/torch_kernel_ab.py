@@ -13,9 +13,10 @@ its kernels' SASS (``cuobjdump -sass``; equal hashes across roots mean the
 same machine code), and, per kernel, the median of 7 CUDA-event timings and
 a hash of its output (equal hashes across roots mean bit-equal scores).
 Inputs are made on the device from seed 0, with ~10% invalid tokens:
-- K1 bf16, K2 int8 and int8full, and K2b's two modes where the checkout has
-  them (checked bit-equal to K2), at 256 x 32 queries against N x LP pages
-  (default 20,000 x 768; D = 128);
+- K1 bf16, K2 int8 and int8full, K2b's two modes where the checkout has
+  them (whether each equals K2 bit for bit goes to ``checks``), and K4
+  int4 and int4full over the same pages packed to int4, at 256 x 32
+  queries against N x LP pages (default 20,000 x 768; D = 128);
 - K3 over the same N x LP pages as PQ codes (M = 16): pq and pqfull with
   compact (16, 256, 8) books, pq with expanded (16, 256, 128) books;
 - K1 float32 at the trainer's two shapes: the eval (1,000 x 32 queries
@@ -69,6 +70,7 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
     from evdr_tpu_torch.ops import _cuda_build
     from evdr_tpu_torch.ops import cuda_maxsim as cm
     from evdr_tpu_torch.ops import cuda_maxsim_train as ct
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
     from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
     if not cm.__file__.startswith(os.path.abspath(root)):
@@ -94,12 +96,17 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
     codes = torch.empty((docs, lp, D), dtype=torch.int8, device="cuda")
     scales = torch.empty((docs, lp), dtype=torch.float32, device="cuda")
     Pb = torch.empty((docs, lp, D), dtype=torch.bfloat16, device="cuda")
+    packed = torch.empty((docs, (lp + 1) // 2, D), dtype=torch.uint8,
+                         device="cuda")
+    scales4 = torch.empty((docs, lp), dtype=torch.float32, device="cuda")
     pm = rand_mask(docs, lp)
     step = max(1, 768_000 // lp)
     for i in range(0, docs, step):
         x = unit(torch.randn((min(step, docs - i), lp, D), device="cuda",
                              generator=gen)) * pm[i:i + step, :, None]
         codes[i:i + step], scales[i:i + step] = quantize_tokens_int8(
+            x, pm[i:i + step])
+        packed[i:i + step], scales4[i:i + step] = quantize_tokens_int4(
             x, pm[i:i + step])
         Pb[i:i + step] = x.to(torch.bfloat16)
     pq_codes = torch.randint(0, 256, (docs, lp, PQ_M), dtype=torch.uint8,
@@ -133,10 +140,13 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
                             ).hexdigest()[:12]
 
     i8 = (Q, codes, scales, qm, pm)
+    i4 = (Q, packed, scales4, qm, pm)
     calls = {
         "maxsim_bf16": lambda: cm.maxsim_cuda(Q, Pb, qm, pm),
         "maxsim_int8": lambda: cm.maxsim_cuda_int8(*i8),
         "maxsim_int8full": lambda: cm.maxsim_cuda_int8full(*i8),
+        "maxsim_int4": lambda: cm.maxsim_cuda_int4(*i4),
+        "maxsim_int4full": lambda: cm.maxsim_cuda_int4full(*i4),
         "maxsim_pq": lambda: cm.maxsim_cuda_pq(Q, pq_codes, qm, pm, compact),
         "maxsim_pqfull": lambda: cm.maxsim_cuda_pqfull(Q, pq_codes, qm, pm,
                                                        compact),
@@ -149,8 +159,8 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
         for k2, k2b in ((cm.maxsim_cuda_int8, cm.maxsim_cuda_int8_deferred),
                         (cm.maxsim_cuda_int8full,
                          cm.maxsim_cuda_int8full_deferred)):
-            if not torch.equal(k2(*i8), k2b(*i8)):
-                raise RuntimeError(f"{k2b.__name__} differs from K2")
+            checks[f"{k2b.__name__} == K2"] = bool(torch.equal(k2(*i8),
+                                                             k2b(*i8)))
             calls[k2b.__name__] = lambda k=k2b: k(*i8)
     for name, args in f32.items():
         checks[f"maxsim_f32_{name} == K5 f32"] = bool(torch.equal(

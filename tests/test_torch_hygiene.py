@@ -537,3 +537,87 @@ def test_f32_kernel_matches_plain_version_and_k5_on_the_card(lp, d, lq):
     assert torch.equal(got, out)
     per_sm, rows, cols = cuda_maxsim.f32_occupancy(d)
     assert (rows, cols, per_sm) == ((128, 32, 1) if d > 128 else (256, 64, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,d", [(129, 40), (200, 72), (129, 72),
+                                  (200, 40), (200, 128)])
+def test_every_wrapper_serves_any_lq_and_d_on_the_card(lq, d):
+    """Queries longer than a kernel's query-token rows (sliced, one launch
+    a slice, the partial scores added) and D off the kernels' granule
+    (zero-padded): every forward wrapper (K1 bf16 and float32, K2, K2b, K3
+    with compact and expanded books, K4) against its plain version on the
+    card, and MaxSimFn (K5, then K6 per slice) in bf16 and float32 against
+    the plain K5/K6 pair, on tie-free data, with a doc that has no valid
+    token. Summation order alone differs: scores within 1e-5 relative and
+    1e-4 (sums of <= 200 unit-bounded terms); K6's dQ and dP within 1e-3
+    (bf16) and 1e-4 (float32) relative, Frobenius."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    torch.set_float32_matmul_precision("highest")
+    cm, ct = cuda_maxsim, cuda_maxsim_train
+    rng = np.random.default_rng(lq + d)
+    nq, nd, lp, dev = 5, 9, 71, "cuda"
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q, P = unit(nq, lq, d), unit(nd, lp, d)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    qm[:, 0] = True
+    pm[nd // 2] = False
+    codes, sc = quantize_tokens_int8(P, pm)
+    packed, sc4 = quantize_tokens_int4(P, pm)
+    i8, i4 = (Q, codes, sc, qm, pm), (Q, packed, sc4, qm, pm)
+    compact, expanded = unit(d // 8, 200, 8) * 0.5, unit(4, 40, d) * 0.3
+    pq_codes = torch.from_numpy(
+        rng.integers(0, 40, (nd, lp, d // 8), np.uint8)).to(dev)
+    cases = [  # (wrapper, plain version, args, library)
+        (cm.maxsim_cuda, cm.maxsim_plain, (Q, P.to(torch.bfloat16), qm, pm),
+         "maxsim_bf16"),
+        (cm.maxsim_cuda_f32,
+         lambda *a: cm.maxsim_plain(*a, compute=torch.float32),
+         (Q, P, qm, pm), "maxsim_f32"),
+        (cm.maxsim_cuda_int8, cm.maxsim_int8_plain, i8, "maxsim_int8"),
+        (cm.maxsim_cuda_int8full, cm.maxsim_int8full_plain, i8,
+         "maxsim_int8"),
+        (cm.maxsim_cuda_int8_deferred, cm.maxsim_int8_plain, i8,
+         "maxsim_int8_defer"),
+        (cm.maxsim_cuda_int8full_deferred, cm.maxsim_int8full_plain, i8,
+         "maxsim_int8_defer"),
+        (cm.maxsim_cuda_int4, cm.maxsim_int4_plain, i4, "maxsim_int4"),
+        (cm.maxsim_cuda_int4full, cm.maxsim_int4full_plain, i4,
+         "maxsim_int4"),
+        (cm.maxsim_cuda_pq, cm.maxsim_pq_plain,
+         (Q, pq_codes, qm, pm, compact), "maxsim_pq"),
+        (cm.maxsim_cuda_pqfull, cm.maxsim_pqfull_plain,
+         (Q, pq_codes, qm, pm, compact), "maxsim_pq"),
+        (cm.maxsim_cuda_pq, cm.maxsim_pq_plain,
+         (Q, pq_codes[..., :4].contiguous(), qm, pm, expanded), "maxsim_pq")]
+    for kern, plain, args, lib in cases:
+        n0 = cm.launch_counts()[kern.__name__]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert (cm.launch_counts()[kern.__name__]
+                == n0 + -(-lq // cm.ROW_CAP[lib]))
+        torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-4,
+                                   msg=kern.__name__)
+        assert got[:, nd // 2].abs().max().item() == 0.0
+    g = torch.from_numpy(rng.normal(size=(nq, nd)).astype(np.float32)).to(dev)
+    for cd, rel in ((torch.bfloat16, 1e-3), (torch.float32, 1e-4)):
+        pmu = pm.clone()
+        _untie(Q, qm, P, pmu, dtype=cd)
+        Qg, Pg = Q.clone().requires_grad_(True), P.clone().requires_grad_(True)
+        out = ct.MaxSimFn.apply(Qg, Pg, qm, pmu, cd)
+        out.backward(g)
+        out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pmu, cd)
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pmu, M_p, g, cd)
+        torch.testing.assert_close(out.detach(), out_p, rtol=1e-5, atol=1e-4)
+        for a, b in ((Qg.grad, dq_p), (Pg.grad, dp_p)):
+            assert a.shape == b.shape
+            assert float((a - b).norm() / b.norm()) <= rel
