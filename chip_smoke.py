@@ -24,8 +24,11 @@ line each:
 5. entry point: tools/serve_http over the bf16 engine, GET /healthz and
    POST /search;
 6. times: each kernel at the main path's shapes (median of 7 CUDA-event
-   timings) beside its bound, its plain version's time (median of 3) and
-   the end-to-end search_dense rate;
+   timings) beside its bound (its share of the data-sheet bound; the
+   mma.sync kernels' share of the ceiling scripts/mma_sync_peak.cu
+   measured, in the log only), its plain version's time (median of 3) and the
+   end-to-end search_dense rate; K1 bf16's design (query-token rows and
+   page tokens a tile, stages, warpgroups, registers, CTAs per SM);
 7. training-kernel parity: K1's float32 mode at the eval shape (1,000
    queries x 32 tokens against 1,000 student pages x 154 tokens), K5 and
    K6 at the train step's shape (32 queries x 32 tokens against the same
@@ -76,9 +79,10 @@ line each:
     times;
 17. K2b (``deferred=True`` of both K2 wrappers) at the serving shape:
     parity on 1,000 pages against K2's plain version and bit-equality with
-    K2; one call of each entry point on a 50,000-page index; K2b's times
-    beside K2's at Lp 768 (those 50,000 pages) and at Lp 64 (100,000
-    pages, a doc ending every page tile);
+    K2, also for 16 queries of 256 tokens (one launch of its 256-row
+    tiles); one call of each entry point on a 50,000-page index; K2b's
+    times beside K2's at Lp 768 (those 50,000 pages) and at Lp 64 (100,000
+    pages, a doc ending every page tile), with its registers;
 18. the rest of training, through ``evdr_tpu_torch.train.cli.main`` on
     phase 8's fixture, 200 steps each: (a) ``--aug hardtoken --qat int4``,
     (b) ``--aug mixup --qat pq --qat_start_frac 0.5``; NDCG@5 must rise
@@ -90,7 +94,7 @@ line each:
     to 80 at build) on every tier (bf16, int8, int4 and PQ at M = 8, each
     quantized tier with and without quantize_queries) answering queries
     of 200 tokens through search_dense, against the plain versions on the
-    same index (K1 and K3 score them in two slices of 128 and 72 tokens,
+    same index (K3 scores them in two slices of 128 and 72 tokens, K1,
     K2 and K4 in one launch of their 256-row tiles); then tools/serve_http
     over the bf16 engine, one request of 200 tokens coalesced with three of
     32 tokens, every request answered with search_dense's top-1.
@@ -131,6 +135,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 # dense tensor-core peaks; K1's float32 mode runs on the TF32 units
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
+# what mma.sync reached on an NVIDIA H100 80GB HBM3 at 700.00 W, the
+# ceiling of the kernels that issue it (scripts/mma_sync_peak.cu, the top of
+# its 1-4 CTAs per SM; PERF.md section 3); not measured by this script, so
+# the shares it gives stand in the phase 6 log only, never in the kernels
+# line, and none for K1 bf16, which issues wgmma
+MMA_SYNC_OPS = {"bf16": 634.3e12, "int8": 1275.9e12, "tf32": 317.2e12}
 NQ, LQ, D, LP = 256, 32, 128, 768
 PARITY_DOCS, INT8_DOCS, BF16_DOCS = 1_000, 50_000, 10_000
 K = 10
@@ -339,6 +349,12 @@ def launch_shapes(cm, wrapper, func=None):
     return [{"nq": nq, "lq": lq, "nd": nd, "lp": lp, "launches": n}
             for (w, f, nq, lq, nd, lp), n in sorted(cm.launch_shapes.items())
             if w == wrapper and func in (None, f)]
+
+
+def ptxas_registers(build, lib):
+    """The register counts ptxas reported for each kernel of ``lib``."""
+    return [int(m) for m in re.findall(r"Used (\d+) registers",
+                                       build.build_log(lib))]
 
 
 def rel_err(a, b) -> float:
@@ -1240,10 +1256,12 @@ def f32_train_phase(cm, ct, gen, smi):
 
 def defer_phase(cm, gen, smi):
     """Phase 17: K2b in both modes. Parity at the serving shape (1,000
-    pages, against K2's plain version, and bit-equal to K2), one call of
+    pages, against K2's plain version, and bit-equal to K2; also at Lq 256,
+    one launch), one call of
     each entry point with deferred=True on a 50,000-page index (their
     launches), then K2b's times beside K2's at Lp 768 and at Lp 64 (100,000
     pages). Returns the kernels-line entries."""
+    from evdr_tpu_torch.ops import _cuda_build
     from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
     modes = [("maxsim_int8full_deferred", cm.maxsim_cuda_int8full,
@@ -1259,6 +1277,8 @@ def defer_phase(cm, gen, smi):
     P = P * pm[..., None]
     codes, scales = quantize_tokens_int8(P, pm)
     Q, qm, _ = planted_queries(lambda t: P[t], PARITY_DOCS, gen)
+    Q256, qm256, _ = planted_queries(lambda t: P[t], PARITY_DOCS, gen,
+                                     nq=16, lq=256)
     del P
     parity = {}
     for kname, k2, k2b, plain, tol, _ in modes:
@@ -1269,7 +1289,20 @@ def defer_phase(cm, gen, smi):
         log(f"phase 17 {kname} bit-equal to K2: {same}")
         check(same, f"{kname} equals K2 bit for bit")
         parity[kname] = (err, tol)
-    del codes, scales, Q, qm, pm
+        # a 256-token query fills one launch of the 256-row tiles
+        kargs = (Q256, codes, scales, qm256, pm)
+        n0 = k2b.launches
+        parity_case(17, kname, "16 queries x 256 tokens", k2b, plain, kargs,
+                    tol, 7)
+        check(k2b.launches == n0 + 1, f"{kname}: one launch at Lq 256")
+        same = bool(torch.equal(k2b(*kargs), k2(*kargs)))
+        log(f"phase 17 {kname} at Lq 256 in one launch, bit-equal to K2: "
+            f"{same}")
+        check(same, f"{kname} equals K2 bit for bit at Lq 256")
+    del codes, scales, Q, qm, pm, Q256, qm256
+    log(f"phase 17 K2b launch bound: the bare __launch_bounds__(256) of "
+        f"maxsim_int8_defer.cu; ptxas registers (int8 mode, int8full): "
+        f"{ptxas_registers(_cuda_build, 'maxsim_int8_defer')}")
 
     shapes = {}
     for docs, lp in ((INT8_DOCS, LP), (SHORT_DOCS, SHORT_LP)):
@@ -1316,8 +1349,13 @@ def defer_phase(cm, gen, smi):
         a64 = shapes[SHORT_LP]
         b64, _ = bound(tensor_bytes(*a64) + NQ * a64[4].shape[0] * 4,
                        valid_ops(a64[3], a64[4]), peak)
+        mma = {lp: valid_ops(a[3], a[4]) / MMA_SYNC_OPS[peak] * 1e3
+               for lp, a in shapes.items()}
         log(f"phase 17 {kname}: bound {bms:.3f} ms by {by} ({peak} peak) "
-            f"at Lp {LP}, {b64:.3f} ms at Lp {SHORT_LP}; plain (K2's) "
+            f"at Lp {LP}, {b64:.3f} ms at Lp {SHORT_LP}; the mma.sync "
+            f"ceiling {mma[LP]:.3f} ms ({mma[LP] / times[LP][0][0]:.1%}), "
+            f"{mma[SHORT_LP]:.3f} ms "
+            f"({mma[SHORT_LP] / times[SHORT_LP][0][0]:.1%}); plain (K2's) "
             f"{plain_ms:.3f}"
             f" ms on the first {n} pages (median of 3); library: none")
         err, tol = parity[kname]
@@ -1363,8 +1401,9 @@ def shapes_phase(cm, gen):
     """Phase 19: an index of D = 72 (not a multiple of the kernels' 16)
     on every tier (bf16; int8 and int4, each with and without
     quantize_queries; PQ at M = 8, with and without), built through
-    RetrievalEngine.build, answering queries of 200 tokens (above K1's and
-    K3's 128 query-token rows a launch) through search_dense, each against
+    RetrievalEngine.build, answering queries of 200 tokens (above K3's 128
+    query-token rows a launch; K1, K2 and K4 take them in one launch of 256
+    rows) through search_dense, each against
     the plain version on its own index; then tools/serve_http over the
     int8 engine, one request of 200 tokens coalesced with three of 32, all
     answered with search_dense's top-1."""
@@ -1414,9 +1453,14 @@ def shapes_phase(cm, gen):
               cm.maxsim_cuda_int4, cm.maxsim_cuda_int4full,
               cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull):
         check(counts[w.__name__] > 0, f"{w.__name__} launched in phase 19")
-    check(any(k[0] == "maxsim_cuda" and k[3] == SHAPES_LQ - cm.ROW_CAP[
-        "maxsim_bf16"] for k in cm.launch_shapes),
-        "K1 scored the 200-token queries in slices")
+    check(any(k[0] == "maxsim_cuda" and k[3] == SHAPES_LQ
+              for k in cm.launch_shapes)
+          and not any(k[0] == "maxsim_cuda" and k[3] < SHAPES_LQ
+                      for k in cm.launch_shapes),
+          "K1 scored the 200-token queries in one launch")
+    check(any(k[0] == "maxsim_cuda_pq" and k[3] == SHAPES_LQ - cm.ROW_CAP[
+        "maxsim_pq"] for k in cm.launch_shapes),
+        "K3 scored the 200-token queries in slices")
 
     # one HTTP group: a 200-token request beside three of 32 tokens
     eng_bf = built["bfloat16"]
@@ -1624,7 +1668,7 @@ def main(argv=None) -> int:
     secs = _cuda_build.build_all()
     regs = [ln.strip() for n in _cuda_build.LIBRARIES
             for ln in _cuda_build.build_log(n).splitlines()
-            if "registers" in ln]
+            if "Used " in ln and " registers" in ln]
     log(f"phase 2 build: {secs:.1f} s, {len(_cuda_build.LIBRARIES)} "
         f"libraries; ptxas: {' | '.join(regs)}")
 
@@ -1713,6 +1757,11 @@ def main(argv=None) -> int:
          "evdr_tpu/ops/pallas_maxsim.py:686", cm.maxsim_cuda_int8full),
     ]
     kernels = []
+    design = dict(cm.bf16_config(D), registers=ptxas_registers(
+        _cuda_build, "maxsim_bf16"))
+    log(f"phase 6 K1 bf16 design at D = {D}: {design} (wgmma m64n"
+        f"{design['tile_tokens']}k16 from TMA-loaded shared memory, one "
+        f"producer warp; registers per instantiation, before setmaxnreg)")
     for kname, kern, plain, kargs, peak, src, repl, wrapper in timed:
         ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
         plain_ms, _, _ = cuda_ms(lambda: plain(*kargs), 3)
@@ -1720,11 +1769,18 @@ def main(argv=None) -> int:
         out_bytes = kargs[0].shape[0] * pmask.shape[0] * 4
         bms, by = bound(tensor_bytes(*kargs) + out_bytes,
                         valid_ops(qmask, pmask), peak)
+        if kname == "maxsim_bf16":
+            ceiling = "it issues wgmma, so no mma.sync ceiling"
+        else:
+            mma_ms = valid_ops(qmask, pmask) / MMA_SYNC_OPS[peak] * 1e3
+            ceiling = (f"the mma.sync ceiling {mma_ms:.3f} ms, "
+                       f"{mma_ms / ms:.1%}")
         nd = pmask.shape[0]
         log(f"phase 6 time {kname}: {ms:.3f} ms median of 7 (spread "
             f"{lo:.3f}-{hi:.3f}) at {NQ}x{LQ} queries x {nd}x{LP} pages; "
-            f"bound {bms:.3f} ms by {by} ({bms / ms:.1%} of the time); "
-            f"plain {plain_ms:.3f} ms (median of 3); library: none; {smi}")
+            f"bound {bms:.3f} ms by {by} ({bms / ms:.1%} of the time; "
+            f"{ceiling}); plain {plain_ms:.3f} ms (median of 3); library: "
+            f"none; {smi}")
         err, tol = parity[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -1732,6 +1788,8 @@ def main(argv=None) -> int:
             "tol": tol, "ms": ms, "ms_min": lo, "ms_max": hi,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None})
+        if kname == "maxsim_bf16":
+            kernels[-1]["design"] = design
     log("phase 6 search_dense end to end: " + ", ".join(
         f"{k} {v:.1f} q/s" for k, v in e2e.items()))
     del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs

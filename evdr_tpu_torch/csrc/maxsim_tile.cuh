@@ -1,12 +1,13 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
-// maxsim_bf16.cu (K1, bf16), maxsim_int8.cu (K2, and K2b, K2 with its doc
-// epilogue deferred one tile), maxsim_int4.cu (K4) and maxsim_train.cu (K5
-// in bf16 and float32, which also stores the per-row max M; K6 recomputes
-// the same similarity tiles through tile_mma below, a copy of the kernel's
-// k-loop). maxsim_pq.cu (K3, a kernel of its own: thread-block clusters
-// share the PQ decode) and maxsim_f32.cu (K1's float32 mode, a kernel of
-// its own: 64 x 32 outputs a warp on 256 x 64 tiles, one CTA per SM at D =
-// 128) reuse the helpers and tile_mma.
+// maxsim_int8.cu (K2), maxsim_int8_defer.cu (K2b, K2 with its doc epilogue
+// deferred one tile), maxsim_int4.cu (K4) and maxsim_train.cu (K5 in bf16
+// and float32, which also stores the per-row max M; K6 recomputes the same
+// similarity tiles through tile_mma below, a copy of the kernel's k-loop).
+// maxsim_pq.cu (K3, a kernel of its own: thread-block clusters share the PQ
+// decode) and maxsim_f32.cu (K1's float32 mode, a kernel of its own: 64 x
+// 32 outputs a warp on 256 x 64 tiles, one CTA per SM at D = 128) reuse the
+// helpers and tile_mma; maxsim_bf16.cu (K1, a kernel of its own on wgmma
+// and TMA) the constants and smem_addr.
 //
 // score[q, d] = sum_t qw[q, t] * f(max_m sim[q, t, d, m]), with
 //   sim = <Q[q, t], P[d, m]> * s[d, m] for a valid doc token (s = 1 for a
@@ -21,9 +22,9 @@
 //   starting at blockIdx.x * qb, staged once in shared memory. It walks db
 //   docs (blockIdx.y), and each doc's Lp tokens in tiles of kCols = 64.
 //   Two configurations: CfgBase, 128 rows and 4 docs a CTA, 32 x 32
-//   outputs a warp (K1 bf16, K2b, K5, and the k-loop K6 and K3 repeat
-//   through tile_mma); CfgWide, 256 rows and 8 docs a CTA, 64 x 32 a warp,
-//   the query block brought by cp.async with the first page tile (K2 and
+//   outputs a warp (K5, and the k-loop K6 and K3 repeat through
+//   tile_mma); CfgWide, 256 rows and 8 docs a CTA, 64 x 32 a warp, the
+//   query block brought by cp.async with the first page tile (K2, K2b and
 //   K4: measured on an H100 18-20% faster than CfgBase at the serving
 //   shape, with the same scores bit for bit, PERF.md).
 // - Each tile's similarity block comes from mma.sync tensor-core
@@ -69,10 +70,10 @@ constexpr int kMaxGridY = 65535;
 // against 64-token page tiles, the 8 warps standing 4 x 2, so a warp holds
 // kI blocks of 16 rows x kJ blocks of 8 columns (kI ldmatrix.x4 of A and
 // two of B per k-step); DOCS docs per CTA (blockIdx.y). CfgBase is the
-// layout of K1 bf16, K2b and K5 (32 x 32 a warp), which their machine code
-// keeps; CfgWide the one K2 and K4 run (64 x 32 a warp on 256 x 64 tiles,
-// as K1 float32 in maxsim_f32.cu: half the A and B ldmatrix bytes per
-// product, and each page tile converted once per 256 query rows).
+// layout of K5 (32 x 32 a warp), which its machine code keeps; CfgWide the
+// one K2, K2b and K4 run (64 x 32 a warp on 256 x 64 tiles, as K1 float32
+// in maxsim_f32.cu: half the A and B ldmatrix bytes per product, and each
+// page tile converted once per 256 query rows).
 template <int ROWS, int DOCS> struct TileCfg {
   static constexpr int kR = ROWS, kDocs = DOCS;
   static constexpr int kWM = 4, kWN = 2;
@@ -84,7 +85,7 @@ using CfgWide = TileCfg<2 * kRows, 8>;
 constexpr float kNegInit = -1e30f;    // pallas_maxsim.py NEG_INIT
 constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 
-// kBf16: bf16 Q x bf16 P (K1). kInt8Bf16: bf16 Q x int8 codes widened to
+// kBf16: bf16 Q x bf16 P (K5). kInt8Bf16: bf16 Q x int8 codes widened to
 // bf16 in shared memory (K2, int8 mode). kInt8Int8: int8 Q x int8 codes,
 // int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P by split
 // TF32 products (K1, compute_dtype float32). kInt4Bf16 / kInt4Int8: the
@@ -104,16 +105,11 @@ template <int MODE> constexpr bool is_staged = MODE == kInt8Bf16 ||
 template <int MODE> constexpr bool is_int8_mma = MODE == kInt8Int8 ||
                                                  MODE == kInt4Int8;
 
-// The tile kernel's launch bound. A source may ask for EVDR_MIN_CTAS blocks
-// per SM (maxsim_int8_defer.cu does, for K2b); the others compile with the
-// bare bound: a minimum of 1 is NOT the same, it let ptxas raise K1/K2
-// from 77/73/76 to 90-101 registers (the -Xptxas=-v report), and they ran
-// slower.
-#ifdef EVDR_MIN_CTAS
-#define EVDR_LAUNCH_BOUNDS __launch_bounds__(kThreads, EVDR_MIN_CTAS)
-#else
-#define EVDR_LAUNCH_BOUNDS __launch_bounds__(kThreads)
-#endif
+// The tile kernel's launch bound is the bare __launch_bounds__(kThreads): a
+// minimum of 1 CTA per SM is NOT the same, it let ptxas raise the 128-row
+// kernels from 73-77 to 90-101 registers (the -Xptxas=-v report) and the
+// 256-row ones from 124-128 to 135-151, and they ran slower; a minimum of 2
+// gave K2b the same registers and no gain (PERF.md).
 
 template <int MODE> struct Traits;
 template <> struct Traits<kBf16> {
@@ -430,17 +426,19 @@ __device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
 }
 
 // K2b's deferred doc epilogue, in two stages that each run inside a
-// barrier interval the tile loop already has. Stage 1 (one tile after the
-// doc's end, threads tid < kRows): the row's max over the two column warps
-// (`pp`, 2 * kRows floats), the no-valid-token rule and the weight, into
-// `rr`. Stage 2 (one tile later, threads tid < nq_here): the sum of query
-// tid's lq rows of `rr`, in order, into out[q, dd]. The same operations in
-// the same order as the in-step epilogue, so the scores equal K2's bit for
+// barrier interval the tile loop already has, for a CTA of R query-token
+// rows (R <= kThreads: one row a thread). Stage 1 (one tile after the
+// doc's end, threads tid < R): the row's max over the two column warps
+// (`pp`, 2 * R floats), the no-valid-token rule and the weight, into `rr`.
+// Stage 2 (one tile later, threads tid < nq_here): the sum of query tid's
+// lq rows of `rr`, in order, into out[q, dd]. The same operations in the
+// same order as the in-step epilogue, so the scores equal K2's bit for
 // bit.
+template <int R>
 __device__ inline void defer_combine(const float* pp, float* rr,
                                      const float* qw_s, int tid) {
-  if (tid < kRows) {
-    const float m = fmaxf(pp[tid], pp[kRows + tid]);
+  if (tid < R) {
+    const float m = fmaxf(pp[tid], pp[R + tid]);
     rr[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
   }
 }
@@ -459,7 +457,7 @@ __device__ inline void defer_sum(const float* rr, float* out, int q0,
 // epilogue of K2 moved one tile later (see the doc-end block below); also
 // a template flag. CFG: the tile configuration (TileCfg).
 template <int MODE, bool STORE_M, bool DEFER = false, class CFG = CfgBase>
-__global__ void EVDR_LAUNCH_BOUNDS
+__global__ void __launch_bounds__(kThreads)
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ qw,
               const typename Traits<MODE>::TP* __restrict__ p,
@@ -474,7 +472,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   using TS = typename Traits<MODE>::TQ;
   constexpr int R = CFG::kR, kI = CFG::kI, kJ = CFG::kJ;
   static_assert(!(STORE_M && DEFER), "K5 keeps the in-step epilogue");
-  static_assert(!DEFER || R == kRows, "K2b keeps the 128-row layout");
+  static_assert(R <= kThreads, "one row a thread in the doc epilogue");
   static_assert(kJ == 4, "two B ldmatrix.x4 a k-step");
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<MODE, CFG> lay(d, DEFER);
@@ -630,11 +628,11 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       // landed before the last barrier; the parity buffers keep each doc's
       // apart from the next doc's, which may end within this very tile)
       if (pend2 >= 0)
-        defer_sum(red + (pend2 & 1) * kRows, out, q0, nq_here, lq, nd, pend2,
+        defer_sum(red + (pend2 & 1) * R, out, q0, nq_here, lq, nd, pend2,
                   tid);
       if (pend1 >= 0)
-        defer_combine(part + (pend1 & 1) * 2 * kRows,
-                      red + (pend1 & 1) * kRows, qw_s, tid);
+        defer_combine<R>(part + (pend1 & 1) * 2 * R, red + (pend1 & 1) * R,
+                         qw_s, tid);
       pend2 = pend1;
       pend1 = -1;
     }
@@ -645,7 +643,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       // combines the quad here and leaves the rest to the next two tiles
       // (or the end of the loop), so it costs no barrier pair of its own.
       const int dd = d_begin + it / n_tiles;
-      float* pp = DEFER ? part + (dd & 1) * 2 * kRows : part;
+      float* pp = DEFER ? part + (dd & 1) * 2 * R : part;
 #pragma unroll
       for (int i = 0; i < kI; ++i)
 #pragma unroll
@@ -683,14 +681,12 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   if constexpr (DEFER) {
     // the last docs' stages (the loop's last barrier published their inputs)
     if (pend2 >= 0)
-      defer_sum(red + (pend2 & 1) * kRows, out, q0, nq_here, lq, nd, pend2,
-                tid);
+      defer_sum(red + (pend2 & 1) * R, out, q0, nq_here, lq, nd, pend2, tid);
     if (pend1 >= 0) {
-      defer_combine(part + (pend1 & 1) * 2 * kRows, red + (pend1 & 1) * kRows,
-                    qw_s, tid);
+      defer_combine<R>(part + (pend1 & 1) * 2 * R, red + (pend1 & 1) * R,
+                       qw_s, tid);
       __syncthreads();
-      defer_sum(red + (pend1 & 1) * kRows, out, q0, nq_here, lq, nd, pend1,
-                tid);
+      defer_sum(red + (pend1 & 1) * R, out, q0, nq_here, lq, nd, pend1, tid);
     }
   }
 }

@@ -35,6 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARIES = {
     "maxsim_bf16": {
         "evdr_maxsim_bf16": [_P] * 5 + [_I] * 5 + [_P],
+        "evdr_bf16_config": [_I, _P],
     },
     "maxsim_int8": {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],

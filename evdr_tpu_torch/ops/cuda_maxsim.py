@@ -8,8 +8,9 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
 
 - ``maxsim_cuda`` (K1): float/bf16 index, scored in bf16 with f32
   accumulation (a float32 index is cast to bf16 per call, as the TPU
-  kernel's driver does); ``compute_dtype=torch.float32`` hands the call to
-  ``maxsim_cuda_f32``.
+  kernel's host side does) by a kernel on wgmma and TMA (its configuration
+  by D: :func:`bf16_config`); ``compute_dtype=torch.float32`` hands the
+  call to ``maxsim_cuda_f32``.
 - ``maxsim_cuda_f32`` (K1, float32 mode, the TPU kernel's
   ``compute_dtype=float32``): split-TF32 products with f32 accumulation,
   the scorer of the trainer's evaluation and teacher precompute; a kernel
@@ -70,12 +71,13 @@ _PLAIN_CHUNK_ELEMS = 1 << 27
 
 KERNEL_ROWS = 128   # query-token rows per CTA (maxsim_tile.cuh kRows)
 # The most query tokens one launch of each library takes: its CTA's
-# query-token rows (K2 and K4 stand on 256-row tiles, maxsim_tile.cuh
-# CfgWide). A longer query is scored in slices of at most this many tokens
-# whose partial scores add up (split_queries).
-ROW_CAP = {"maxsim_bf16": KERNEL_ROWS, "maxsim_f32": KERNEL_ROWS,
+# query-token rows (K1 bf16 runs two warpgroups of 128 rows, maxsim_bf16.cu;
+# K2, K2b and K4 stand on 256-row tiles, maxsim_tile.cuh CfgWide). A longer
+# query is scored in slices of at most this many tokens whose partial
+# scores add up (split_queries).
+ROW_CAP = {"maxsim_bf16": 2 * KERNEL_ROWS, "maxsim_f32": KERNEL_ROWS,
            "maxsim_int8": 2 * KERNEL_ROWS, "maxsim_int4": 2 * KERNEL_ROWS,
-           "maxsim_int8_defer": KERNEL_ROWS, "maxsim_pq": KERNEL_ROWS,
+           "maxsim_int8_defer": 2 * KERNEL_ROWS, "maxsim_pq": KERNEL_ROWS,
            "maxsim_train": KERNEL_ROWS}
 # The kernels take D a multiple of D_GRANULE (K6: 2 * D_GRANULE); a narrower
 # D is zero-padded up to it, which adds nothing to any product. Above
@@ -399,7 +401,9 @@ def call_kernel(lib, func, operands, *args, aligned=()):
         rc = fn(*(t.data_ptr() for t in operands if t is not None), *args,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"{func} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{func} launch failed: " + (
+            f"cudaError {rc}" if rc > 0
+            else f"tensor-map encode refused, CUresult {-rc}"))
 
 
 def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
@@ -586,6 +590,18 @@ def pq_occupancy(mode: str, d: int, m: int, cluster: int) -> tuple:
     if rc != 0:
         raise RuntimeError(f"evdr_pq_occupancy failed: cudaError {rc}")
     return out[0], out[1]
+
+
+def bf16_config(d: int) -> dict:
+    """The configuration K1 bf16 runs at width ``d`` (a multiple of 16), on
+    the current GPU (``maxsim_bf16.cu``'s rule by D)."""
+    out = (ctypes.c_int * 6)()
+    rc = _cuda_build.kernel("maxsim_bf16", "evdr_bf16_config")(
+        d, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"evdr_bf16_config failed: cudaError {rc}")
+    return dict(zip(("ctas_per_sm", "rows", "tile_tokens", "stages",
+                     "consumer_warpgroups", "smem_bytes"), out))
 
 
 def f32_occupancy(d: int) -> tuple:

@@ -24,7 +24,12 @@ Inputs are made on the device from seed 0, with ~10% invalid tokens:
   1,000 x 768), checked bit-equal to K5 float32's scores.
 ``--only`` keeps the kernels whose names start with one of the given
 prefixes (e.g. ``maxsim_pq,maxsim_f32``). The card's name and power limit
-come first.
+come first. After the roots, one ``compare`` line against the first root:
+for each library whether its SASS hashes are the first root's, and, for
+each root whose K1 bf16 output hash differs from the first root's, the
+largest score difference and the top-1 and top-10 agreement (the share of
+queries whose best doc is the same; the mean share of the first root's
+ten best docs among the root's ten best).
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+
+import numpy as np
 
 NQ, LQ, D = 256, 32, 128
 PQ_M = 16
@@ -63,7 +71,7 @@ def sass_hashes(lib_path) -> list:
     return sorted(h.hexdigest()[:12] for h in kernels)
 
 
-def one(root: str, docs: int, lp: int, only=None) -> dict:
+def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -80,7 +88,7 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
     _cuda_build.build_all(libs)
     regs = {n: [ln.split("Used ")[1].split(" registers")[0]
                 for ln in _cuda_build.build_log(n).splitlines()
-                if "registers" in ln]
+                if "Used " in ln and " registers" in ln]
             for n in libs}
     sass = {n: sass_hashes(_cuda_build.library_path(n)) for n in libs}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -169,7 +177,10 @@ def one(root: str, docs: int, lp: int, only=None) -> dict:
         calls = {k: v for k, v in calls.items() if k.startswith(tuple(only))}
     times, outs = {}, {}
     for name, fn in calls.items():
-        outs[name] = digest(fn())
+        out = fn()
+        outs[name] = digest(out)
+        if save and name == "maxsim_bf16":
+            np.save(save, out.cpu().numpy())
         times[name] = ms(fn)
     return {"root": root, "docs": docs, "lp": lp, "registers": regs,
             "sass": sass, "ms": times, "out_sha1": outs, "checks": checks}
@@ -182,25 +193,64 @@ def main(argv=None) -> int:
     ap.add_argument("--lp", type=int, default=768)
     ap.add_argument("--only", default="")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--save", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one is not None:
         only = [x for x in args.only.split(",") if x]
-        print(json.dumps(one(args.one, args.docs, args.lp, only)), flush=True)
+        print(json.dumps(one(args.one, args.docs, args.lp, only, args.save)),
+              flush=True)
         return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip(), flush=True)
-    for root in args.roots:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", root, "--docs", str(args.docs),
-                            "--lp", str(args.lp), "--only", args.only],
-                           capture_output=True, text=True, timeout=900)
-        if r.returncode != 0:
-            print(r.stderr, file=sys.stderr)
-            return r.returncode
-        print(r.stdout.strip(), flush=True)
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(args.roots):
+            save = os.path.join(tmp, f"{i}.npy")
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--one", root, "--docs", str(args.docs),
+                                "--lp", str(args.lp), "--only", args.only,
+                                "--save", save],
+                               capture_output=True, text=True, timeout=900)
+            if r.returncode != 0:
+                print(r.stderr, file=sys.stderr)
+                return r.returncode
+            print(r.stdout.strip(), flush=True)
+            results.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        if results:
+            print(json.dumps(compare(results, tmp)), flush=True)
     return 0
+
+
+def agreement(a, b) -> dict:
+    """Score difference and top-1 / top-10 agreement of (nq, nd) scores
+    ``b`` against ``a``."""
+    k = min(10, a.shape[1])
+    top_a = np.argsort(-a, axis=1, kind="stable")[:, :k]
+    top_b = np.argsort(-b, axis=1, kind="stable")[:, :k]
+    return {"max_abs_diff": float(np.abs(a - b).max()),
+            "top1": float(np.mean(top_a[:, 0] == top_b[:, 0])),
+            "top10": float(np.mean([len(set(x) & set(y)) / k
+                                    for x, y in zip(top_a, top_b)]))}
+
+
+def compare(results, tmp) -> dict:
+    """Each root against the first: SASS hashes per library and, where
+    K1 bf16's output differs, its agreement."""
+    first = results[0]
+    out = {"compare_to": first["root"], "roots": []}
+    for i, r in enumerate(results):
+        row = {"root": r["root"], "sass_equal": {
+            n: r["sass"].get(n) == first["sass"].get(n) for n in r["sass"]}}
+        h0, h = (first["out_sha1"].get("maxsim_bf16"),
+                 r["out_sha1"].get("maxsim_bf16"))
+        if h is not None and h0 is not None and h != h0:
+            row["maxsim_bf16"] = agreement(np.load(os.path.join(tmp, "0.npy")),
+                                           np.load(os.path.join(tmp,
+                                                                f"{i}.npy")))
+        out["roots"].append(row)
+    return out
 
 
 if __name__ == "__main__":

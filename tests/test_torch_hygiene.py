@@ -400,7 +400,8 @@ def test_maxsimfn_f32_end_to_end_on_the_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,lq,nd,lp,d", [
     (9, 7, 13, 71, 32), (7, 128, 5, 65, 48), (256, 32, 301, 64, 128),
-    (130, 5, 11, 1, 16), (33, 17, 900, 20, 64)])
+    (130, 5, 11, 1, 16), (33, 17, 900, 20, 64), (3, 129, 40, 64, 128),
+    (2, 256, 30, 767, 64), (5, 200, 20, 768, 128), (4, 256, 9, 64, 16)])
 def test_deferred_int8_kernels_equal_k2_on_the_card(nq, lq, nd, lp, d):
     """K2b (both modes) against K2 on the same inputs: bit-equal (the same
     sums in the same order); and within K2's tolerance of the plain version,
@@ -439,6 +440,54 @@ def test_deferred_int8_kernels_equal_k2_on_the_card(nq, lq, nd, lp, d):
         n = cuda_maxsim.launch_counts()
         assert n[k2b.__name__] == n0[k2b.__name__] + 1
         assert n[k2.__name__] == n0[k2.__name__] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp,d,lq,nq", [
+    (1, 128, 32, 9), (63, 80, 1, 300), (64, 16, 129, 3), (65, 144, 256, 5),
+    (767, 256, 32, 17), (768, 128, 32, 256), (768, 80, 257, 3),
+    (65, 256, 1, 257), (767, 144, 129, 4), (64, 128, 256, 2)])
+def test_k1_bf16_wgmma_kernel_matches_plain_version_on_the_card(lp, d, lq,
+                                                                nq):
+    """K1 bf16 (wgmma on TMA-loaded tiles) against its plain version where
+    the tensor maps and the stage ring can go wrong: Lp around the 64- and
+    128-token tiles (the last doc's ragged tail read past the page
+    tensor's end, zero-filled by TMA, and a doc's tail beside the next
+    doc's tokens), D on either side of the rule by D (16, 80 with a
+    zero-filled box, 128, 144 and 256), Lq 1 to 256 in one launch and 257
+    in two, nq off the query block, a doc with no valid token (scores 0).
+    Summation order alone differs: 1e-4 on sums of <= 257 unit-bounded
+    terms. The configuration the rule picks fits the card's 232,448 bytes
+    of shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.set_float32_matmul_precision("highest")
+    cm = cuda_maxsim
+    rng = np.random.default_rng(lp + d + lq + nq)
+    dev, nd = "cuda", 23
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q, P = unit(nq, lq, d), unit(nd, lp, d).to(torch.bfloat16)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    qm[:, 0] = True
+    pm[nd // 2] = False
+    pm[-1, -1] = True  # the last token of the tensor is valid
+    cfg = cm.bf16_config(d)
+    assert cfg["smem_bytes"] <= 232448 and cfg["ctas_per_sm"] >= 1
+    assert cfg["rows"] == cm.ROW_CAP["maxsim_bf16"]
+    assert cfg["tile_tokens"] == (128 if d <= 192 else 64)
+    n0 = cm.launch_counts()["maxsim_cuda"]
+    got = cm.maxsim_cuda(Q, P, qm, pm)
+    torch.cuda.synchronize()
+    assert cm.launch_counts()["maxsim_cuda"] == n0 + -(-lq // 256)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, cm.maxsim_plain(Q, P, qm, pm), rtol=0,
+                               atol=1e-4)
+    assert got[:, nd // 2].abs().max().item() == 0.0
 
 
 @pytest.mark.gpu

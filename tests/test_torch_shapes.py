@@ -12,7 +12,7 @@ at build, and the queries per call. Here:
 - each wrapper's host side, the kernel replaced by a stand-in that computes
   the kernel's function from the operands it is handed and refuses any
   shape the kernel refuses (more query tokens than its cap, D off its
-  granule): every wrapper at Lq 129 / 200 and D 40 / 72 against its plain
+  granule): every wrapper at Lq 129 to 257 and D 40 / 72 against its plain
   version, and ``MaxSimFn`` against the JAX package's custom_vjp;
 - engines of every tier built at D 40 and 72 against the JAX engine
   (``impl='xla'``) on the same index, with ``dim`` the true D;
@@ -20,7 +20,7 @@ at build, and the queries per call. Here:
 
 Tolerances: a split changes only the order of f32 additions over query
 tokens, so against one pass of the same plain version it holds to 1e-6
-relative (sums of <= 200 terms, each addition within 2**-24) and 1e-5
+relative (sums of <= 300 terms, each addition within 2**-24) and 1e-5
 absolute. Zero pad lanes add exact zeros. Against the JAX package's f32
 oracles the kernels' numerics apply, as in the other port tests: bf16
 inputs move each similarity by <= ~4e-3, int8 query codes by <= ~5e-3,
@@ -237,12 +237,14 @@ def _wrapper_cases(Q, P, qm, pm, rng):
 
 
 @pytest.mark.parametrize("lq,d", [(129, 40), (200, 72), (200, 128),
-                                  (32, 72)])
+                                  (32, 72), (256, 40), (257, 72)])
 def test_wrappers_split_and_pad_for_the_kernels(on_card, lq, d):
     """Each forward wrapper's launches take only shapes the kernel takes,
     one launch per slice of ROW_CAP tokens (counted), and add up to the
     plain version of the whole call (1e-6 relative: summation order
-    alone)."""
+    alone). At Lq 200 and 256 K1 bf16 and K2b (256 rows a launch) launch
+    once, K1 float32 and K3 (128) twice; at 257 the first two launch
+    twice."""
     rng = np.random.default_rng(lq + d)
     Q, P, qm, pm = _t(*_case(lq + d, lq=lq, d=d))
     for wrapper, plain, args in _wrapper_cases(Q, P, qm, pm, rng):
@@ -444,10 +446,11 @@ def test_widths_that_padding_cannot_lift_raise_with_their_bound(on_card):
 
 def test_http_group_with_a_long_query_answers_every_request(on_card):
     """tools/serve_http pads a coalesced group to its longest query: one
-    request of 200 tokens beside three of 32 (a group of up to 4) over a
+    request of 300 tokens beside three of 32 (a group of up to 4) over a
     bf16 engine of D = 72, its launches on the stand-in kernel (which
-    refuses more than K1's 128 query tokens a launch). Every request is
-    answered, each with the top-1 of search_dense on its own query."""
+    refuses more than K1's 256 query tokens a launch, so the group is
+    scored in slices). Every request is answered, each with the top-1 of
+    search_dense on its own query."""
     import json
     import threading
     import urllib.request
@@ -455,12 +458,12 @@ def test_http_group_with_a_long_query_answers_every_request(on_card):
     from evdr_tpu_torch.data.packing import preprocess_queries
     from evdr_tpu_torch.tools.serve_http import make_server
 
-    Q, P, qm, pm = _corpus(11, 72, lq=200)
+    Q, P, qm, pm = _corpus(11, 72, lq=300)
     eng = RetrievalEngine(dtype="bfloat16", device="cpu").build(P, pm)
     srv = make_server(eng, port=0, batch_wait_ms=300.0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
-    lens = [200, 32, 32, 32]
+    lens = [300, 32, 32, 32]
     qs = [Q[i, :n] for i, n in enumerate(lens)]
     replies = [None] * len(qs)
 
