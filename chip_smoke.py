@@ -46,7 +46,7 @@ line each:
 10. times of K1's float32 mode at the eval shape and at the teacher
     precompute's (256 queries of the train split against the 1,000
     teacher pages), of K5 and K6 at the train step's, with K1 float32's
-    CTAs per SM;
+    CTAs per SM and K6's design;
 11. capacity-tier parity at the serving shape (1,000 pages): K4 (int4 and
     int4full, at Lp 768 and at an odd Lp of 767) and K3 (pq and pqfull,
     with compact PQ books and with expanded OPQ books) against their plain
@@ -76,7 +76,11 @@ line each:
     versions, on tie-free data and with a doc that has no valid token; one
     backward through maxsim(impl='pallas', compute_dtype=float32), the
     entry point that reaches them, against the plain versions; their
-    times;
+    times, with K6's design (cluster size, ring stages, registers, CTAs
+    per SM; phase 10 gives bf16's); then MaxSimFn at D 192 in both modes
+    and 256 in bf16 against the plain K5/K6 pair (300 pages), and K6 on
+    planted exact ties (a duplicated page token, a zero query row) against
+    its plain version in both modes;
 17. K2b (``deferred=True`` of both K2 wrappers) at the serving shape:
     parity on 1,000 pages against K2's plain version and bit-equality with
     K2, also for 16 queries of 256 tokens (one launch of its 256-row
@@ -357,6 +361,22 @@ def ptxas_registers(build, lib):
                                        build.build_log(lib))]
 
 
+def k6_design(ct, build, dtype, nq, lq):
+    """K6's launch at the train step's shape: cluster size, ring stages,
+    page tiles a cluster barrier, CTAs per SM, clusters the card holds at
+    once, shared bytes, and the ptxas registers of its D = 128
+    instantiation."""
+    n_qb = -(-nq // (ct.ROW_CAP["maxsim_train"] // lq))
+    cluster = ct.bwd_cluster(min(n_qb, ct.MAX_QB_BLOCKS))
+    cfg = ct.bwd_config(dtype, D, cluster)
+    mode = 3 if dtype == torch.float32 else 0  # maxsim_tile.cuh Mode
+    regs = re.findall(r"Function properties for (\S+)\n.*\n.*Used (\d+) "
+                      r"registers", build.build_log("maxsim_train"))
+    tag = f"maxsim_bwd_kernelILi{mode}ELi{-(-D // 64)}E"
+    return dict(cfg, cluster=cluster,
+                registers=[int(r) for n, r in regs if tag in n])
+
+
 def rel_err(a, b) -> float:
     """Relative Frobenius error of a against b."""
     return float((a.double() - b.double()).norm() / b.double().norm())
@@ -598,7 +618,7 @@ def train_step_phase(cm, ct, bundle, param0, pm_s):
     return counts, (Qb, l2_normalize(param0 * pm_f), qmb, pm_s)
 
 
-def training_times(cm, ct, eval_args, teacher_args, step_args, gen,
+def training_times(cm, ct, build, eval_args, teacher_args, step_args, gen,
                    counts_of, f32_shapes, parity, smi):
     """Phase 10: K1 float32 at the teacher precompute's shape and at the
     eval shape, K5 and K6 at the train step's shape: median of 7 CUDA-event
@@ -696,6 +716,11 @@ def training_times(cm, ct, eval_args, teacher_args, step_args, gen,
                      bound_ms=bms, bound_by=by)
         if rel is not None:
             entry.update(rel_err=rel, rel_tol=1e-3)
+        if kname == "maxsim_bwd":
+            entry["design"] = k6_design(ct, build, torch.bfloat16, nq, lq)
+            log(f"phase 10 K6 bf16 design: {entry['design']} (a cluster "
+                f"of the chunk's query blocks, sparse hit masks, four page "
+                f"tiles a cluster barrier)")
         kernels.append(entry)
     return kernels
 
@@ -704,6 +729,7 @@ def training_phases(cm, ct, gen, seed, smi, work):
     """Phases 7-10; returns the kernels line's training entries and the
     fixture's dataset bundle. The fixture stays under ``work`` for phase
     18."""
+    from evdr_tpu_torch.ops import _cuda_build as build
     from evdr_tpu_torch.train.config import TrainConfig
     from evdr_tpu_torch.train.harness import init_student, load_dataset_bundle
 
@@ -748,8 +774,8 @@ def training_phases(cm, ct, gen, seed, smi, work):
     counts_of = {"maxsim_f32": trainer_counts["maxsim_cuda_f32"],
                  "maxsim_fwd_train": step_counts["maxsim_cuda_fwd_train"],
                  "maxsim_bwd": step_counts["maxsim_cuda_bwd"]}
-    return training_times(cm, ct, eval_args, teacher_args, step_args, gen,
-                          counts_of, f32_shapes, parity, smi), bundle
+    return training_times(cm, ct, build, eval_args, teacher_args, step_args,
+                          gen, counts_of, f32_shapes, parity, smi), bundle
 
 
 # -------------------------------------------------------- capacity tiers
@@ -1171,6 +1197,7 @@ def f32_train_phase(cm, ct, gen, smi):
     parity on tie-free random data and with an empty doc, one backward
     through maxsim(impl='pallas', compute_dtype=float32) (their launches),
     times. Returns their kernels-line entries."""
+    from evdr_tpu_torch.ops import _cuda_build as build
     from evdr_tpu_torch.ops.maxsim import maxsim
 
     n_doc_tok = -(-DOC_LEN[1] // MF)
@@ -1250,8 +1277,74 @@ def f32_train_phase(cm, ct, gen, smi):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
         if rel is not None:
             entry.update(rel_err=rel, rel_tol=1e-4)
+        if kname == "maxsim_bwd_f32":
+            entry["design"] = k6_design(ct, build, torch.float32, STEP_NQ, LQ)
+            log(f"phase 16 K6 float32 design: {entry['design']}")
         kernels.append(entry)
     return kernels
+
+
+def k6_widths_and_ties(ct, gen):
+    """Phase 16, K6 at the widths it gained and on exact ties: MaxSimFn
+    (K5, then K6) at D 192 in both modes and 256 in bf16 against the plain
+    K5/K6 pair on tie-free data with an empty doc; K6 on planted exact ties
+    (a page token duplicated in its doc, with a query token on it; a zero
+    query row with qmask 1, which ties with every valid token) against its
+    plain version, in both modes. Tolerances as phases 7 and 16: dQ and dP
+    within 1e-3 (bf16) and 1e-4 (float32) relative, scores 1e-4."""
+    nd, lp = 300, -(-DOC_LEN[1] // MF)
+
+    def data(d, dtype, ties):
+        Q = unit(torch.randn((STEP_NQ, LQ, d), device=DEVICE, generator=gen))
+        qm = torch.rand((STEP_NQ, LQ), device=DEVICE, generator=gen) > 0.15
+        P = unit(torch.randn((nd, lp, d), device=DEVICE, generator=gen))
+        pm = torch.rand((nd, lp), device=DEVICE, generator=gen) > 0.1
+        qm[:, 0] = True
+        pm[:, 0] = True
+        pm[7] = False
+        if ties:
+            Q[0, 0] = P[1, 0]
+        untie(Q, qm, P, pm, dtype=dtype)
+        if ties:
+            P[1, lp - 1] = P[1, 0]
+            pm[1, 0] = pm[1, lp - 1] = True
+            Q[-1, 0] = 0.0
+        w = torch.randn((STEP_NQ, nd), device=DEVICE, generator=gen)
+        return Q, P, qm, pm, w
+
+    for d, dtype, tol in ((192, torch.bfloat16, 1e-3),
+                          (192, torch.float32, 1e-4),
+                          (256, torch.bfloat16, 1e-3)):
+        Q, P, qm, pm, w = data(d, dtype, False)
+        Qg = Q.clone().requires_grad_(True)
+        Pg = P.clone().requires_grad_(True)
+        out = ct.MaxSimFn.apply(Qg, Pg, qm, pm, dtype)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, dtype)
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, w, dtype)
+        e_out = float((out.detach() - out_p).abs().max())
+        e_g = max(rel_err(Qg.grad, dq_p), rel_err(Pg.grad, dp_p))
+        log(f"phase 16 MaxSimFn at D = {d} ({dtype}): scores {e_out:.3e} "
+            f"max abs (tol 1e-4), dQ/dP {e_g:.3e} relative (tol {tol:g}) "
+            f"against the plain K5/K6 pair")
+        check(bool(torch.isfinite(Pg.grad).all()) and e_out <= 1e-4
+              and e_g <= tol, f"MaxSimFn at D = {d} ({dtype})")
+        check(float(Pg.grad[7].abs().max()) == 0.0,
+              f"the empty doc gets no gradient at D = {d} ({dtype})")
+    for dtype, tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-4)):
+        Q, P, qm, pm, w = data(D, dtype, True)
+        M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, dtype)[1]
+        dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, w, dtype)
+        torch.cuda.synchronize()
+        M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, dtype)[1]
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, w, dtype)
+        e_g = max(rel_err(dq, dq_p), rel_err(dp, dp_p))
+        tied = bool(torch.equal(dp[1, 0], dp[1, lp - 1]))
+        log(f"phase 16 K6 on exact ties ({dtype}): dQ/dP {e_g:.3e} relative "
+            f"(tol {tol:g}); the duplicated token's two copies got the same "
+            f"gradient: {tied}")
+        check(e_g <= tol and tied, f"K6 on exact ties ({dtype})")
 
 
 def defer_phase(cm, gen, smi):
@@ -1811,6 +1904,7 @@ def main(argv=None) -> int:
         # 16-17. K5/K6 in float32 mode, K2b
         t0 = time.perf_counter()
         kernels += f32_train_phase(cm, ct, gen, smi)
+        k6_widths_and_ties(ct, gen)
         torch.cuda.empty_cache()
         kernels += defer_phase(cm, gen, smi)
         torch.cuda.empty_cache()

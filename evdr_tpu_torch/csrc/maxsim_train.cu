@@ -12,48 +12,64 @@
 // K6 replaces pallas_maxsim_bwd.py:_dqdp_kernel + _indicator (entries
 // maxsim_pallas_bwd / _maxsim_pallas_bwd_impl, reached from
 // pallas_maxsim.py:_bwd). With W[(q, t), d] = g[q, d] * qmask[q, t] *
-// doc_has_token[d]:
-//   E  = (sim == M) * W in the compute dtype (the TPU casts E to it: bf16
-//        rounds W, float32 keeps it); the gradient is summed over tied
-//        argmax tokens;
-//   dQ[(q, t)] = sum_{d, m} E * P[d, m]      dP[d, m] = sum_{q, t} E * Q[q, t]
+// doc_has_token[d], a hit is a (row, doc token) where the recomputed
+// similarity equals M and W != 0; with e = W rounded to the compute dtype
+// (bf16 mode rounds it, as the TPU casts E; float32 keeps it),
+//   dQ[(q, t)] = sum over its hits of e * P[d, m]
+//   dP[d, m]   = sum over its hits of e * Q[q, t]
+// summed over tied tokens, as on the TPU (pallas_maxsim_bwd.py:18-20).
+// What bounds it on the H100: the recompute, one product of the forward's
+// size (bf16 tensor rate; float32: TF32, three MMAs a k-step); the
+// gradient is ~one page row and one query row a (row, doc).
 // Design:
 // - sim is recomputed by tile_mma, a copy of K5's k-loop: the same operand
-//   roles (query rows as A, doc tokens as B), MMA shape (m16n8k16 bf16, or
-//   three m16n8k8 tf32 products per k-step for float32) and order of k-steps
-//   over D, so every recomputed similarity is bit-identical to the one K5
-//   took the max of and (sim == M) holds exactly where it did.
-// - One CTA owns 128 whole-query rows (blockIdx.x) and a slice of db docs
-//   (blockIdx.y), and walks the slice's page tiles (cp.async, two buffers).
-//   Per tile, E goes to shared memory and feeds both gradient products on
-//   the tensor cores: dQ += E . P_tile (A = E) into registers held across
-//   the slice, and dP_tile = E^T . Q_block.
-// - bf16: the transposed operands (the page tile as B of dQ; E and the
-//   query block for dP) load through ldmatrix.trans.
-// - float32 (the TPU's Precision.HIGHEST): both products in 3xTF32, each
-//   operand split into TF32 hi + lo as K1's float32 mode does (mma() in
-//   maxsim_tile.cuh), so they match a float32 product to ~2^-22. ldmatrix
-//   has no 32-bit .trans form, so the transposed operands load with 32-bit
-//   shared loads in the m16n8k8 fragment layout. A product's k order is
-//   free, so each fragment's k slots t and t + 4 take the even and the odd
-//   of two neighbouring rows (tokens for dQ, query rows for dP): with row
-//   strides of 4 mod 32 words (odd 16-byte units, which ldmatrix needs too)
-//   those loads hit 32 distinct banks. E is stored with each 8-token group
-//   in the order 0 2 4 6 1 3 5 7 (the recompute's fragment holds tokens 2t
-//   and 2t + 1), which is the order dQ's A fragment reads by ldmatrix.
-// - Accumulation across CTAs is deterministic, without atomics: each CTA
-//   writes its dQ as a partial for its doc slice, (n_slices, nq * lq, D),
-//   and each page tile's dP as a partial for its query block,
-//   (n_qblocks, nd, lp, D); the wrapper sums the partials, as the TPU sums
-//   its per-query-block dP partials outside the kernel
-//   (pallas_maxsim_bwd.py:172-180). Every partial element is written once.
-// What bounds it on the H100: operations, three products of the forward's
-// size (recompute, dQ, dP) at the bf16 tensor-core rate (float32: the TF32
-// rate, three MMAs per product), plus the partials' bytes (written once,
-// read once by the sum). Shared memory at D = 128: 55 KB in bf16, 168 KB
-// in float32 (one CTA per SM).
-// K6 takes D a multiple of 32 up to 128 (a warp holds a 32 x D/2 dQ block
-// in registers).
+//   roles (query rows as A, doc tokens as B), MMA shape, operand layout
+//   (row stride (units + 1) * 16) and order of k-steps over D, so every
+//   recomputed similarity is bit-identical to the one K5 took the max of
+//   and (sim == M) holds exactly where it did.
+// - Sparse gradients. E is one-hot but for ties (one nonzero a row and
+//   doc: 1 in 154 at the train step's shape), so each 128 x 64 tile's hits
+//   become bit masks in shared memory instead of two dense products on a
+//   0/1 tile: a row's 64 bits as two words (one per column warp) and a
+//   token's 128 bits as four (one per row warp), whole words, no atomics.
+//   dQ: thread (row r, half of D) adds e * P_tile[c, its half] for each of
+//   r's hits, in ascending c, into registers kept across the doc slice
+//   (D / 2 floats a thread). dP: below. Products of the stored operands
+//   (bf16 values multiplied in f32, or f32 FMAs), summed in f32. A zero
+//   query row with qmask 1 ties with every valid token: right, and slower.
+// - A chunk's query blocks (at most 8, the wrapper's chunk) form one
+//   thread-block cluster along x (padding CTAs, without rows, up to a power
+//   of two), walking the same doc slice (y) in step. Each page tile
+//   reaches the cluster once: each CTA brings 1/C of its rows by bulk
+//   copies multicast to every CTA's ring stage (cp.async.bulk .multicast
+//   ::cluster, completing on each CTA's full mbarrier).
+// - kStep = 4 page tiles a cluster barrier (fewer where the ring holds
+//   fewer: float32 above D = 128): the tiles' recomputes and dQ walks, then
+//   one arrive/wait, then the pull of the tiles' dP. The barrier also
+//   frees their ring stages everywhere, which are refilled at once (a ring
+//   of as many stages as fit, up to 8), and the other half of the masks'
+//   double buffer.
+// - dP is summed across the cluster through distributed shared memory:
+//   CTA k owns tokens [k 64/C, (k + 1) 64/C) of each tile, a warp one
+//   token a tile where C = 8 (its "items"). Lane (item, j) loads CTA j's
+//   mask of the item; for each pair of items a warp scan of the lanes' hit
+//   counts lists the hits in (item, CTA, row) order in shared memory, and
+//   each hit's e and query row are loaded from CTA j and summed in that
+//   order (more hits than the list holds, from ties, go in the same order
+//   one at a time); each token's dP is written once. No per-query-block
+//   partials, no float atomics: two calls give the same bits.
+// - The next tile's M, W and column scales load during this tile's
+//   recompute; the tiles are walked by cursors, without divisions.
+// - The dQ accumulators of a doc slice are written once as its partial,
+//   (n_slices, nq * lq, D), summed by the wrapper, which sizes the slices
+//   so the clusters fill the card in one wave (evdr_bwd_config:
+//   cudaOccupancyMaxActiveClusters).
+// The measured choices (two tiles or one a barrier, hits loaded 4 or 16 at
+// a time, rings of 4 stages, no cluster, and earlier designs) are in
+// PERF.md. Shared memory: bf16 D = 128 191,104 bytes (8 stages), D = 256
+// 219,776 (4); float32 D = 128 219,776 (4), D = 192 217,728 (2): one CTA
+// of 256 threads per SM. K6 takes D a multiple of 16 up to 256 (float32:
+// 192), as K5.
 //
 // C interfaces (ctypes; every pointer and the stream is a void*):
 // evdr_maxsim_fwd_train[_f32](q (nq, lq, d) bf16 [f32], qw f32 (nq, lq),
@@ -61,131 +77,212 @@
 //   m f32 (nq*lq, nd), nq, lq, nd, lp, d, stream);
 // evdr_maxsim_bwd[_f32](q, qw, p, pmask, m, g f32 (nq, nd) already
 //   multiplied by doc_has_token, dq_part f32 (ceil(nd / db), nq*lq, d),
-//   dp_part f32 (n_qblocks, nd, lp, d) with n_qblocks = ceil(nq / (128 /
-//   lq)), nq, lq, nd, lp, d, db, stream).
-// Each returns cudaGetLastError() after its launch.
+//   dp f32 (ceil(n_qblocks / cluster), nd, lp, d) with n_qblocks =
+//   ceil(nq / (128 / lq)), nq, lq, nd, lp, d, db, cluster in {1, 2, 4, 8},
+//   stream);
+// evdr_bwd_config(f32, d, cluster, out int[5]): CTAs per SM, clusters of
+//   `cluster` CTAs the card holds at once, ring stages, shared bytes, page
+//   tiles a cluster barrier.
+// Each launch returns its error (a refused cluster launch included), else
+// cudaGetLastError().
 #include "maxsim_tile.cuh"
 
 namespace evdr {
+namespace {
 
-__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+template <int MODE> constexpr int kBwdMaxD = MODE == kF32 ? 192 : 256;
+constexpr int kBwdStages = 8;       // ring stages, as many as fit
+constexpr int kBwdCluster = 8;      // the portable cluster size
+constexpr int kStep = 4;            // page tiles a cluster barrier (<= 4)
+constexpr int kList = 64;           // a warp's list of a dP pull's hits
+constexpr size_t kSmemCap = 232448;
+
+// ------------------------------------------------------------------ PTX
+
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ inline uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of shared::cta address `a` in CTA `rank`.
+__device__ inline uint32_t peer(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// Loads from a CTA's shared memory by shared::cluster address; volatile, so
+// they stay between the cluster barriers that publish what they read.
+__device__ inline uint4 ld_peer_v4(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ inline float ld_peer_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+// Two consecutive operand values of a peer's row, as floats.
+template <int MODE> __device__ inline float2 peer_pair(uint32_t a) {
+  if constexpr (MODE == kF32) {
+    float2 v;
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v.x), "=f"(v.y)
+                 : "r"(a));
+    return v;
+  } else {
+    uint32_t u;
+    asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(u) : "r"(a));
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
 }
 
-constexpr int kMaxD = 128;
-// bytes per row of the E tile (kRows rows of kCols values): an odd number
-// of 16-byte units
-template <int MODE> constexpr int kEStride =
-    MODE == kF32 ? (kCols / 4 + 1) * 16 : (kCols / 8 + 1) * 16;
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+__device__ inline void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` from global to the shared buffer `dst` (16-byte aligned, a
+// multiple of 16 bytes), completing on `bar`; with `mask` != 1, into the
+// same offset of every CTA of the cluster in the mask, each completing on
+// its own barrier at `bar`'s offset.
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar, uint16_t mask) {
+  if (mask == 1)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
+            smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+        : "memory");
+}
 
+// ------------------------------------------------------------ layout
+
+// Shared-memory carve-up of K6, in bytes from the dynamic base: the query
+// block and the page-tile ring (row stride (units + 1) * 16, K5's), then
+// two parity buffers (tile i uses i & 1) of the column scales, each row's
+// M (NaN where W = 0: no hit), each row's e, the row masks (kRows x 2
+// words) and the token masks (kCols x 4 words), then the ring's full
+// barriers.
 template <int MODE> struct BwdSmem {
-  size_t a, b, e, colscale, mrow, wrow, total;
-  __host__ __device__ explicit BwdSmem(int d) {
+  size_t a, b, colscale, mrow, erow, rowbits, colbits, hits, bars, total;
+  __host__ __device__ BwdSmem(int d, int stages) {
     const size_t row = (size_t)(mma_units<MODE>(d) + 1) * 16;
     a = 0;
-    b = align128(a + row * kRows);
-    e = align128(b + row * kCols * 2);
-    colscale = align128(e + (size_t)kEStride<MODE> * kRows);
-    mrow = align128(colscale + sizeof(float) * kCols * 2);
-    wrow = align128(mrow + sizeof(float) * kRows);
-    total = align128(wrow + sizeof(float) * kRows);
+    b = align128(row * kRows);
+    colscale = align128(b + row * kCols * stages);
+    mrow = colscale + 2 * kCols * sizeof(float);
+    erow = mrow + 2 * kRows * sizeof(float);
+    rowbits = erow + 2 * kStep * kRows * sizeof(float);
+    colbits = rowbits + 2 * kRows * 2 * sizeof(uint32_t);
+    hits = colbits + 2 * kStep * kCols * 4 * sizeof(uint32_t);
+    bars = align128(hits + (kThreads / 32) * kList * sizeof(uint16_t));
+    total = align128(bars + stages * sizeof(uint64_t));
   }
 };
 
-// float32 E tile: the position of token c (0 .. kCols) in its row; each
-// 8-token group is stored as 0 2 4 6 1 3 5 7
-__device__ inline int e_pos_f32(int c) {
-  return (c & ~7) + ((c & 1) << 2) + ((c & 7) >> 1);
-}
-// ... and the token at position p
-__device__ inline int e_tok_f32(int p) {
-  return (p & ~7) + (((p & 7) < 4) ? 2 * (p & 7) : 2 * (p & 7) - 7);
+// a[u] for a runtime u, by selects (no local memory)
+template <int N> __device__ inline int pick(const int (&a)[N], int u) {
+  int v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = u == k ? a[k] : v;
+  return v;
 }
 
-// K6 float32: dQ (rows wm*32 .. +32, columns dcol0 .. + D/2) += E (128 x
-// kCols) . P tile (kCols x D), 3xTF32. Es is the E tile, Bf the page tile
-// (row stride sb words).
-__device__ inline void dq_tile_f32(float (&dq)[2][kMaxD / 16][4],
-                                   const unsigned char* Es, const float* Bf,
-                                   int sb, int nt, int dcol0, int lane,
-                                   int wm) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < kCols / 8; ++kk) {
-    // A: positions kk*8 + t and kk*8 + 4 + t hold tokens kk*8 + 2t and
-    // kk*8 + 2t + 1, the tokens B's k slots t and t + 4 read below
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      ldsm_x4(a[i], Es + (wm * 32 + i * 16 + lane % 16) * kEStride<kF32> +
-                        (kk * 2 + lane / 16) * 16);
-    const float* prow = Bf + (size_t)(kk * 8 + 2 * t) * sb + dcol0 + g;
-#pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j) {
-      if (j < nt) {
-        const uint32_t b0 = __float_as_uint(prow[j * 8]);
-        const uint32_t b1 = __float_as_uint(prow[sb + j * 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma(dq[i][j], a[i], b0, b1, float());
-      }
+// A cursor over a doc slice's page tiles, in order, without divisions:
+// tile t of doc dd (first token t * kCols), in ring stage s, whose full
+// barrier completes phases of parity ph.
+struct TilePos {
+  int dd, t, s;
+  uint32_t ph;
+  __device__ void next(int n_tiles, int stages) {
+    if (++t == n_tiles) {
+      t = 0;
+      ++dd;
+    }
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
     }
   }
+};
+
+template <int MODE> int bwd_stages(int d) {
+  int s = kBwdStages;
+  while (s > 2 && BwdSmem<MODE>(d, s).total > kSmemCap) --s;
+  return s;
 }
 
-// K6 float32: dP (E positions wm*16 .. +16, columns dcol0 .. + D/2) =
-// E^T (kCols x 128) . Q block (128 x D), 3xTF32; k slots t and t + 4 take
-// query rows 2t and 2t + 1 of each group of 8. Output row h*8 + g is E
-// position wm*16 + h*8 + g (see e_tok_f32).
-__device__ inline void dp_tile_f32(float (&dp)[kMaxD / 16][4],
-                                   const float* Ef, int se, const float* Af,
-                                   int sa, int nt, int dcol0, int lane,
-                                   int wm) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < kMaxD / 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll 4
-  for (int kq = 0; kq < kRows / 8; ++kq) {
-    const float* er = Ef + (size_t)(kq * 8 + 2 * t) * se + wm * 16 + g;
-    const uint32_t a[4] = {__float_as_uint(er[0]), __float_as_uint(er[8]),
-                           __float_as_uint(er[se]),
-                           __float_as_uint(er[se + 8])};
-    const float* qr = Af + (size_t)(kq * 8 + 2 * t) * sa + dcol0 + g;
-#pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j) {
-      if (j < nt)
-        mma(dp[j], a, __float_as_uint(qr[j * 8]),
-            __float_as_uint(qr[sa + j * 8]), float());
-    }
-  }
-}
+// ------------------------------------------------------------ kernel
 
-template <int MODE>
+// NCH: 64-column chunks of D (a dP lane holds two columns of each; a dQ
+// thread half of D).
+template <int MODE, int NCH>
 __global__ void __launch_bounds__(kThreads)
 maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
                   const float* __restrict__ qw,
                   const typename Traits<MODE>::TQ* __restrict__ p,
                   const uint8_t* __restrict__ pmask,
                   const float* __restrict__ m, const float* __restrict__ g,
-                  float* __restrict__ dq_part, float* __restrict__ dp_part,
-                  int nq, int lq, int nd, int lp, int d, int qb, int db) {
-  constexpr bool kFp32 = MODE == kF32;
-  constexpr int ES = kEStride<MODE>;
+                  float* __restrict__ dq_part, float* __restrict__ dp_out,
+                  int nq, int lq, int nd, int lp, int d, int qb, int db,
+                  int stages) {
+  using T = typename Traits<MODE>::TQ;
+  using TAcc = typename Traits<MODE>::TAcc;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem<MODE> lay(d);
+  const BwdSmem<MODE> lay(d, stages);
   const int units = mma_units<MODE>(d);
   const size_t stride = (size_t)(units + 1) * 16;
+  const uint32_t rowbytes = (uint32_t)d * sizeof(T);
   unsigned char* As = smem + lay.a;
   unsigned char* Bs = smem + lay.b;
-  unsigned char* Es = smem + lay.e;
   float* colscale = reinterpret_cast<float*>(smem + lay.colscale);
   float* mrow = reinterpret_cast<float*>(smem + lay.mrow);
-  float* wrow = reinterpret_cast<float*>(smem + lay.wrow);
+  float* erow = reinterpret_cast<float*>(smem + lay.erow);
+  uint32_t* rowbits = reinterpret_cast<uint32_t*>(smem + lay.rowbits);
+  uint32_t* colbits = reinterpret_cast<uint32_t*>(smem + lay.colbits);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -193,210 +290,477 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   const int wm = warp % 4;
   const int wn = warp / 4;
   const int gq = lane / 4, t = lane % 4;
+  const int ncta = (int)cluster_size();
+  const int rank = (int)cluster_rank();
+  const uint16_t cta_mask = (uint16_t)((1u << ncta) - 1);
+  const uint32_t base = smem_addr(smem);
   const int q0 = blockIdx.x * qb;
-  const int nq_here = min(qb, nq - q0);
-  const int nrows = nq_here * lq;
+  const int nrows = max(0, min(qb, nq - q0)) * lq;  // 0: a padding CTA
   const size_t row0 = (size_t)q0 * lq;
-  const int nt = d / 16;         // n-tiles of 8 columns in a warp's D / 2
-  const int dunit0 = wn * d / 16;  // bf16: first 16-byte unit of the half
-  const int dcol0 = wn * d / 2;    // float32: first column of the half
-
-  stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d), kRows,
-             nrows, units, units, tid);
-
   const int d_begin = blockIdx.y * db;
   const int n_tiles = (lp + kCols - 1) / kCols;
   const int total = (min(nd, d_begin + db) - d_begin) * n_tiles;
+  const int per = kCols / ncta;   // the tile's tokens this CTA owns in dP
+  const int per_warp = per / 8;   // ... and each of its warps
 
-  auto issue = [&](int it, int buf) {
-    const int dd = d_begin + it / n_tiles;
-    const int l0 = (it % n_tiles) * kCols;
-    const int ntok = min(kCols, lp - l0);
-    const size_t tok0 = (size_t)dd * lp + l0;
-    stage_async(Bs + buf * stride * kCols,
-                reinterpret_cast<const unsigned char*>(p + tok0 * d), ntok,
-                units, units, tid);
+  // Tile `it`'s metadata: M and W of row tid (tid < kRows; loaded at a
+  // doc's first tile, kept for its others) and the mask of column tid,
+  // loaded raw one tile ahead...
+  float cur_m = 0.f, cur_w = 0.f, nxt_m = 0.f, nxt_qw = 0.f, nxt_g = 0.f;
+  uint8_t nxt_pm = 0;
+  auto load_meta = [&](const TilePos& x) {
+    const int l0 = x.t * kCols;
+    if (tid < nrows && tid < kRows && x.t == 0) {
+      nxt_m = m[(row0 + tid) * nd + x.dd];
+      nxt_qw = qw[row0 + tid];
+      nxt_g = g[(size_t)(q0 + tid / lq) * nd + x.dd];
+    }
     if (tid < kCols)
-      colscale[buf * kCols + tid] =
-          (tid < ntok && pmask[tok0 + tid]) ? 1.f : -1.f;
+      nxt_pm = tid < min(kCols, lp - l0) ? pmask[(size_t)x.dd * lp + l0 + tid]
+                                         : 0;
+  };
+  // ... used only here, after the recompute has hidden the loads' latency
+  auto store_meta = [&](int it, const TilePos& x) {
+    const int pb = it & 1;
+    if (tid < kRows) {
+      if (x.t == 0) {
+        cur_m = nxt_m;
+        cur_w = nxt_qw * nxt_g;
+      }
+      mrow[pb * kRows + tid] =
+          cur_w != 0.f ? cur_m : __int_as_float(0x7fffffff);
+    }
+    if (tid < kCols) colscale[pb * kCols + tid] = nxt_pm ? 1.f : -1.f;
+  };
+  // tile x into its ring stage: this CTA's 1/C of its rows, to every CTA
+  // of the cluster; each CTA's barrier expects the whole tile
+  auto issue = [&](const TilePos& x) {
+    const int l0 = x.t * kCols;
+    const int ntok = min(kCols, lp - l0);
+    if (tid == 0) mbar_arrive_tx(full + x.s, (uint32_t)ntok * rowbytes);
+    // row rank + C i, i = warp + 8 lane: one copy a warp where C = 8
+    const int r = rank + ncta * (warp + 8 * lane);
+    if (r < ntok)
+      bulk_load(Bs + ((size_t)x.s * kCols + r) * stride,
+                p + ((size_t)x.dd * lp + l0 + r) * d, rowbytes, full + x.s,
+                cta_mask);
   };
 
-  float dq[2][kMaxD / 16][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][j][e] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d), kRows,
+             nrows, units, units, tid);
+  // the tile being processed, the next one's metadata, the next to issue
+  TilePos cur = {d_begin, 0, 0, 0};
+  TilePos nxt = cur, iss = cur;
+  if (total > 0) {
+    load_meta(cur);
+    store_meta(0, cur);
+    nxt.next(n_tiles, stages);
+  }
+  // every barrier initialised, every query block staged and tile 0's
+  // metadata written, cluster-wide
+  cluster_arrive();
+  cluster_wait();
+  // the ring starts full; after each step's barrier the consumed stages
+  // are refilled, `issued` tiles so far
+  int issued = 0;
+  for (; issued < stages && issued < total; ++issued) {
+    issue(iss);
+    iss.next(n_tiles, stages);
+  }
 
-  if (total > 0) issue(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) issue(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait1();
-    const int dd = d_begin + it / n_tiles;
-    const int l0 = (it % n_tiles) * kCols;
-    if (it % n_tiles == 0 && tid < kRows) {
-      // this doc's per-row max and weight W = qmask * g * doc_has_token
-      const bool ok = tid < nrows;
-      mrow[tid] = ok ? m[(row0 + tid) * nd + dd] : 0.f;
-      wrow[tid] = ok ? qw[row0 + tid] * g[(size_t)(q0 + tid / lq) * nd + dd]
-                     : 0.f;
-    }
-    __syncthreads();
-    const unsigned char* B = Bs + buf * stride * kCols;
-
-    // recompute the similarity tile exactly as K5 did; E = (sim == M) * W
-    {
-      float acc[2][4][4];
-      tile_mma<MODE>(acc, As, B, units, stride, lane, wm, wn);
-      const float* cs = colscale + buf * kCols + wn * 32 + 2 * t;
+  // dQ of row tid / 2, columns (tid % 2) * D / 2 + [0, D / 2)
+  constexpr int kVals = 16 / sizeof(T);     // operand values a 16-byte unit
+  constexpr int kHalf = NCH * 32;           // the most columns a thread owns
+  float dq[kHalf];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float c0 = cs[j * 8], c1 = cs[j * 8 + 1];
-        const int col = wn * 32 + j * 8 + 2 * t;
+  for (int k = 0; k < kHalf; ++k) dq[k] = 0.f;
+  const int half_d = d / 2;
+  constexpr int kPull = 1;  // a dP pull's hits in flight
+  uint16_t* list = reinterpret_cast<uint16_t*>(smem + lay.hits) + warp * kList;
+
+  // a step's tiles must all be in the ring at once
+  const int step = min(kStep, stages);
+  int sb = 0;  // the step's half of the buffers
+  for (int it0 = 0; it0 < total; it0 += step, sb ^= 1) {
+    const int nt = min(step, total - it0);
+    int step_dd[kStep], step_l0[kStep];  // the step's tiles, for the pull
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      if (u >= nt) break;
+      const int it = it0 + u;
+      const int pb = it & 1;
+      const int buf = sb * kStep + u;
+      const int l0 = cur.t * kCols;
+      const int ntok = min(kCols, lp - l0);
+      const bool more = it + 1 < total;
+      const unsigned char* B = Bs + (size_t)cur.s * stride * kCols;
+      step_dd[u] = cur.dd;
+      step_l0[u] = l0;
+      if (more) load_meta(nxt);
+      mbar_wait(full + cur.s, cur.ph);
+
+      // recompute the similarity tile exactly as K5 did; hits into masks
+      uint32_t rw[2][2] = {{0u, 0u}, {0u, 0u}};  // rows i*16 + h*8 + gq
+      uint32_t cw[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+      if (nrows > 0) {
+        TAcc acc[2][4][4];
+        tile_mma<MODE>(acc, As, B, units, stride, lane, wm, wn);
+        const float* cs = colscale + pb * kCols + wn * 32 + 2 * t;
+        const float* mr = mrow + pb * kRows + wm * 32 + gq;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int r = wm * 32 + i * 16 + h * 8 + gq;
-            const float mr = mrow[r], wr = wrow[r];
-            const float e0 = masked(acc[i][j][2 * h], c0) == mr ? wr : 0.f;
-            const float e1 = masked(acc[i][j][2 * h + 1], c1) == mr ? wr : 0.f;
-            if constexpr (kFp32) {
-              float* er = reinterpret_cast<float*>(Es + r * ES);
-              er[e_pos_f32(col)] = e0;
-              er[e_pos_f32(col + 1)] = e1;
-            } else {
-              *reinterpret_cast<__nv_bfloat162*>(Es + r * ES + col * 2) =
-                  __floats2bfloat162_rn(e0, e1);
-            }
+            const float mv = mr[i * 16 + h * 8];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int b = 0; b < 2; ++b) {
+                const uint32_t hit =
+                    masked((float)acc[i][j][2 * h + b], cs[j * 8 + b]) == mv;
+                rw[i][h] |= hit << (j * 8 + 2 * t + b);
+                cw[j][b] |= hit << (i * 16 + h * 8 + gq);
+              }
           }
       }
-    }
-    __syncthreads();
-
-    // dQ (rows wm*32.., columns of half wn) += E (128 x 64) . P tile (64 x D)
-    if constexpr (kFp32) {
-      dq_tile_f32(dq, Es, reinterpret_cast<const float*>(B), (int)stride / 4,
-                  nt, dcol0, lane, wm);
-    } else {
+      // a row's word: the quad's columns; a token's word: the warp's rows
 #pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldsm_x4(a[i], Es + (wm * 32 + i * 16 + lane % 16) * ES +
-                            (kk * 2 + lane / 16) * 16);
-#pragma unroll
-        for (int jj = 0; jj < kMaxD / 32; ++jj) {
-          if (2 * jj < nt) {
-            uint32_t b[4];
-            ldsm_x4_t(b, B + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                                 stride +
-                             (dunit0 + jj * 2 + lane / 16) * 16);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mma(dq[i][2 * jj], a[i], b[0], b[1], __nv_bfloat16());
-              mma(dq[i][2 * jj + 1], a[i], b[2], b[3], __nv_bfloat16());
-            }
-          }
-        }
-      }
-    }
-
-    // dP tile (tokens wm*16.., columns of half wn) = E^T (64 x 128) . Q (128 x D)
-    {
-      float dp[kMaxD / 16][4];
-      if constexpr (kFp32) {
-        dp_tile_f32(dp, reinterpret_cast<const float*>(Es), ES / 4,
-                    reinterpret_cast<const float*>(As), (int)stride / 4, nt,
-                    dcol0, lane, wm);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kMaxD / 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-        for (int kq = 0; kq < kRows / 16; ++kq) {
-          uint32_t a[4];
-          ldsm_x4_t(a, Es + (kq * 16 + lane % 8 + (lane / 16) * 8) * ES +
-                           (wm * 2 + (lane / 8) % 2) * 16);
-#pragma unroll
-          for (int jj = 0; jj < kMaxD / 32; ++jj) {
-            if (2 * jj < nt) {
-              uint32_t b[4];
-              ldsm_x4_t(b, As + (kq * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                                    stride +
-                               (dunit0 + jj * 2 + lane / 16) * 16);
-              mma(dp[2 * jj], a, b[0], b[1], __nv_bfloat16());
-              mma(dp[2 * jj + 1], a, b[2], b[3], __nv_bfloat16());
-            }
-          }
-        }
-      }
-      const int ntok = min(kCols, lp - l0);
-      float* dst = dp_part + ((size_t)blockIdx.x * nd + dd) * lp * d;
-#pragma unroll
-      for (int j = 0; j < kMaxD / 16; ++j) {
-        const int col = wn * (d / 2) + j * 8 + 2 * t;
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int pos = wm * 16 + h * 8 + gq;
-          const int c = kFp32 ? e_tok_f32(pos) : pos;
-          if (j < nt && c < ntok)
-            *reinterpret_cast<float2*>(dst + (size_t)(l0 + c) * d + col) =
-                make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
+          rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 1);
+          rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 2);
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 4);
+          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 8);
+          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 16);
+        }
+      const int nv = min(max(ntok - wn * 32, 0), 32);
+      const uint32_t vm = nv == 32 ? 0xffffffffu : (1u << nv) - 1;
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            rowbits[(pb * kRows + wm * 32 + i * 16 + h * 8 + gq) * 2 + wn] =
+                rw[i][h] & vm;
+      }
+      if (gq == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            colbits[(buf * kCols + wn * 32 + j * 8 + 2 * t + b) * 4 + wm] =
+                cw[j][b];
+      }
+      // this tile's e (W rounded to the compute dtype); the next tile's M
+      // and column scales
+      if (tid < kRows) {
+        float e = cur_w;
+        if constexpr (MODE != kF32)
+          e = __bfloat162float(__float2bfloat16_rn(e));
+        erow[buf * kRows + tid] = e;
+      }
+      if (more) {
+        store_meta(it + 1, nxt);
+        nxt.next(n_tiles, stages);
+      }
+      cur.next(n_tiles, stages);
+      __syncthreads();  // this tile's masks and e; the next tile's metadata
+
+      // dQ: each thread adds e * P_tile[c, its half of D] for its row's hits
+      const int r = tid >> 1;
+      const uint2 w2 = reinterpret_cast<const uint2*>(rowbits)[pb * kRows + r];
+      uint64_t bits = ((uint64_t)w2.y << 32) | w2.x;
+      if (bits != 0) {
+        const float e = erow[buf * kRows + r];
+        const unsigned char* cols = B + (tid & 1) * half_d * sizeof(T);
+        do {
+          const int c = __ffsll((long long)bits) - 1;
+          bits &= bits - 1;
+          const uint4* src = reinterpret_cast<const uint4*>(cols + c * stride);
+#pragma unroll
+          for (int v = 0; v < kHalf / kVals; ++v) {
+            if (v * kVals < half_d) {
+              const uint4 x = src[v];
+              const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                if constexpr (MODE == kF32) {
+                  dq[v * 4 + k] = fmaf(e, __uint_as_float(w[k]), dq[v * 4 + k]);
+                } else {
+                  const float2 f = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+                  dq[v * 8 + 2 * k] = fmaf(e, f.x, dq[v * 8 + 2 * k]);
+                  dq[v * 8 + 2 * k + 1] = fmaf(e, f.y, dq[v * 8 + 2 * k + 1]);
+                }
+              }
+            }
+          }
+        } while (bits);
+      }
+    }
+
+    // every CTA's masks and e of the step are in; every CTA is done with
+    // the step's tiles (their ring stages) and with the last step's pull
+    // (the other half of the buffers)
+    cluster_arrive();
+    cluster_wait();
+    // lane L < items * C brings CTA L % C's mask of the warp's item L / C:
+    // item i is token rank * per + warp * per_warp + i % per_warp of the
+    // step's tile i / per_warp
+    const int n_items = nt * per_warp;
+    uint4 w4 = make_uint4(0u, 0u, 0u, 0u);
+    {
+      const int i = lane / ncta;
+      const int u = i / per_warp;
+      const int c = rank * per + warp * per_warp + i % per_warp;
+      if (i < n_items && c < min(kCols, lp - pick(step_l0, u)))
+        w4 = ld_peer_v4(peer(base, lane % ncta) + (uint32_t)lay.colbits +
+                        ((sb * kStep + u) * kCols + c) * 16);
+    }
+    for (; issued < total && issued < it0 + nt + stages; ++issued) {
+      issue(iss);
+      iss.next(n_tiles, stages);
+    }
+
+    // dP: each item's hits summed over the cluster's CTAs in rank order,
+    // each CTA's in row order, written once. Items go in pairs: the pair's
+    // hits are listed in that order (a scan of the lanes' counts), then
+    // their rows load kPull at a time.
+    const uint64_t lo = ((uint64_t)w4.y << 32) | w4.x;
+    const uint64_t hi = ((uint64_t)w4.w << 32) | w4.z;
+    for (int i0 = 0; i0 < n_items; i0 += 2) {
+      const bool mine = lane >= i0 * ncta && lane < min(i0 + 2, n_items) * ncta;
+      const int cnt = mine ? __popcll(lo) + __popcll(hi) : 0;
+      int incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int n_hit = __shfl_sync(0xffffffffu, incl, 31);
+      // the row, CTA and item (of the pair) of each hit, or where the list
+      // is too short (many ties), each hit in turn
+      auto hit_at = [&](int h, int& rel, int& jj, int& rr) {
+        const int x = list[h];
+        rel = x >> 10;
+        jj = (x >> 7) & 7;
+        rr = x & 127;
+      };
+      if (n_hit <= kList && mine) {
+        const int code = ((lane / ncta - i0) << 10) | ((lane % ncta) << 7);
+        int at = incl - cnt;
+        for (uint64_t x = lo; x; x &= x - 1)
+          list[at++] = (uint16_t)(code | (__ffsll((long long)x) - 1));
+        for (uint64_t x = hi; x; x &= x - 1)
+          list[at++] = (uint16_t)(code | (64 + __ffsll((long long)x) - 1));
+      }
+      __syncwarp();
+      float acc[2][NCH][2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) acc[a][ch][0] = acc[a][ch][1] = 0.f;
+      // one hit: e and the query row, loaded (peer j, row r, item rel)
+      auto fetch = [&](int rel, int jj, int rr, float& e, float2 (&v)[NCH]) {
+        const int u = (i0 + rel) / per_warp;
+        const uint32_t pj = peer(base, jj);
+        e = ld_peer_f32(pj + (uint32_t)lay.erow +
+                        (((sb * kStep + u) * kRows + rr) << 2));
+        const uint32_t qrow = pj + (uint32_t)(lay.a + rr * stride);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int col = ch * 64 + 2 * lane;
+          v[ch] = col < d ? peer_pair<MODE>(qrow + col * sizeof(T))
+                          : make_float2(0.f, 0.f);
+        }
+      };
+      auto add = [&](int rel, float e, const float2 (&v)[NCH]) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          if (rel == a) {
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch) {
+              acc[a][ch][0] = fmaf(e, v[ch].x, acc[a][ch][0]);
+              acc[a][ch][1] = fmaf(e, v[ch].y, acc[a][ch][1]);
+            }
+          }
+        }
+      };
+      if (n_hit <= kList) {
+        for (int h0 = 0; h0 < n_hit; h0 += kPull) {
+          float e[kPull];
+          float2 v[kPull][NCH];
+          int tg[kPull];
+#pragma unroll
+          for (int x = 0; x < kPull; ++x) {
+            if (h0 + x < n_hit) {
+              int jj, rr;
+              hit_at(h0 + x, tg[x], jj, rr);
+              fetch(tg[x], jj, rr, e[x], v[x]);
+            }
+          }
+#pragma unroll
+          for (int x = 0; x < kPull; ++x)
+            if (h0 + x < n_hit) add(tg[x], e[x], v[x]);
+        }
+      } else {
+        for (int a = 0; a < 2 && i0 + a < n_items; ++a)
+          for (int jj = 0; jj < ncta; ++jj) {
+            const int src = (i0 + a) * ncta + jj;
+            const uint64_t x_lo = __shfl_sync(0xffffffffu, lo, src);
+            const uint64_t x_hi = __shfl_sync(0xffffffffu, hi, src);
+            for (int up = 0; up < 2; ++up)
+              for (uint64_t x = up ? x_hi : x_lo; x; x &= x - 1) {
+                float e;
+                float2 v[NCH];
+                fetch(a, jj, up * 64 + __ffsll((long long)x) - 1, e, v);
+                add(a, e, v);
+              }
+          }
+      }
+      __syncwarp();  // the list is free for the next pair
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int i = i0 + a;
+        const int u = i / per_warp;
+        const int l0 = pick(step_l0, u);
+        const int c = rank * per + warp * per_warp + i % per_warp;
+        if (i < n_items && c < min(kCols, lp - l0)) {
+          const int dd = pick(step_dd, u);
+          float* dst = dp_out +
+                       (((size_t)(blockIdx.x / ncta) * nd + dd) * lp + l0 + c) *
+                           d;
+#pragma unroll
+          for (int ch = 0; ch < NCH; ++ch) {
+            const int col = ch * 64 + 2 * lane;
+            if (col < d)
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[a][ch][0], acc[a][ch][1]);
+          }
         }
       }
     }
-    __syncthreads();  // E and buffer `buf` are free
   }
 
   // this doc slice's dQ partial
-  float* dst = dq_part + ((size_t)blockIdx.y * nq * lq + row0) * d;
+  if ((tid >> 1) < nrows) {
+    float* dst = dq_part + ((size_t)blockIdx.y * nq * lq + row0 + (tid >> 1)) *
+                               d + (tid & 1) * half_d;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j) {
-      const int col = wn * (d / 2) + j * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + h * 8 + gq;
-        if (j < nt && r < nrows)
-          *reinterpret_cast<float2*>(dst + (size_t)r * d + col) =
-              make_float2(dq[i][j][2 * h], dq[i][j][2 * h + 1]);
-      }
-    }
+    for (int k = 0; k < kHalf; k += 4)
+      if (k < half_d)
+        *reinterpret_cast<float4*>(dst + k) =
+            make_float4(dq[k], dq[k + 1], dq[k + 2], dq[k + 3]);
+  }
+  // no CTA leaves while a peer may still read its shared memory
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <int MODE>
+using BwdKern = void (*)(const typename Traits<MODE>::TQ*, const float*,
+                         const typename Traits<MODE>::TQ*, const uint8_t*,
+                         const float*, const float*, float*, float*, int, int,
+                         int, int, int, int, int, int);
+
+// The instantiation for `nch` 64-column chunks of D.
+template <int MODE, int N = 1> BwdKern<MODE> bwd_kernel(int nch) {
+  if constexpr (N * 64 >= kBwdMaxD<MODE>)
+    return maxsim_bwd_kernel<MODE, N>;
+  else
+    return nch <= N ? maxsim_bwd_kernel<MODE, N> : bwd_kernel<MODE, N + 1>(nch);
+}
+
+// Checks D and the cluster size; the kernel for D, its ring stages and
+// shared bytes (and the attribute that allows them).
+template <int MODE>
+int bwd_plan(int d, int cluster, BwdKern<MODE>* kern, int* stages,
+             size_t* smem) {
+  if (d < 16 || d % 16 != 0 || d > kBwdMaxD<MODE>)
+    return (int)cudaErrorInvalidValue;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kBwdCluster)
+    return (int)cudaErrorInvalidValue;
+  *stages = bwd_stages<MODE>(d);
+  *smem = BwdSmem<MODE>(d, *stages).total;
+  if (*smem > kSmemCap) return (int)cudaErrorInvalidValue;
+  *kern = bwd_kernel<MODE>((d + 63) / 64);
+  return (int)cudaFuncSetAttribute(
+      *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int cluster,
+                                  cudaLaunchAttribute* attr, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int MODE>
 int launch_bwd(const void* q, const void* qw, const void* p,
                const void* pmask, const void* m, const void* g,
-               void* dq_part, void* dp_part, int nq, int lq, int nd, int lp,
-               int d, int db, void* stream) {
-  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || d < 32 ||
-      d > kMaxD || d % 32 != 0 || db < 1 || (nd + db - 1) / db > kMaxGridY)
+               void* dq_part, void* dp_out, int nq, int lq, int nd, int lp,
+               int d, int db, int cluster, void* stream) {
+  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || db < 1 ||
+      (nd + db - 1) / db > kMaxGridY)
     return (int)cudaErrorInvalidValue;
-  const BwdSmem<MODE> lay(d);
-  auto* kern = maxsim_bwd_kernel<MODE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
-  if (e != cudaSuccess) return (int)e;
+  BwdKern<MODE> kern;
+  int stages;
+  size_t smem;
+  int e = bwd_plan<MODE>(d, cluster, &kern, &stages, &smem);
+  if (e != 0) return e;
   using T = typename Traits<MODE>::TQ;
   const int qb = kRows / lq;
-  dim3 grid((nq + qb - 1) / qb, (nd + db - 1) / db);
-  kern<<<grid, kThreads, lay.total, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const float*>(qw),
+  const int nqb = (nq + qb - 1) / qb;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(
+      dim3((nqb + cluster - 1) / cluster * cluster, (nd + db - 1) / db), smem,
+      cluster, &attr, stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const float*>(qw),
       static_cast<const T*>(p), static_cast<const uint8_t*>(pmask),
       static_cast<const float*>(m), static_cast<const float*>(g),
-      static_cast<float*>(dq_part), static_cast<float*>(dp_part), nq, lq, nd,
-      lp, d, qb, db);
+      static_cast<float*>(dq_part), static_cast<float*>(dp_out), nq, lq, nd,
+      lp, d, qb, db, stages);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <int MODE> int bwd_config(int d, int cluster, int* out) {
+  BwdKern<MODE> kern;
+  size_t smem;
+  int e = bwd_plan<MODE>(d, cluster, &kern, &out[2], &smem);
+  if (e != 0) return e;
+  out[3] = (int)smem;
+  out[4] = min(kStep, out[2]);
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern,
+                                                         kThreads, smem);
+  if (e != 0) return e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(dim3(cluster), smem, cluster, &attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(&out[1], kern, &cfg);
+}
+
+}  // namespace
 }  // namespace evdr
 
 extern "C" int evdr_maxsim_fwd_train(const void* q, const void* qw,
@@ -417,19 +781,25 @@ extern "C" int evdr_maxsim_fwd_train_f32(const void* q, const void* qw,
 
 extern "C" int evdr_maxsim_bwd(const void* q, const void* qw, const void* p,
                                const void* pmask, const void* m,
-                               const void* g, void* dq_part, void* dp_part,
+                               const void* g, void* dq_part, void* dp,
                                int nq, int lq, int nd, int lp, int d, int db,
-                               void* stream) {
-  return evdr::launch_bwd<evdr::kBf16>(q, qw, p, pmask, m, g, dq_part,
-                                       dp_part, nq, lq, nd, lp, d, db, stream);
+                               int cluster, void* stream) {
+  return evdr::launch_bwd<evdr::kBf16>(q, qw, p, pmask, m, g, dq_part, dp, nq,
+                                       lq, nd, lp, d, db, cluster, stream);
 }
 
 extern "C" int evdr_maxsim_bwd_f32(const void* q, const void* qw,
                                    const void* p, const void* pmask,
                                    const void* m, const void* g,
-                                   void* dq_part, void* dp_part, int nq,
-                                   int lq, int nd, int lp, int d, int db,
+                                   void* dq_part, void* dp, int nq, int lq,
+                                   int nd, int lp, int d, int db, int cluster,
                                    void* stream) {
-  return evdr::launch_bwd<evdr::kF32>(q, qw, p, pmask, m, g, dq_part,
-                                      dp_part, nq, lq, nd, lp, d, db, stream);
+  return evdr::launch_bwd<evdr::kF32>(q, qw, p, pmask, m, g, dq_part, dp, nq,
+                                      lq, nd, lp, d, db, cluster, stream);
+}
+
+extern "C" int evdr_bwd_config(int f32, int d, int cluster, void* out) {
+  int* o = static_cast<int*>(out);
+  return f32 ? evdr::bwd_config<evdr::kF32>(d, cluster, o)
+             : evdr::bwd_config<evdr::kBf16>(d, cluster, o);
 }

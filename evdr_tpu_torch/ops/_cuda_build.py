@@ -62,8 +62,9 @@ LIBRARIES = {
     "maxsim_train": {
         "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_fwd_train_f32": [_P] * 6 + [_I] * 5 + [_P],
-        "evdr_maxsim_bwd": [_P] * 8 + [_I] * 6 + [_P],
-        "evdr_maxsim_bwd_f32": [_P] * 8 + [_I] * 6 + [_P],
+        "evdr_maxsim_bwd": [_P] * 8 + [_I] * 7 + [_P],
+        "evdr_maxsim_bwd_f32": [_P] * 8 + [_I] * 7 + [_P],
+        "evdr_bwd_config": [_I] * 3 + [_P],
     },
 }
 

@@ -79,10 +79,10 @@ ROW_CAP = {"maxsim_bf16": 2 * KERNEL_ROWS, "maxsim_f32": KERNEL_ROWS,
            "maxsim_int8": 2 * KERNEL_ROWS, "maxsim_int4": 2 * KERNEL_ROWS,
            "maxsim_int8_defer": 2 * KERNEL_ROWS, "maxsim_pq": KERNEL_ROWS,
            "maxsim_train": KERNEL_ROWS}
-# The kernels take D a multiple of D_GRANULE (K6: 2 * D_GRANULE); a narrower
-# D is zero-padded up to it, which adds nothing to any product. Above
-# MAX_D the operand tiles leave shared memory, and a max over tokens does
-# not split over D, so wider tokens are refused.
+# The kernels take D a multiple of D_GRANULE; a narrower D is zero-padded
+# up to it, which adds nothing to any product. Above MAX_D the operand
+# tiles leave shared memory, and a max over tokens does not split over D,
+# so wider tokens are refused.
 D_GRANULE = 16
 MAX_D = 256
 # K3's largest cluster: 8 (the portable size) where the decode sums

@@ -11,14 +11,16 @@ Counterpart of ``maxsim_pallas``'s ``custom_vjp``
 - ``maxsim_cuda_bwd`` (K6, ``csrc/maxsim_train.cu``): recomputes every
   similarity bit for bit as K5 did, E = (sim == M) * W with W = g * qmask *
   doc_has_token rounded to the compute dtype, dQ = sum E * P and dP = sum
-  E * Q. The gradient is SUMMED over tied argmax tokens, as on the TPU
+  E * Q, over E's nonzeros only (the hits), a chunk's query blocks in one
+  thread-block cluster that sums each tile's dP once. The gradient is
+  SUMMED over tied argmax tokens, as on the TPU
   (``pallas_maxsim_bwd.py:18-20``); ``torch.amax``'s autograd splits it
   evenly, so the plain version is written in the indicator form, not as
   autograd of ``maxsim_torch``.
 - ``compute_dtype=torch.float32`` (the TPU kernels at Precision.HIGHEST)
   hands both to their float32 modes, ``maxsim_cuda_fwd_train_f32`` (K1's
-  float32 tile with the M store) and ``maxsim_cuda_bwd_f32`` (3xTF32
-  gradient products, E kept in f32), each with its own launch count.
+  float32 tile with the M store) and ``maxsim_cuda_bwd_f32`` (E kept in
+  f32, exact f32 products of the hits), each with its own launch count.
 - ``MaxSimFn``: forward K5 when Q or P needs a gradient, else K1 (with
   ``compute_dtype`` float32 K1's float32 mode); backward K6; the gradients
   come back in Q's and P's dtypes (``pallas_maxsim.py:635``).
@@ -29,25 +31,24 @@ CPU tensors take the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, F32_MAX_D, ROW_CAP,
+from evdr_tpu_torch.ops import _cuda_build
+from evdr_tpu_torch.ops.cuda_maxsim import (F32_MAX_D, MAX_D, ROW_CAP,
                                             _check_shapes, _count, _on_cuda,
                                             _plain_core, call_kernel,
                                             kernel_dim, mask_sentinel,
                                             maxsim_cuda, pad_dim, plain_sims,
                                             split_queries)
 
-# Above this many query blocks the backward chunks the query axis, so the
-# per-query-block dP partials stay under 8 x |dP| (as the TPU's
-# _MAX_QB_BLOCKS, pallas_maxsim_bwd.py:213)
+# Above this many query blocks the backward chunks the query axis (as the
+# TPU's _MAX_QB_BLOCKS, pallas_maxsim_bwd.py:213); a chunk's query blocks
+# form one thread-block cluster of K6 (8: the portable cluster size), which
+# writes each dP once
 MAX_QB_BLOCKS = 8
-# K6 holds a warp's 32 x D/2 dQ block in registers: D a multiple of 32 up
-# to 128 (a narrower D is zero-padded; its dQ drops the pad columns)
-K6_MAX_D = 128
-K6_D_GRANULE = 2 * D_GRANULE
 _ROWS = ROW_CAP["maxsim_train"]  # query-token rows per CTA
-_TARGET_CTAS = 264  # two waves of the H100's 132 SMs
 
 
 # ----------------------------------------------------------------- plain
@@ -154,23 +155,56 @@ def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):
 
 
 def maxsim_cuda_bwd_f32(Q, P, qmask, pmask, M, g):
-    """K6 in float32 mode: E in f32, dQ and dP in 3xTF32 against the M of
-    :func:`maxsim_cuda_fwd_train_f32`."""
+    """K6 in float32 mode: E in f32, the hits' products in f32, against the
+    M of :func:`maxsim_cuda_fwd_train_f32`."""
     if not _on_cuda(Q, P, qmask, pmask, M, g):
         return maxsim_bwd_plain(Q, P, qmask, pmask, M, g, torch.float32)
     return _bwd(maxsim_cuda_bwd_f32, "evdr_maxsim_bwd_f32", torch.float32, Q,
                 P, qmask, pmask, M, g)
 
 
+def bwd_cluster(n_qb: int) -> int:
+    """K6's cluster size for a chunk of ``n_qb`` (<= MAX_QB_BLOCKS) query
+    blocks: the smallest power of two that holds them (the launcher pads
+    grid x with CTAs that have no rows)."""
+    c = 1
+    while c < n_qb:
+        c *= 2
+    return c
+
+
+_bwd_configs: dict = {}
+
+
+def bwd_config(dtype, d: int, cluster: int) -> dict:
+    """The configuration K6 runs at kernel width ``d`` in clusters of
+    ``cluster`` CTAs, on the current GPU: CTAs per SM, clusters the card
+    holds at once, ring stages, shared bytes, page tiles a cluster
+    barrier."""
+    key = (dtype, d, cluster, torch.cuda.current_device())
+    if key not in _bwd_configs:
+        out = (ctypes.c_int * 5)()
+        rc = _cuda_build.kernel("maxsim_train", "evdr_bwd_config")(
+            int(dtype == torch.float32), d, cluster, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"evdr_bwd_config failed: cudaError {rc}")
+        _bwd_configs[key] = dict(zip(("ctas_per_sm", "clusters", "stages",
+                                      "smem_bytes", "tiles_a_barrier"), out))
+    return _bwd_configs[key]
+
+
 def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
-    """K6's host side for either mode: checks; D zero-padded to a multiple
-    of 32 (the pad columns of dQ and dP dropped at the end); queries longer
-    than _ROWS tokens in slices, each with its rows of M, their dQ slices
+    """K6's host side for either mode: checks; D zero-padded to the granule
+    (the pad columns of dQ and dP dropped at the end); queries longer than
+    _ROWS tokens in slices, each with its rows of M, their dQ slices
     concatenated and their dP summed; then :func:`_bwd_launch`."""
+    if dtype == torch.float32:
+        dk = kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K6's float32 mode")
+    else:
+        dk = kernel_dim(Q.shape[-1], max_d=MAX_D, who="K6")
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd = P.shape[0]
-    dk = kernel_dim(d, K6_D_GRANULE, K6_MAX_D, "K6")
     if tuple(M.shape) != (nq * lq, nd) or tuple(g.shape) != (nq, nd):
         raise ValueError("M or g does not match Q / P")
     Qk, Pk = pad_dim(Q, dk), pad_dim(P, dk).contiguous()
@@ -189,8 +223,10 @@ def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
 
 def _bwd_launch(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
     """One K6 pass at Lq <= _ROWS and D at the kernel's width: the
-    query-axis chunking, the partial buffers, the launch (counted on
-    ``wrapper``), the partials' sums."""
+    query-axis chunking (MAX_QB_BLOCKS blocks a launch, their dP added
+    here), the cluster size, the doc slices (one wave of clusters on the
+    card, from :func:`bwd_config`), the launch (counted on ``wrapper``),
+    the dQ partials' sum."""
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
     qb = _ROWS // lq
@@ -210,21 +246,24 @@ def _bwd_launch(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
     p = P.to(dtype).contiguous()
     has = pmask.any(dim=-1).float()
     g2 = (g.float() * has[None, :]).contiguous()
-    n_slices = max(1, min(nd, -(-_TARGET_CTAS // n_qb)))
-    db = -(-nd // n_slices)
+    cluster = bwd_cluster(n_qb)
+    n_groups = -(-n_qb // cluster)
+    # doc slices: one wave of the clusters the card holds at once
+    per_group = bwd_config(dtype, d, cluster)["clusters"] // n_groups
+    db = -(-nd // max(1, min(nd, per_group)))
     n_slices = -(-nd // db)
     dq_part = torch.empty((n_slices, nq * lq, d), dtype=torch.float32,
                           device=Q.device)
-    dp_part = torch.empty((n_qb, nd, lp, d), dtype=torch.float32,
-                          device=Q.device)
+    dp = torch.empty((n_groups, nd, lp, d), dtype=torch.float32,
+                     device=Q.device)
     call_kernel("maxsim_train", func,
                 (q, qmask.float().contiguous(), p, pmask,
-                 M.float().contiguous(), g2, dq_part, dp_part),
-                nq, lq, nd, lp, d, db, aligned=(q, p))
+                 M.float().contiguous(), g2, dq_part, dp),
+                nq, lq, nd, lp, d, db, cluster, aligned=(q, p))
     _count(wrapper, func, nq, lq, nd, lp)
     # the partials' sums, in a fixed order (no atomics)
     dQ = dq_part.sum(dim=0) if n_slices > 1 else dq_part[0]
-    dP = dp_part.sum(dim=0) if n_qb > 1 else dp_part[0]
+    dP = dp.sum(dim=0) if n_groups > 1 else dp[0]
     return dQ.view(nq, lq, d), dP
 
 

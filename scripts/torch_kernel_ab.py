@@ -21,15 +21,22 @@ Inputs are made on the device from seed 0, with ~10% invalid tokens:
   compact (16, 256, 8) books, pq with expanded (16, 256, 128) books;
 - K1 float32 at the trainer's two shapes: the eval (1,000 x 32 queries
   against 1,000 x 137 pages) and the teacher precompute (256 x 32 against
-  1,000 x 768), checked bit-equal to K5 float32's scores.
+  1,000 x 768), checked bit-equal to K5 float32's scores;
+- K5 and K6 in both modes at the train step's shape (32 x 32 queries
+  against 1,000 x 154 pages) and at 256 x 32 queries (eight chunks of K6),
+  K6 on K5's M and a random upstream gradient; their output hashes cover
+  scores and M, dQ and dP.
 ``--only`` keeps the kernels whose names start with one of the given
 prefixes (e.g. ``maxsim_pq,maxsim_f32``). The card's name and power limit
 come first. After the roots, one ``compare`` line against the first root:
-for each library whether its SASS hashes are the first root's, and, for
-each root whose K1 bf16 output hash differs from the first root's, the
-largest score difference and the top-1 and top-10 agreement (the share of
-queries whose best doc is the same; the mean share of the first root's
-ten best docs among the root's ten best).
+for each library whether its SASS hashes are the first root's (and for
+``maxsim_train`` whether K5's kernels' are), and, for each root whose K1
+bf16 output hash differs from the first root's, the largest score
+difference and the top-1 and top-10 agreement (the share of queries whose
+best doc is the same; the mean share of the first root's ten best docs
+among the root's ten best); for each K6 timing whose output hash differs,
+the largest difference of dQ and of dP relative to the first root's
+largest magnitude.
 """
 
 from __future__ import annotations
@@ -49,26 +56,32 @@ import numpy as np
 NQ, LQ, D = 256, 32, 128
 PQ_M = 16
 F32_SHAPES = {"eval": (1_000, 137, 1_000), "teacher": (256, 768, 1_000)}
+# K5/K6: (queries, page tokens, pages) at the train step and at 256 queries
+TRAIN_SHAPES = {"step": (32, 154, 1_000), "256q": (256, 154, 1_000)}
 LIBS = ("maxsim_bf16", "maxsim_int8", "maxsim_int8_defer", "maxsim_int4",
         "maxsim_train", "maxsim_f32", "maxsim_pq")
 
 
-def sass_hashes(lib_path) -> list:
-    """Sorted 12-hex-digit hashes of the SASS of each kernel in a library
-    (instructions only, without addresses and encodings)."""
+def sass_hashes(lib_path) -> dict:
+    """Each kernel's (mangled) name in a library -> a 12-hex-digit hash of
+    its SASS (instructions only, without addresses and encodings)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
-    kernels = []
+    kernels = {}
     for ln in out.splitlines():
         if "Function :" in ln:
-            kernels.append(hashlib.sha1())
+            # an anonymous namespace's mangled name carries a hash of the
+            # source's path, which differs between checkouts
+            name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "(anon)",
+                          ln.split("Function :")[1].strip())
+            kernels[name] = h = hashlib.sha1()
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", ln)
         if m and kernels:
-            kernels[-1].update(m.group(1).strip().encode())
-    return sorted(h.hexdigest()[:12] for h in kernels)
+            h.update(m.group(1).strip().encode())
+    return {k: v.hexdigest()[:12] for k, v in sorted(kernels.items())}
 
 
 def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
@@ -122,6 +135,13 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
     compact = torch.randn((PQ_M, 256, D // PQ_M), device="cuda",
                           generator=gen) * 0.3
     expanded = torch.randn((PQ_M, 256, D), device="cuda", generator=gen) * 0.1
+    train = {}
+    for name, (nq, plp, nd) in TRAIN_SHAPES.items():
+        Qt = unit(torch.randn((nq, LQ, D), device="cuda", generator=gen))
+        qmt = torch.rand((nq, LQ), device="cuda", generator=gen) > 0.15
+        Pt = unit(torch.randn((nd, plp, D), device="cuda", generator=gen))
+        g = torch.randn((nq, nd), device="cuda", generator=gen)
+        train[name] = (Qt, Pt, qmt, rand_mask(nd, plp), g)
     f32 = {}
     for name, (nq, plp, nd) in F32_SHAPES.items():
         Qf = unit(torch.randn((nq, LQ, D), device="cuda", generator=gen))
@@ -162,6 +182,15 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
                                                         expanded)}
     for name, args in f32.items():
         calls[f"maxsim_f32_{name}"] = lambda a=args: cm.maxsim_cuda_f32(*a)
+    k6_out = {}
+    for name, (Qt, Pt, qmt, pmt, g) in train.items():
+        for sfx, cd in (("", torch.bfloat16), ("_f32", torch.float32)):
+            M = ct.maxsim_cuda_fwd_train(Qt, Pt, qmt, pmt, cd)[1]
+            calls[f"maxsim_fwd_train{sfx}_{name}"] = (
+                lambda a=(Qt, Pt, qmt, pmt, cd): ct.maxsim_cuda_fwd_train(*a))
+            calls[f"maxsim_bwd{sfx}_{name}"] = (
+                lambda a=(Qt, Pt, qmt, pmt, M, g, cd): ct.maxsim_cuda_bwd(*a))
+            k6_out[f"maxsim_bwd{sfx}_{name}"] = Qt.numel()
     checks = {}
     if hasattr(cm, "maxsim_cuda_int8_deferred"):
         for k2, k2b in ((cm.maxsim_cuda_int8, cm.maxsim_cuda_int8_deferred),
@@ -175,13 +204,21 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
             cm.maxsim_cuda_f32(*args), ct.maxsim_cuda_fwd_train_f32(*args)[0]))
     if only:
         calls = {k: v for k, v in calls.items() if k.startswith(tuple(only))}
-    times, outs = {}, {}
+    times, outs, kept = {}, {}, {}
     for name, fn in calls.items():
         out = fn()
+        if isinstance(out, tuple):  # K5: scores, M; K6: dQ, dP
+            out = torch.cat([x.flatten() for x in out])
         outs[name] = digest(out)
-        if save and name == "maxsim_bf16":
-            np.save(save, out.cpu().numpy())
+        if name == "maxsim_bf16":
+            kept[name] = out.cpu().numpy()
+        elif name in k6_out:
+            n = k6_out[name]
+            kept[name + ".dq"] = out[:n].cpu().numpy()
+            kept[name + ".dp"] = out[n:].cpu().numpy()
         times[name] = ms(fn)
+    if save:
+        np.savez(save, **kept)
     return {"root": root, "docs": docs, "lp": lp, "registers": regs,
             "sass": sass, "ms": times, "out_sha1": outs, "checks": checks}
 
@@ -207,7 +244,7 @@ def main(argv=None) -> int:
     results = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(args.roots):
-            save = os.path.join(tmp, f"{i}.npy")
+            save = os.path.join(tmp, f"{i}.npz")
             r = subprocess.run([sys.executable, os.path.abspath(__file__),
                                 "--one", root, "--docs", str(args.docs),
                                 "--lp", str(args.lp), "--only", args.only,
@@ -236,19 +273,33 @@ def agreement(a, b) -> dict:
 
 
 def compare(results, tmp) -> dict:
-    """Each root against the first: SASS hashes per library and, where
-    K1 bf16's output differs, its agreement."""
+    """Each root against the first: SASS hashes per library (and of K5's
+    kernels in maxsim_train) and, where K1 bf16's output differs, its
+    agreement; where a K6 output differs, its largest relative
+    difference."""
     first = results[0]
     out = {"compare_to": first["root"], "roots": []}
+    ref = np.load(os.path.join(tmp, "0.npz"))
+
+    def k5(r):
+        return {k: v for k, v in r["sass"].get("maxsim_train", {}).items()
+                if "maxsim_kernel" in k}
+
     for i, r in enumerate(results):
         row = {"root": r["root"], "sass_equal": {
-            n: r["sass"].get(n) == first["sass"].get(n) for n in r["sass"]}}
-        h0, h = (first["out_sha1"].get("maxsim_bf16"),
-                 r["out_sha1"].get("maxsim_bf16"))
-        if h is not None and h0 is not None and h != h0:
-            row["maxsim_bf16"] = agreement(np.load(os.path.join(tmp, "0.npy")),
-                                           np.load(os.path.join(tmp,
-                                                                f"{i}.npy")))
+            n: r["sass"].get(n) == first["sass"].get(n) for n in r["sass"]},
+            "k5_sass_equal": k5(r) == k5(first)}
+        got = np.load(os.path.join(tmp, f"{i}.npz"))
+        for name, h in r["out_sha1"].items():
+            if h == first["out_sha1"].get(name):
+                continue
+            if name == "maxsim_bf16":
+                row[name] = agreement(ref[name], got[name])
+            elif name + ".dq" in got.files and name + ".dq" in ref.files:
+                row[name] = {part: float(
+                    np.abs(got[f"{name}.{part}"] - ref[f"{name}.{part}"]).max()
+                    / np.abs(ref[f"{name}.{part}"]).max())
+                    for part in ("dq", "dp")}
         out["roots"].append(row)
     return out
 

@@ -320,9 +320,10 @@ def test_f32_train_kernels_match_plain_versions_on_the_card(nq, lq, nd, lp,
                                                             d):
     """K5 and K6 in float32 mode against their plain float32 versions at
     ragged shapes (odd Lp, Lp = 1, D 32-128, several query blocks), with a
-    doc that has no valid token, on tie-free data. 3xTF32 products against
-    full-f32 ones: K5's scores and M within 1e-4, K6's dQ and dP within 1e-4
-    relative (Frobenius); K5's scores equal K1 float32's bit for bit."""
+    doc that has no valid token, on tie-free data. K5's 3xTF32 products
+    (which K6 recomputes) against full-f32 ones: K5's scores and M within
+    1e-4, K6's dQ and dP within 1e-4 relative (Frobenius); K5's scores
+    equal K1 float32's bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.set_float32_matmul_precision("highest")
@@ -670,3 +671,81 @@ def test_every_wrapper_serves_any_lq_and_d_on_the_card(lq, d):
         for a, b in ((Qg.grad, dq_p), (Pg.grad, dp_p)):
             assert a.shape == b.shape
             assert float((a - b).norm() / b.norm()) <= rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nq,lq,nd,lp,d,zeros", [
+    (4, 32, 40, 154, 128, 1),   # 1 query block: a cluster of one
+    (12, 32, 37, 70, 32, 1),    # 3 blocks: a cluster of 4, one padding CTA
+    (32, 32, 300, 154, 96, 1),  # 8 blocks: one full cluster
+    (36, 32, 23, 65, 192, 1),   # 9 blocks: two chunks, 8 + a cluster of one
+    (20, 7, 17, 63, 256, 1),    # Lq 7 (126 rows a block), 2 blocks; bf16
+    (16, 32, 20, 70, 64, 32),   # a zero query: more hits than a pull lists
+])
+def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
+        nq, lq, nd, lp, d, zeros, cd):
+    """K6 in both modes against its plain version: D 32 to 256 (256 in
+    bf16 only: float32 stops at 192, as K5), 1, 2, 3, 4, 8 and 9 query
+    blocks, Lp off a multiple of 64, a doc with no valid token, qmask-0
+    rows, and exact ties planted after the data is made tie-free (a page
+    token duplicated inside its doc; the first ``zeros`` tokens of the last
+    query zero with qmask 1, each tying with every valid token: 32 of them
+    give a tile's tokens more hits than the dP pull's list holds, which it
+    then takes one at a time). Summation order alone differs: dQ and dP
+    within 1e-3 (bf16) and 1e-4 (float32) relative, Frobenius; both tied
+    tokens get the same gradient. Two calls give the same bits, and K6
+    launches once per chunk of MAX_QB_BLOCKS query blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cd = getattr(torch, cd)
+    if cd == torch.float32 and d > cuda_maxsim.F32_MAX_D:
+        pytest.skip("float32 mode stops at F32_MAX_D, as K5's")
+    ct = cuda_maxsim_train
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(nq + lq + d)
+    dev = "cuda"
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q, P = unit(nq, lq, d), unit(nd, lp, d)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    qm[:, 0] = True
+    pm[:, 0] = True
+    pm[nd // 2] = False
+    Q[0, 0] = P[1, 0]  # query 0's first token points at doc 1's token 0
+    _untie(Q, qm, P, pm, dtype=cd)
+    # ties: doc 1 holds its token 0 twice; the last query's first token is
+    # zero (all its valid tokens tie)
+    P[1, lp - 1] = P[1, 0]
+    pm[1, 0] = pm[1, lp - 1] = True
+    Q[-1, :zeros] = 0.0
+    qm[-1, :zeros] = True
+    g = torch.from_numpy(rng.normal(size=(nq, nd)).astype(np.float32)).to(dev)
+    name = "maxsim_cuda_bwd_f32" if cd == torch.float32 else "maxsim_cuda_bwd"
+    _, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, cd)
+    _, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, cd)
+    n0 = cuda_maxsim.launch_counts()[name]
+    dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    dq2, dp2 = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    torch.cuda.synchronize()
+    n_qb = -(-nq // (128 // lq))
+    assert (cuda_maxsim.launch_counts()[name]
+            == n0 + 2 * -(-n_qb // ct.MAX_QB_BLOCKS))
+    assert torch.equal(dq, dq2) and torch.equal(dp, dp2)
+    dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, cd)
+    rel = 1e-4 if cd == torch.float32 else 1e-3
+    for a, b in ((dq, dq_p), (dp, dp_p)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm() / b.norm()) <= rel
+    assert torch.equal(dp[1, 0], dp[1, lp - 1])
+    assert float(dp[nd // 2].abs().max()) == 0.0
+    # the zero row's gradient: every valid token of every doc that has one
+    has = pm.any(dim=1)
+    w = g[-1] * has
+    e = w if cd == torch.float32 else w.to(torch.bfloat16).float()
+    want = (e[:, None, None] * pm[..., None] * P.to(cd).float()).sum((0, 1))
+    torch.testing.assert_close(dq[-1, 0], want, rtol=1e-4, atol=1e-4)

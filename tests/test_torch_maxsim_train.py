@@ -19,6 +19,8 @@ import torch
 from evdr_tpu.ops.maxsim import maxsim_xla
 from evdr_tpu.ops.maxsim import score_multi_vector as jax_score_multi
 from evdr_tpu.ops.pallas_maxsim import maxsim_pallas
+from evdr_tpu.ops.pallas_maxsim_bwd import (maxsim_pallas_bwd,
+                                            maxsim_pallas_fwd_train)
 from evdr_tpu_torch.ops import cuda_maxsim, cuda_maxsim_train
 from evdr_tpu_torch.ops.cuda_maxsim_train import (MaxSimFn, maxsim_bwd_plain,
                                                   maxsim_cuda_bwd,
@@ -125,10 +127,13 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     assert {w.__name__ for w in cuda_maxsim_train.KERNEL_WRAPPERS} <= set(
         before)
     # compute_dtype float32 takes the float32 kernels (no longer refused):
-    # with the device check and the launch stubbed, the wrappers hand f32
-    # operands to the _f32 entries and count on the _f32 wrappers
+    # with the device check, K6's occupancy query and the launch stubbed,
+    # the wrappers hand f32 operands to the _f32 entries and count on the
+    # _f32 wrappers
     calls = []
     monkeypatch.setattr(cuda_maxsim_train, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_maxsim_train, "bwd_config",
+                        lambda *a: {"clusters": 16})
     monkeypatch.setattr(cuda_maxsim_train, "call_kernel",
                         lambda lib, func, ops, *a, aligned=(): calls.append(
                             (func, ops[0].dtype, ops[2].dtype)))
@@ -189,6 +194,86 @@ def test_planted_tie_sums_the_gradient_like_the_tpu_kernel(tdtype, jdtype):
     assert np.abs(split - dp[0, 2].numpy()).max() > 1e-3
     np.testing.assert_allclose(Pr.grad[0, 2].numpy(), Pr.grad[0, 5].numpy(),
                                atol=0)
+
+
+def _hit_grads(Q, P, qm, pm, g, tdtype):
+    """The arithmetic K6 implements, in numpy: per row and doc the tied
+    positions (hits) of the max over valid tokens, of similarities of the
+    operands rounded to the compute dtype; e = W = g * qmask *
+    doc_has_token (rounded to bf16 in bf16 mode); dQ[r] = sum of e *
+    P[d, m] and dP[d, m] = sum of e * Q[r] over the hits, products and sums
+    in f32."""
+    def rnd(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(
+            tdtype).float().numpy()
+
+    Qr, Pr = rnd(Q), rnd(P)
+    nq, lq, d = Q.shape
+    nd = P.shape[0]
+    rows = Qr.reshape(nq * lq, d)
+    # products of the rounded values are exact in f64; a tie is a tie
+    sim = np.einsum("rd,cmd->rcm", rows.astype(np.float64),
+                    Pr.astype(np.float64))
+    sim = np.where(pm[None], sim, -np.inf)
+    has = pm.any(axis=1)
+    w = (g[:, None, :] * qm[:, :, None] * has[None, None, :]).reshape(
+        nq * lq, nd).astype(np.float32)
+    e = rnd(w)
+    hits = (sim == sim.max(axis=-1, keepdims=True)) & pm[None] & (
+        e != 0)[..., None]
+    dq = np.zeros((nq * lq, d), np.float32)
+    dp = np.zeros(P.shape, np.float32)
+    for r, c, m in zip(*np.nonzero(hits)):
+        dq[r] += e[r, c] * Pr[c, m]
+        dp[c, m] += e[r, c] * rows[r]
+    return dq.reshape(Q.shape), dp
+
+
+HIT_CASES = {
+    # a page token duplicated in its doc, query 0's first token on it
+    "planted_tie": dict(seed=6, nq=3, lq=5, nd=4, lp=9),
+    # a zero query row with qmask 1 ties with every valid token
+    "zero_row": dict(seed=7, nq=3, lq=5, nd=4, lp=9),
+    "empty_doc": dict(seed=8, nq=3, lq=5, nd=4, lp=9),
+    # Lq 7: 18 queries a 128-row block, 150 queries span 9 blocks
+    "lq7_nine_blocks": dict(seed=9, nq=150, lq=7, nd=3, lp=11),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HIT_CASES))
+@pytest.mark.parametrize("tdtype,jdtype", DTYPES)
+def test_hit_arithmetic_matches_the_tpu_backward(name, tdtype, jdtype):
+    """The numpy hit arithmetic K6 implements (``_hit_grads``) against the
+    JAX package's fused backward in interpret mode (``maxsim_pallas_bwd``
+    on ``maxsim_pallas_fwd_train``'s M), and the port's plain K6 against
+    the same numbers: summation order alone differs -> 1e-5."""
+    Q, P, qm, pm, g = _case(**HIT_CASES[name], empty_doc=name == "empty_doc")
+    if name == "planted_tie":
+        pm[0, 2] = pm[0, 5] = True
+        P[0, 5] = P[0, 2]
+        Q[0, 0] = _unit(P[0, 2].astype(np.float64) * 3.0).astype(np.float32)
+        qm[0, 0] = True
+    if name == "zero_row":
+        Q[1, 2] = 0.0
+        qm[1, 2] = True
+    want_dq, want_dp = _hit_grads(Q, P, qm, pm, g, tdtype)
+    args = [jnp.asarray(a) for a in (Q, P, qm, pm)]
+    _, M = maxsim_pallas_fwd_train(*args, jdtype, True)
+    jdq, jdp = maxsim_pallas_bwd(*args, M, jnp.asarray(g), jdtype, True)
+    np.testing.assert_allclose(np.asarray(jdq), want_dq, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(jdp), want_dp, rtol=1e-5, atol=1e-5)
+    Qt, Pt, qmt, pmt, gt = _t(Q, P, qm, pm, g)
+    _, Mt = maxsim_fwd_train_plain(Qt, Pt, qmt, pmt, tdtype)
+    dq, dp = maxsim_bwd_plain(Qt, Pt, qmt, pmt, Mt, gt, tdtype)
+    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dp.numpy(), want_dp, rtol=1e-5, atol=1e-5)
+    if name == "planted_tie":  # both tied tokens got the full gradient
+        np.testing.assert_allclose(want_dp[0, 2], want_dp[0, 5], atol=0)
+        assert np.abs(want_dp[0, 2]).max() > 0
+    if name == "zero_row":  # every valid token of every doc that has one
+        assert np.abs(want_dq[1, 2]).max() > 0
+    if name == "empty_doc":
+        assert np.abs(want_dp[1]).max() == 0
 
 
 def test_dispatcher_routes_like_the_jax_package():

@@ -2,7 +2,7 @@
 torch port, on the CPU.
 
 The kernels take at most a CTA's query-token rows per launch
-(``cuda_maxsim.ROW_CAP``) and D a multiple of 16 (K6: 32) up to a bound.
+(``cuda_maxsim.ROW_CAP``) and D a multiple of 16 up to a bound.
 The wrappers score longer queries in slices whose partial scores add up
 (``split_queries``) and zero-pad D; the engine pads its stored index once,
 at build, and the queries per call. Here:
@@ -148,14 +148,21 @@ def _kernel_stand_in(seen):
                 out.copy_(o)
                 M.copy_(m)
                 return
-            assert d % ct.K6_D_GRANULE == 0 and d <= ct.K6_MAX_D
-            q, qw, p, pmask, M, g2, dq_part, dp_part = ops
+            # K6: the bound of K5's mode, a cluster of 1-8 CTAs, one dQ
+            # partial a doc slice and one dP a cluster of query blocks
+            db, cluster = args[5:7]
+            assert d <= (cm.F32_MAX_D if f32 else cm.MAX_D)
+            assert cluster in (1, 2, 4, 8)
+            q, qw, p, pmask, M, g2, dq_part, dp_out = ops
+            n_qb = -(-nq // (cm.ROW_CAP[lib] // lq))
+            assert dp_out.shape == (-(-n_qb // cluster), nd, lp, d)
+            assert dq_part.shape == (-(-nd // db), nq * lq, d)
             dq, dp = ct.maxsim_bwd_plain(q.float(), p.float(), qw > 0, pmask,
                                          M, g2, comp)
             dq_part.zero_()
-            dp_part.zero_()
+            dp_out.zero_()
             dq_part[0] = dq.reshape(nq * lq, d)
-            dp_part[0] = dp
+            dp_out[0] = dp
             return
         nq, lq, nd, lp, d = args[:5]
         assert lq <= cm.ROW_CAP[lib], (lib, lq)
@@ -190,10 +197,13 @@ def _kernel_stand_in(seen):
 def on_card(monkeypatch):
     """The wrappers' host sides as they run on the card: every tensor
     treated as a CUDA one, each launch handed to the stand-in (``seen``
-    lists them), the launch counts from 0."""
+    lists them), K6's occupancy that of a card holding 16 clusters, the
+    launch counts from 0."""
     seen = []
     monkeypatch.setattr(cm, "_on_cuda", lambda *t: True)
     monkeypatch.setattr(ct, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(ct, "bwd_config", lambda dtype, d, cluster: dict(
+        ctas_per_sm=1, clusters=16, stages=3, smem_bytes=0))
     monkeypatch.setattr(cm, "call_kernel", _kernel_stand_in(seen))
     monkeypatch.setattr(ct, "call_kernel", _kernel_stand_in(seen))
     for w in cm.all_wrappers():
@@ -266,7 +276,10 @@ def test_wrappers_split_and_pad_for_the_kernels(on_card, lq, d):
 @pytest.mark.parametrize("lq,d,tdtype,jdtype", [
     (129, 40, torch.float32, jnp.float32),
     (200, 72, torch.bfloat16, jnp.bfloat16),
-    (150, 128, torch.float32, jnp.float32)])
+    (150, 128, torch.float32, jnp.float32),
+    (129, 160, torch.bfloat16, jnp.bfloat16),
+    (40, 192, torch.float32, jnp.float32),
+    (40, 192, torch.bfloat16, jnp.bfloat16)])
 def test_maxsimfn_splits_and_pads_as_the_jax_custom_vjp(on_card, lq, d,
                                                          tdtype, jdtype):
     """MaxSimFn with K5 and K6 run per slice (their host sides on the
@@ -392,10 +405,11 @@ def test_engine_serves_long_queries_on_a_narrow_index_through_the_kernels(
 
 
 def test_widths_that_padding_cannot_lift_raise_with_their_bound(on_card):
-    """D above 256 (every kernel), above 192 (K1 and K5 in float32 mode)
-    and above 128 (K6): the operand tiles live in shared memory (K6: a
-    warp's dQ block in registers) and a max over tokens does not split over
-    D, so each is refused with its bound; no launch is made."""
+    """D above 256 (every kernel) and above 192 (K1, K5 and K6 in float32
+    mode): the operand tiles live in shared memory and a max over tokens
+    does not split over D, so each is refused with its bound; no launch is
+    made. K6 takes every D that K5 takes: 136 and 192 launch in both
+    modes."""
     rng = np.random.default_rng(0)
 
     def case(d):
@@ -423,24 +437,36 @@ def test_widths_that_padding_cannot_lift_raise_with_their_bound(on_card):
         with pytest.raises(ValueError,
                            match=rf"{who}: D must lie in \[1, 192\]"):
             call()
-    Q, P, qm, pm = case(136)
     M = torch.zeros(2 * 4, 3)
     g = torch.ones(2, 3)
-    for cd in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError,
-                           match=r"K6: D must lie in \[1, 128\].*136"):
-            ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    with pytest.raises(ValueError,
+                       match=r"K6's float32 mode: D must lie in \[1, 192\]"
+                             r".*200"):
+        ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, torch.float32)
+    Q, P, qm, pm = case(264)
+    with pytest.raises(ValueError, match=r"K6: D must lie in \[1, 256\].*264"):
+        ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g)
     assert on_card == []
     assert all(w.launches == 0 for w in cm.all_wrappers())
-    # at the bounds themselves the wrappers launch
+    # at the bounds themselves the wrappers launch, and K6 at every width
+    # K5 takes: 136 and 192 in both modes (and 256 in bf16)
     Q, P, qm, pm = case(192)
     cm.maxsim_cuda_f32(Q, P, qm, pm)
+    for d, modes in ((136, (torch.bfloat16, torch.float32)),
+                     (192, (torch.bfloat16, torch.float32)),
+                     (256, (torch.bfloat16,))):
+        Q, P, qm, pm = case(d)
+        for cd in modes:
+            out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, cd)
+            ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+            assert on_card[-1][6] == -(-d // cm.D_GRANULE) * cm.D_GRANULE
+    assert [c[1] for c in on_card] == ["evdr_maxsim_f32"] + [
+        "evdr_maxsim_fwd_train", "evdr_maxsim_bwd",
+        "evdr_maxsim_fwd_train_f32", "evdr_maxsim_bwd_f32"] * 2 + [
+        "evdr_maxsim_fwd_train", "evdr_maxsim_bwd"]
     Q, P, qm, pm = case(120)
     out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm)
     ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g)
-    assert [c[1] for c in on_card] == ["evdr_maxsim_f32",
-                                      "evdr_maxsim_fwd_train",
-                                      "evdr_maxsim_bwd"]
     assert on_card[-1][6] == 128  # K6 at 120 runs 128 wide
 
 
