@@ -42,11 +42,14 @@ line each:
    line, and the best artifact must load and score as logged;
 9. a train step through the differentiable op: the liscore loss and one
    AdamW step on the student with its pages scored by MaxSimFn (K5, then
-   K6), held against the same step through maxsim_torch;
+   K6), held against the same step through maxsim_torch; K5's scores on
+   the step's inputs bit-equal to K1's (K5 is K1's kernel with an M store);
 10. times of K1's float32 mode at the eval shape and at the teacher
     precompute's (256 queries of the train split against the 1,000
     teacher pages), of K5 and K6 at the train step's, with K1 float32's
-    CTAs per SM and K6's design;
+    CTAs per SM, K5's design (library, tile, stages, CTAs per SM,
+    registers) and K6's (which recomputes on K5's wgmma products), and
+    K5's scores bit-equal to K1's again;
 11. capacity-tier parity at the serving shape (1,000 pages): K4 (int4 and
     int4full, at Lp 768 and at an odd Lp of 767) and K3 (pq and pqfull,
     with compact PQ books and with expanded OPQ books) against their plain
@@ -75,9 +78,9 @@ line each:
     tokens against 1,000 pages x 154 tokens) against their plain float32
     versions, on tie-free data and with a doc that has no valid token; one
     backward through maxsim(impl='pallas', compute_dtype=float32), the
-    entry point that reaches them, against the plain versions; their
-    times, with K6's design (cluster size, ring stages, registers, CTAs
-    per SM; phase 10 gives bf16's); then MaxSimFn at D 192 in both modes
+    entry point that reaches them, against the plain versions; K5's scores
+    bit-equal to K1 float32's; their times, with K5's and K6's designs
+    (phase 10 gives bf16's); then MaxSimFn at D 192 in both modes
     and 256 in bf16 against the plain K5/K6 pair (300 pages), and K6 on
     planted exact ties (a duplicated page token, a zero query row) against
     its plain version in both modes;
@@ -355,10 +358,27 @@ def launch_shapes(cm, wrapper, func=None):
             if w == wrapper and func in (None, f)]
 
 
-def ptxas_registers(build, lib):
-    """The register counts ptxas reported for each kernel of ``lib``."""
-    return [int(m) for m in re.findall(r"Used (\d+) registers",
-                                       build.build_log(lib))]
+def ptxas_registers(build, lib, tag=""):
+    """The register counts ptxas reported for each kernel of ``lib`` whose
+    mangled name holds ``tag``."""
+    regs = re.findall(r"Function properties for (\S+)\n.*\n.*Used (\d+) "
+                      r"registers", build.build_log(lib))
+    return [int(r) for n, r in regs if tag in n]
+
+
+def k5_design(cm, build, dtype):
+    """K5's launch at width D: K1's kernel with the M store (its library,
+    query-token rows a CTA, page tokens a tile, stages, CTAs per SM from the
+    occupancy API; bf16: shared bytes and whether M goes out in runs of a
+    CTA's docs), and the ptxas registers of its instantiations (the
+    STORE_M = true ones)."""
+    if dtype == torch.float32:
+        per_sm, rows, cols = cm.f32_occupancy(D, train=True)
+        return dict(library="maxsim_f32", ctas_per_sm=per_sm, rows=rows,
+                    tile_tokens=cols, stages=2,
+                    registers=ptxas_registers(build, "maxsim_f32", "Lb1E"))
+    return dict(cm.bf16_config(D, train=True), library="maxsim_bf16",
+                registers=ptxas_registers(build, "maxsim_bf16", "Lb1E"))
 
 
 def k6_design(ct, build, dtype, nq, lq):
@@ -370,11 +390,9 @@ def k6_design(ct, build, dtype, nq, lq):
     cluster = ct.bwd_cluster(min(n_qb, ct.MAX_QB_BLOCKS))
     cfg = ct.bwd_config(dtype, D, cluster)
     mode = 3 if dtype == torch.float32 else 0  # maxsim_tile.cuh Mode
-    regs = re.findall(r"Function properties for (\S+)\n.*\n.*Used (\d+) "
-                      r"registers", build.build_log("maxsim_train"))
     tag = f"maxsim_bwd_kernelILi{mode}ELi{-(-D // 64)}E"
     return dict(cfg, cluster=cluster,
-                registers=[int(r) for n, r in regs if tag in n])
+                registers=ptxas_registers(build, "maxsim_train", tag))
 
 
 def rel_err(a, b) -> float:
@@ -615,7 +633,12 @@ def train_step_phase(cm, ct, bundle, param0, pm_s):
     check(counts["maxsim_cuda_fwd_train"] > 0 and counts["maxsim_cuda_bwd"] > 0,
           "K5 and K6 launched by the train step")
     check(counts["maxsim_cuda"] == 0, "the grad-mode forward is K5, not K1")
-    return counts, (Qb, l2_normalize(param0 * pm_f), qmb, pm_s)
+    args = (Qb, l2_normalize(param0 * pm_f), qmb, pm_s)
+    same = torch.equal(ct.maxsim_cuda_fwd_train(*args)[0],
+                       cm.maxsim_cuda(*args))
+    log(f"phase 9 K5's scores on the step's inputs bit-equal to K1's: {same}")
+    check(same, "K5's scores equal K1's (phase 9)")
+    return counts, args
 
 
 def training_times(cm, ct, build, eval_args, teacher_args, step_args, gen,
@@ -675,7 +698,7 @@ def training_times(cm, ct, build, eval_args, teacher_args, step_args, gen,
         ("maxsim_fwd_train", ct.maxsim_cuda_fwd_train,
          ct.maxsim_fwd_train_plain, step_args,
          tensor_bytes(*step_args) + (nq + nq * lq) * nd * 4,
-         valid_ops(qmb, pm_s), "bf16", "evdr_tpu_torch/csrc/maxsim_train.cu",
+         valid_ops(qmb, pm_s), "bf16", "evdr_tpu_torch/csrc/maxsim_bf16.cu",
          "evdr_tpu/ops/pallas_maxsim_bwd.py:84"),
         # the recompute, then one page row per (query row, doc) into dQ and
         # one query row into dP (the indicator is one-hot but for ties)
@@ -716,11 +739,21 @@ def training_times(cm, ct, build, eval_args, teacher_args, step_args, gen,
                      bound_ms=bms, bound_by=by)
         if rel is not None:
             entry.update(rel_err=rel, rel_tol=1e-3)
+        if kname == "maxsim_fwd_train":
+            same = torch.equal(kern(*kargs)[0], cm.maxsim_cuda(*kargs))
+            entry.update(design=k5_design(cm, build, torch.bfloat16),
+                         same_as_k1=same)
+            log(f"phase 10 K5 bf16 design: {entry['design']} (K1's wgmma + "
+                f"TMA kernel with the M store, 64-token tiles, the width K6 "
+                f"recomputes); scores bit-equal to K1's: {same}")
+            check(same, "K5's scores equal K1's (phase 10)")
         if kname == "maxsim_bwd":
             entry["design"] = k6_design(ct, build, torch.bfloat16, nq, lq)
-            log(f"phase 10 K6 bf16 design: {entry['design']} (a cluster "
-                f"of the chunk's query blocks, sparse hit masks, four page "
-                f"tiles a cluster barrier)")
+            log(f"phase 10 K6 bf16 design: {entry['design']} (its "
+                f"recompute on K5's wgmma m64n64k16 products, each 128 x 64 "
+                f"tile by two warpgroups; a cluster of the chunk's query "
+                f"blocks, sparse hit masks, four page tiles a cluster "
+                f"barrier)")
         kernels.append(entry)
     return kernels
 
@@ -1269,14 +1302,20 @@ def f32_train_phase(cm, ct, gen, smi):
             f"{TRAIN_DOCS}x{n_doc_tok} pages; bound {bms:.3f} ms by {by} "
             f"(tf32 peak); plain {plain_ms:.3f} ms (median of 3); library: "
             f"none; {smi}")
+        src = ("maxsim_f32.cu" if kname == "maxsim_fwd_train_f32"
+               else "maxsim_train.cu")
         entry = {
             "name": kname, "route": "cuda",
-            "source": "evdr_tpu_torch/csrc/maxsim_train.cu", "replaces": repl,
+            "source": f"evdr_tpu_torch/csrc/{src}", "replaces": repl,
             "launches": counts[kern.__name__], "max_abs_err": err, "tol": tol,
             "ms": ms, "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
         if rel is not None:
             entry.update(rel_err=rel, rel_tol=1e-4)
+        if kname == "maxsim_fwd_train_f32":
+            entry["design"] = k5_design(cm, build, torch.float32)
+            log(f"phase 16 K5 float32 design: {entry['design']} (K1 "
+                f"float32's kernel with the M store)")
         if kname == "maxsim_bwd_f32":
             entry["design"] = k6_design(ct, build, torch.float32, STEP_NQ, LQ)
             log(f"phase 16 K6 float32 design: {entry['design']}")
@@ -1851,7 +1890,7 @@ def main(argv=None) -> int:
     ]
     kernels = []
     design = dict(cm.bf16_config(D), registers=ptxas_registers(
-        _cuda_build, "maxsim_bf16"))
+        _cuda_build, "maxsim_bf16", "Lb0E"))
     log(f"phase 6 K1 bf16 design at D = {D}: {design} (wgmma m64n"
         f"{design['tile_tokens']}k16 from TMA-loaded shared memory, one "
         f"producer warp; registers per instantiation, before setmaxnreg)")

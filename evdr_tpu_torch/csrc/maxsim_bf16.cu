@@ -1,8 +1,10 @@
 // K1: fused masked MaxSim over a bf16 page index, for Hopper (sm_90a), on
-// wgmma and TMA.
+// wgmma and TMA; and K5 in bf16, the same kernel with an M store.
 //
 // Replaces: evdr_tpu/ops/pallas_maxsim.py:_kernel (driver
-// _maxsim_pallas_fwd, public entry maxsim_pallas).
+// _maxsim_pallas_fwd, public entry maxsim_pallas); with STORE_M,
+// evdr_tpu/ops/pallas_maxsim_bwd.py:_fwd_train_kernel (entry
+// maxsim_pallas_fwd_train), the differentiable op's forward.
 //
 // What bounds it on the H100: operations. At the serving shape (256
 // queries x 32 tokens against pages of 768 tokens, D = 128) every page
@@ -71,15 +73,29 @@
 // mma.sync loop's in the last bits (at the A/B's shapes they were
 // bit-equal); they are held to the plain version.
 //
+// K5 (STORE_M, evdr_maxsim_fwd_train): the same loop and epilogue, so its
+// scores are K1's bit for bit, plus each query-token row's max over each
+// doc (the quad's shuffled max, before the no-valid-token rule) into
+// M[(q, t), d], (nq * lq, nd) f32, the residual K6 (maxsim_train.cu)
+// compares its recomputed similarities against. M is docs-contiguous, so
+// a CTA buffers its rows' maxima for its kBfDocs docs in shared memory and
+// writes one run of up to 8 floats a row (2-6% faster at the train step
+// than one 4-byte store a row and doc). K5 runs 64-token tiles
+// at every D (kTrainTileN): each doc starts a tile of its own, so the
+// student's pages (Lp 137-154 at mf5, shorter beyond) fill 192 columns
+// where 128-token tiles fill 256, and K6 recomputes each 128 x 64 tile with
+// the same m64n64k16 products in the same k order (sim == M exactly).
+// 128-token tiles ran 20% slower at Lp 154 (PERF.md section 6).
+//
 // C interface (loaded with ctypes; every pointer and the stream is a
 // void*): q (nq, lq, d) bf16, qw (nq, lq) f32 query-token weights (the
 // mask as 0/1), p (nd, lp, d) bf16, pmask (nd, lp) bool as bytes,
-// out (nq, nd) f32; q and p 16-byte aligned. Returns cudaGetLastError()
-// after the launch, or minus the CUresult of a refused tensor-map encode.
-// evdr_bf16_config reports the configuration a call at width d runs.
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-
-#include "maxsim_tile.cuh"
+// out (nq, nd) f32; q and p 16-byte aligned; evdr_maxsim_fwd_train adds
+// m (nq * lq, nd) f32 after out. Returns cudaGetLastError() after the
+// launch, or minus the CUresult of a refused tensor-map encode.
+// evdr_bf16_config reports the configuration a call at width d runs (K1,
+// or K5 where `train`).
+#include "hopper.cuh"
 
 namespace evdr {
 namespace {
@@ -88,7 +104,6 @@ constexpr int kBfConsumers = 2;              // consumer warpgroups
 constexpr int kBfRows = 128 * kBfConsumers;  // query-token rows a CTA
 constexpr int kBfThreads = 128 * (kBfConsumers + 1);
 constexpr int kBfDocs = 8;      // docs per CTA
-constexpr int kBoxK = 64;       // bf16 elements in a 128-byte swizzled row
 constexpr int kTileN = 128;     // page tokens a tile, where two stages fit
 constexpr int kMaxStages = 4;
 // The k-loop is unrolled at compile time for this many k-steps (D = 128,
@@ -97,18 +112,23 @@ constexpr int kMaxStages = 4;
 constexpr int kUnrolledKSteps = 8;
 constexpr int kSmemCap = 232448;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// K5 (STORE_M): page tokens a tile at every D, which K6's recompute
+// (maxsim_train.cu) issues the same wgmma shape for.
+constexpr int kTrainTileN = 64;
 
 // Shared-memory carve-up, in bytes from a 1024-byte aligned base (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes): the query block, one
 // 128-byte column chunk after another ([chunk][kBfRows][64]); the stages,
-// each [chunk][n][64]; each stage's n column scales; two row buffers; the
-// barriers. `total` adds the slack that aligns the base.
+// each [chunk][n][64]; each stage's n column scales; two row buffers; K5's
+// M runs where `mruns` ([2][kBfDocs][kBfRows], by the parity of the run);
+// the barriers. `total` adds the slack that aligns the base.
 struct BfLayout {
   int n, stages, chunks;
-  uint32_t b, stage_bytes, colscale, red, bars, total;
+  uint32_t b, stage_bytes, colscale, red, mrun, bars, total;
 };
 
-__host__ __device__ inline BfLayout bf16_layout(int d, int n, int stages) {
+__host__ __device__ inline BfLayout bf16_layout(int d, int n, int stages,
+                                                bool mruns = false) {
   BfLayout L;
   L.n = n;
   L.stages = stages;
@@ -117,142 +137,31 @@ __host__ __device__ inline BfLayout bf16_layout(int d, int n, int stages) {
   L.stage_bytes = (uint32_t)L.chunks * n * 128;
   L.colscale = L.b + stages * L.stage_bytes;
   L.red = L.colscale + stages * n * 4;
-  L.bars = L.red + 2 * kBfRows * 4;
+  L.mrun = L.red + 2 * kBfRows * 4;
+  L.bars = L.mrun + (mruns ? 2 * kBfDocs * kBfRows * 4 : 0);
   L.total = L.bars + (2 * stages + 1) * 8 + 1024;
   return L;
 }
 
-// ---------------------------------------------------------------- PTX
-
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-__device__ inline void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-__device__ inline void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2-D box of the tensor `map` at (column c0, row c1) into shared memory,
-// completing `bytes` of the barrier's expected transactions.
-__device__ inline void tma_load(void* dst, const CUtensorMap* map, int c0,
-                                int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
-// swizzle: start address / 16, leading offset 1 (unused by this layout),
-// stride 1024 bytes (8 rows of 128 bytes) / 16, layout 1 (128B swizzle).
-// A k-step of 16 elements further into the chunk adds 32 bytes (2) to the
-// start address.
-__device__ inline uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ inline void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int M> __device__ inline void fence_regs(float (&d)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A . B^T over one k-step of 16: A 64 rows x 16 (desc da), B N rows
-// x 16 (desc db), both K-major; `accumulate` 0 overwrites d.
-__device__ inline void wgmma(float (&d)[32], uint64_t da, uint64_t db,
-                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-__device__ inline void wgmma(float (&d)[64], uint64_t da, uint64_t db,
-                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // ------------------------------------------------------------- kernel
 
-template <int N, int KSTEPS>
+// STORE_M: K5, which also writes each query-token row's max over each doc
+// (before the no-valid-token rule) to m_out[(q, t), d], (nq * lq, nd) f32,
+// the residual K6 compares its recomputed similarities against. A template
+// flag, and m_out the last parameter, so the serving kernels compile as
+// they did without it.
+template <int N, int KSTEPS, bool STORE_M = false>
 __global__ void __launch_bounds__(kBfThreads, 1)
 maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_p,
                    const float* __restrict__ qw,
                    const uint8_t* __restrict__ pmask, float* __restrict__ out,
                    int nq, int lq, int nd, int lp, int d, int qb, int db,
-                   int stages) {
+                   int stages, float* __restrict__ m_out) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  const BfLayout L = bf16_layout(d, N, stages);
+  const BfLayout L = bf16_layout(d, N, stages, STORE_M);
   unsigned char* As = smem;
   unsigned char* Bs = smem + L.b;
   float* colscale = reinterpret_cast<float*>(smem + L.colscale);
@@ -270,7 +179,8 @@ maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row0 = q0 * lq;
   const int d_begin = blockIdx.y * db;
   const int n_tiles = (lp + N - 1) / N;
-  const int total = (min(nd, d_begin + db) - d_begin) * n_tiles;
+  const int n_docs = min(nd, d_begin + db) - d_begin;
+  const int total = n_docs * n_tiles;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -379,6 +289,12 @@ maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         // weight per row; then each query's Lq rows, in order
         const int doc = it / n_tiles;
         float* rr = red + (doc & 1) * kBfRows;
+        // K5's run of up to kBfDocs docs: its buffer, its first doc, its
+        // length (the parity of the run picks the buffer)
+        float* mr = reinterpret_cast<float*>(smem + L.mrun) +
+                    ((doc / kBfDocs) & 1) * kBfDocs * kBfRows;
+        const int run0 = doc - doc % kBfDocs;
+        const int run_n = min(kBfDocs, n_docs - run0);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -386,9 +302,11 @@ maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
             float m = mx[i][h];
             m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
             m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-            if (t == 0)
-              rr[wg * 128 + i * 64 + w * 16 + h * 8 + g] =
-                  (m > kNegThresh ? m : 0.f) * qwr[i][h];
+            const int r = wg * 128 + i * 64 + w * 16 + h * 8 + g;
+            if (t == 0) {
+              rr[r] = (m > kNegThresh ? m : 0.f) * qwr[i][h];
+              if constexpr (STORE_M) mr[(doc - run0) * kBfRows + r] = m;
+            }
             mx[i][h] = kNegInit;
           }
         asm volatile("bar.sync 1, %0;\n" ::"n"(kBfRows) : "memory");
@@ -397,6 +315,18 @@ maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int r = 0; r < lq; ++r) sum += rr[tid * lq + r];
           out[(size_t)(q0 + tid) * nd + d_begin + doc] = sum;
         }
+        if constexpr (STORE_M) {
+          // the run's last doc: each row's maxima, docs contiguous in M; a
+          // warp writes 32 consecutive (row, doc) pairs. The buffer is next
+          // written two runs on, past a barrier every thread reaches after
+          // this loop.
+          if (doc - run0 == run_n - 1)
+            for (int x = tid; x < nrows * run_n; x += kBfRows) {
+              const int r = x / run_n, k = x - r * run_n;
+              m_out[(size_t)(row0 + r) * nd + d_begin + run0 + k] =
+                  mr[k * kBfRows + r];
+            }
+        }
       }
     }
   }
@@ -404,89 +334,49 @@ maxsim_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------- host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (null where the
-// installed CUDA library does not export it).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (rows, d) row-major bf16 tensor in boxes of 64 columns x box_rows rows,
-// 128-byte swizzled, zeros outside the tensor. Returns 0 or minus the
-// CUresult.
-int encode_rows(CUtensorMap* map, const void* base, int rows, int d,
-                int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
 using BfKernel = void (*)(const CUtensorMap, const CUtensorMap, const float*,
                           const uint8_t*, float*, int, int, int, int, int,
-                          int, int, int);
+                          int, int, int, float*);
+
+// The kernel of tile width N (K1: kTileN or 64; K5: kTrainTileN) at width
+// d: the loop unrolled at d = 16 * kUnrolledKSteps, else the loop over any D.
+template <int N, bool STORE_M> BfKernel bf16_kernel(int d) {
+  if constexpr (kUnrolledKSteps > 0 && (STORE_M || N == kTileN))
+    if (d == 16 * kUnrolledKSteps)
+      return maxsim_bf16_kernel<N, kUnrolledKSteps, STORE_M>;
+  return maxsim_bf16_kernel<N, 0, STORE_M>;
+}
 
 // The configuration a call at width d runs: the rule by D (see the
-// header), the kernel it selects, and that kernel's shared-memory size.
-int bf16_plan(int d, BfLayout* L, BfKernel* kern) {
-  int n = kTileN;
-  if (bf16_layout(d, n, 2).total > kSmemCap) n = 64;
+// header; K5, `train`: kTrainTileN tokens a tile at every D), the kernel it
+// selects, and that kernel's shared-memory size.
+int bf16_plan(int d, bool train, BfLayout* L, BfKernel* kern) {
+  int n = train ? kTrainTileN : kTileN;
+  if (!train && bf16_layout(d, n, 2).total > kSmemCap) n = 64;
   int s = kMaxStages;
-  while (s > 2 && bf16_layout(d, n, s).total > kSmemCap) --s;
-  *L = bf16_layout(d, n, s);
+  while (s > 2 && bf16_layout(d, n, s, train).total > kSmemCap) --s;
+  *L = bf16_layout(d, n, s, train);
   if (L->total > kSmemCap) return (int)cudaErrorInvalidValue;
-  if (kUnrolledKSteps > 0 && n == kTileN && d == 16 * kUnrolledKSteps)
-    *kern = maxsim_bf16_kernel<kTileN, kUnrolledKSteps>;
+  if (train)
+    *kern = bf16_kernel<kTrainTileN, true>(d);
   else
-    *kern = n == kTileN ? maxsim_bf16_kernel<kTileN, 0>
-                        : maxsim_bf16_kernel<64, 0>;
+    *kern = n == kTileN ? bf16_kernel<kTileN, false>(d)
+                        : bf16_kernel<64, false>(d);
   return (int)cudaFuncSetAttribute(
       *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L->total);
 }
 
-}  // namespace
-}  // namespace evdr
-
-extern "C" int evdr_maxsim_bf16(const void* q, const void* qw, const void* p,
-                                const void* pmask, void* out, int nq, int lq,
-                                int nd, int lp, int d, void* stream) {
-  using namespace evdr;
+// One launch of K1 (m == nullptr) or K5 (m: its M).
+int bf16_launch(const void* q, const void* qw, const void* p,
+                const void* pmask, void* out, void* m, int nq, int lq, int nd,
+                int lp, int d, void* stream) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kBfRows || d < 16 ||
       d % 16 != 0 || (long long)nd * lp >= (1LL << 31) ||
       (long long)nq * lq >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   BfLayout L;
   BfKernel kern;
-  int e = bf16_plan(d, &L, &kern);
+  int e = bf16_plan(d, m != nullptr, &L, &kern);
   if (e != 0) return e;
   alignas(64) CUtensorMap tm_q, tm_p;
   if ((e = encode_rows(&tm_q, q, nq * lq, d, kBfRows)) != 0) return e;
@@ -498,19 +388,40 @@ extern "C" int evdr_maxsim_bf16(const void* q, const void* qw, const void* p,
   kern<<<grid, kBfThreads, L.total, (cudaStream_t)stream>>>(
       tm_q, tm_p, static_cast<const float*>(qw),
       static_cast<const uint8_t*>(pmask), static_cast<float*>(out), nq, lq,
-      nd, lp, d, qb, db, L.stages);
+      nd, lp, d, qb, db, L.stages, static_cast<float*>(m));
   return (int)cudaGetLastError();
 }
 
-// The configuration a call at width d runs, on the current GPU: out[0]
-// CTAs per SM, out[1] query-token rows a CTA, out[2] page tokens a tile,
-// out[3] stages, out[4] consumer warpgroups, out[5] shared-memory bytes.
-extern "C" int evdr_bf16_config(int d, void* out) {
+}  // namespace
+}  // namespace evdr
+
+extern "C" int evdr_maxsim_bf16(const void* q, const void* qw, const void* p,
+                                const void* pmask, void* out, int nq, int lq,
+                                int nd, int lp, int d, void* stream) {
+  return evdr::bf16_launch(q, qw, p, pmask, out, nullptr, nq, lq, nd, lp, d,
+                           stream);
+}
+
+// K5: K1's scores in out and each row's max in m (nq * lq, nd) f32.
+extern "C" int evdr_maxsim_fwd_train(const void* q, const void* qw,
+                                     const void* p, const void* pmask,
+                                     void* out, void* m, int nq, int lq,
+                                     int nd, int lp, int d, void* stream) {
+  if (m == nullptr) return (int)cudaErrorInvalidValue;
+  return evdr::bf16_launch(q, qw, p, pmask, out, m, nq, lq, nd, lp, d,
+                           stream);
+}
+
+// The configuration a call at width d runs (K1, or K5 where `train`), on
+// the current GPU: out[0] CTAs per SM, out[1] query-token rows a CTA,
+// out[2] page tokens a tile, out[3] stages, out[4] consumer warpgroups,
+// out[5] shared-memory bytes.
+extern "C" int evdr_bf16_config(int d, int train, void* out) {
   using namespace evdr;
   int* o = static_cast<int*>(out);
   BfLayout L;
   BfKernel kern;
-  const int e = bf16_plan(d, &L, &kern);
+  const int e = bf16_plan(d, train != 0, &L, &kern);
   if (e != 0) return e;
   o[1] = kBfRows;
   o[2] = L.n;

@@ -1,9 +1,13 @@
 // K1 in float32 mode: fused masked MaxSim at (near) float32 precision, for
-// Hopper (sm_90a).
+// Hopper (sm_90a); and K5 in float32 mode, the same kernel with an M store.
 //
 // Replaces: evdr_tpu/ops/pallas_maxsim.py:_kernel run with
 // compute_dtype=float32 (Precision.HIGHEST, pallas_maxsim.py:552-553), the
-// scorer of the trainer's teacher precompute and of every evaluation.
+// scorer of the trainer's teacher precompute and of every evaluation; with
+// STORE_M, evdr_tpu/ops/pallas_maxsim_bwd.py:_fwd_train_kernel at
+// compute_dtype=float32 (pallas_maxsim_bwd.py:116-117): K1's scores bit for
+// bit plus M[(q, t), d], each query-token row's max over each doc before
+// the no-valid-token rule, (nq * lq, nd) f32, stored as each doc ends.
 //
 // Hopper's tensor cores have no exact-f32 product, so each product is
 // split into TF32 halves (3xTF32): per k-step of 8, three mma.sync m16n8k8
@@ -26,22 +30,25 @@
 // - 64 x 32 outputs a warp: kI = 4 row and kJ = 4 column fragments, split
 //   into their TF32 hi/lo pairs once per k-step and shared by the 16
 //   positions; the three products of a position keep their order, so each
-//   element's arithmetic is K5 float32's (maxsim_tile.cuh's mma(...,
-//   float)) and the scores equal K5's bit for bit, whatever the tile.
+//   element's arithmetic is maxsim_tile.cuh's mma(..., float), which K6's
+//   float32 recompute (tile_mma<kF32>) issues: its similarities equal the
+//   ones K5 took the max of, bit for bit, whatever the tile.
 // - Two tile configurations, chosen by D alone (f32_config below): 256
 //   query rows x 64-token page tiles (8 warps 4 x 2) wherever they fit, D
-//   <= 128 (203 KB at D = 128, one CTA per SM): every call of the trainer
+//   <= 144 (203 KB at D = 128, one CTA per SM): every call of the trainer
 //   and its evals; 128 x 32 with 32 x 16 a warp above, D up to 192 (150 KB
-//   at D = 192, one CTA per SM). A 128 x 128 tile (64 x 32 a warp, 2 x 4
+//   at D = 192, one CTA per SM). A launch takes up to the tile's rows of
+//   query tokens (the wrappers' row_cap). A 128 x 128 tile (64 x 32 a warp, 2 x 4
 //   warps) ran 3.6% behind 256 x 64 at Lp 768 and is not kept.
 // - The query block arrives by cp.async with the first page tile, and a CTA
 //   walks 8 docs (kF32Docs), so its staging is spread over more tiles.
 //
 // C interface (ctypes; every pointer and the stream is a void*): q
 // (nq, lq, d) f32, qw (nq, lq) f32 query-token weights, p (nd, lp, d) f32,
-// pmask (nd, lp) bool as bytes, out (nq, nd) f32. Returns
-// cudaGetLastError() after the launch. evdr_f32_occupancy reports the tile
-// configuration a call at width d runs and its CTAs per SM.
+// pmask (nd, lp) bool as bytes, out (nq, nd) f32; evdr_maxsim_fwd_train_f32
+// adds m (nq * lq, nd) f32 after out. Returns cudaGetLastError() after the
+// launch. evdr_f32_occupancy reports the tile configuration a call at width
+// d runs (K1, or K5 where `train`) and its CTAs per SM.
 #include "maxsim_tile.cuh"
 
 namespace evdr {
@@ -82,12 +89,17 @@ template <class CFG> struct F32Smem {
   }
 };
 
-template <class CFG>
+// STORE_M: K5 in float32 mode, which also writes each query-token row's
+// max over each doc (before the no-valid-token rule) to m_out[(q, t), d],
+// (nq * lq, nd) f32. A template flag, and m_out the last parameter, so the
+// serving kernels compile as they did without it.
+template <class CFG, bool STORE_M = false>
 __global__ void __launch_bounds__(kThreads, CFG::kMinB)
 maxsim_f32_kernel(const float* __restrict__ q, const float* __restrict__ qw,
                   const float* __restrict__ p,
                   const uint8_t* __restrict__ pmask, float* __restrict__ out,
-                  int nq, int lq, int nd, int lp, int d, int qb, int db) {
+                  int nq, int lq, int nd, int lp, int d, int qb, int db,
+                  float* __restrict__ m_out) {
   constexpr int R = CFG::kR, C = CFG::kC, kI = CFG::kI, kJ = CFG::kJ;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Smem<CFG> lay(d);
@@ -240,6 +252,9 @@ maxsim_f32_kernel(const float* __restrict__ q, const float* __restrict__ qw,
         float m = part[r];
 #pragma unroll
         for (int w = 1; w < CFG::kWN; ++w) m = fmaxf(m, part[w * R + r]);
+        if constexpr (STORE_M) {
+          if (r < nrows) m_out[(row0 + r) * nd + dd] = m;
+        }
         red[r] = (m > kNegThresh ? m : 0.f) * qw_s[r];
       }
       __syncthreads();
@@ -255,27 +270,50 @@ maxsim_f32_kernel(const float* __restrict__ q, const float* __restrict__ qw,
 
 using Kern = void (*)(const float*, const float*, const float*,
                       const uint8_t*, float*, int, int, int, int, int, int,
-                      int);
+                      int, float*);
 
 // The configuration a call runs: 256 x 64 where its shared memory fits at
-// width d (D <= 128, every call of the trainer and its evals), else 128 x
-// 32 (D up to 192).
+// width d (D <= 144: every call of the trainer and its evals), else 128 x
+// 32 (D up to 192); a launch takes as many query tokens as the tile has
+// rows. K5 (`train`) runs the same tile with the M store.
 struct F32Launch {
   Kern kern;
   size_t smem;
   int rows, cols;
 };
-template <class CFG> F32Launch f32_launch(int d) {
-  return {maxsim_f32_kernel<CFG>, F32Smem<CFG>(d).total, CFG::kR, CFG::kC};
+template <class CFG> F32Launch f32_launch(int d, bool train) {
+  return {train ? maxsim_f32_kernel<CFG, true> : maxsim_f32_kernel<CFG>,
+          F32Smem<CFG>(d).total, CFG::kR, CFG::kC};
 }
-int f32_config(int d, F32Launch* out) {
+int f32_config(int d, bool train, F32Launch* out) {
   if (d < 16 || d % 16 != 0) return (int)cudaErrorInvalidValue;
-  F32Launch cfg = f32_launch<CfgTall>(d);
-  if (cfg.smem > 232448) cfg = f32_launch<CfgNarrow>(d);
+  F32Launch cfg = f32_launch<CfgTall>(d, train);
+  if (cfg.smem > 232448) cfg = f32_launch<CfgNarrow>(d, train);
   if (cfg.smem > 232448) return (int)cudaErrorInvalidValue;
   *out = cfg;
   return (int)cudaFuncSetAttribute(
       cfg.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+}
+
+// One launch of K1 float32 (m == nullptr) or K5 float32 (m: its M).
+int f32_launch_call(const void* q, const void* qw, const void* p,
+                    const void* pmask, void* out, void* m, int nq, int lq,
+                    int nd, int lp, int d, void* stream) {
+  F32Launch cfg;
+  const int e = f32_config(d, m != nullptr, &cfg);
+  if (e != 0) return e;
+  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > cfg.rows)
+    return (int)cudaErrorInvalidValue;
+  const int qb = cfg.rows / lq;
+  int db = kF32Docs;
+  if ((nd + db - 1) / db > kMaxGridY) db = (nd + kMaxGridY - 1) / kMaxGridY;
+  dim3 grid((nq + qb - 1) / qb, (nd + db - 1) / db);
+  cfg.kern<<<grid, kThreads, cfg.smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(qw),
+      static_cast<const float*>(p), static_cast<const uint8_t*>(pmask),
+      static_cast<float*>(out), nq, lq, nd, lp, d, qb, db,
+      static_cast<float*>(m));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -284,30 +322,29 @@ int f32_config(int d, F32Launch* out) {
 extern "C" int evdr_maxsim_f32(const void* q, const void* qw, const void* p,
                                const void* pmask, void* out, int nq, int lq,
                                int nd, int lp, int d, void* stream) {
-  using namespace evdr;
-  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows)
-    return (int)cudaErrorInvalidValue;
-  F32Launch cfg;
-  const int e = f32_config(d, &cfg);
-  if (e != 0) return e;
-  const int qb = cfg.rows / lq;
-  int db = kF32Docs;
-  if ((nd + db - 1) / db > kMaxGridY) db = (nd + kMaxGridY - 1) / kMaxGridY;
-  dim3 grid((nq + qb - 1) / qb, (nd + db - 1) / db);
-  cfg.kern<<<grid, kThreads, cfg.smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(qw),
-      static_cast<const float*>(p), static_cast<const uint8_t*>(pmask),
-      static_cast<float*>(out), nq, lq, nd, lp, d, qb, db);
-  return (int)cudaGetLastError();
+  return evdr::f32_launch_call(q, qw, p, pmask, out, nullptr, nq, lq, nd, lp,
+                               d, stream);
 }
 
-// The configuration evdr_maxsim_f32 runs at width d: out[0] its CTAs per
-// SM, out[1] its query-token rows, out[2] its page-tile tokens.
-extern "C" int evdr_f32_occupancy(int d, void* out) {
+// K5 in float32 mode: K1 float32's scores in out and each row's max in m
+// (nq * lq, nd) f32.
+extern "C" int evdr_maxsim_fwd_train_f32(const void* q, const void* qw,
+                                         const void* p, const void* pmask,
+                                         void* out, void* m, int nq, int lq,
+                                         int nd, int lp, int d, void* stream) {
+  if (m == nullptr) return (int)cudaErrorInvalidValue;
+  return evdr::f32_launch_call(q, qw, p, pmask, out, m, nq, lq, nd, lp, d,
+                               stream);
+}
+
+// The configuration evdr_maxsim_f32 (or, where `train`, K5 float32) runs at
+// width d: out[0] its CTAs per SM, out[1] its query-token rows (the most
+// query tokens a launch takes), out[2] its page-tile tokens.
+extern "C" int evdr_f32_occupancy(int d, int train, void* out) {
   using namespace evdr;
   int* o = static_cast<int*>(out);
   F32Launch cfg;
-  const int e = f32_config(d, &cfg);
+  const int e = f32_config(d, train != 0, &cfg);
   if (e != 0) return e;
   o[1] = cfg.rows;
   o[2] = cfg.cols;

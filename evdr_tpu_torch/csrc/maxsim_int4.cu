@@ -47,14 +47,14 @@ extern "C" int evdr_maxsim_int4full(const void* q, const void* qw,
                                     const void* pmask, void* out, int nq,
                                     int lq, int nd, int lp, int d,
                                     void* stream) {
-  return evdr::launch<evdr::kInt4Int8, false, false, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt4Int8, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }
 
 extern "C" int evdr_maxsim_int4(const void* q, const void* qw, const void* p,
                                 const void* scales, const void* pmask,
                                 void* out, int nq, int lq, int nd, int lp,
                                 int d, void* stream) {
-  return evdr::launch<evdr::kInt4Bf16, false, false, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt4Bf16, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }

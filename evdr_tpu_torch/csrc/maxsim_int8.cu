@@ -44,14 +44,14 @@ extern "C" int evdr_maxsim_int8full(const void* q, const void* qw,
                                     const void* pmask, void* out, int nq,
                                     int lq, int nd, int lp, int d,
                                     void* stream) {
-  return evdr::launch<evdr::kInt8Int8, false, false, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt8Int8, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }
 
 extern "C" int evdr_maxsim_int8(const void* q, const void* qw, const void* p,
                                 const void* scales, const void* pmask,
                                 void* out, int nq, int lq, int nd, int lp,
                                 int d, void* stream) {
-  return evdr::launch<evdr::kInt8Bf16, false, false, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt8Bf16, false, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }

@@ -31,8 +31,8 @@ extern "C" int evdr_maxsim_int8full_defer(const void* q, const void* qw,
                                           const void* pmask, void* out, int nq,
                                           int lq, int nd, int lp, int d,
                                           void* stream) {
-  return evdr::launch<evdr::kInt8Int8, false, true, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt8Int8, true, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }
 
 extern "C" int evdr_maxsim_int8_defer(const void* q, const void* qw,
@@ -40,6 +40,6 @@ extern "C" int evdr_maxsim_int8_defer(const void* q, const void* qw,
                                       const void* pmask, void* out, int nq,
                                       int lq, int nd, int lp, int d,
                                       void* stream) {
-  return evdr::launch<evdr::kInt8Bf16, false, true, evdr::CfgWide>(
-      q, qw, p, scales, pmask, out, nullptr, nq, lq, nd, lp, d, stream);
+  return evdr::launch<evdr::kInt8Bf16, true, evdr::CfgWide>(
+      q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
 }

@@ -1,13 +1,12 @@
 // Fused masked MaxSim for Hopper (sm_90a): the tile loop shared by
 // maxsim_int8.cu (K2), maxsim_int8_defer.cu (K2b, K2 with its doc epilogue
-// deferred one tile), maxsim_int4.cu (K4) and maxsim_train.cu (K5 in bf16
-// and float32, which also stores the per-row max M; K6 recomputes the same
-// similarity tiles through tile_mma below, a copy of the kernel's k-loop).
-// maxsim_pq.cu (K3, a kernel of its own: thread-block clusters share the PQ
-// decode) and maxsim_f32.cu (K1's float32 mode, a kernel of its own: 64 x
-// 32 outputs a warp on 256 x 64 tiles, one CTA per SM at D = 128) reuse the
-// helpers and tile_mma; maxsim_bf16.cu (K1, a kernel of its own on wgmma
-// and TMA) the constants and smem_addr.
+// deferred one tile) and maxsim_int4.cu (K4). maxsim_pq.cu (K3, a kernel of
+// its own: thread-block clusters share the PQ decode), maxsim_f32.cu (K1's
+// float32 mode and K5's, a kernel of its own: 64 x 32 outputs a warp on
+// 256 x 64 tiles, one CTA per SM at D = 128) and maxsim_train.cu (K6, whose
+// float32 mode recomputes K5's similarities through tile_mma below) reuse
+// the helpers and tile_mma; maxsim_bf16.cu (K1 and K5 in bf16, a kernel of
+// its own on wgmma and TMA) the constants and smem_addr.
 //
 // score[q, d] = sum_t qw[q, t] * f(max_m sim[q, t, d, m]), with
 //   sim = <Q[q, t], P[d, m]> * s[d, m] for a valid doc token (s = 1 for a
@@ -21,12 +20,11 @@
 //   configuration, TileCfg below): the floor(kR / Lq) whole queries
 //   starting at blockIdx.x * qb, staged once in shared memory. It walks db
 //   docs (blockIdx.y), and each doc's Lp tokens in tiles of kCols = 64.
-//   Two configurations: CfgBase, 128 rows and 4 docs a CTA, 32 x 32
-//   outputs a warp (K5, and the k-loop K6 and K3 repeat through
-//   tile_mma); CfgWide, 256 rows and 8 docs a CTA, 64 x 32 a warp, the
-//   query block brought by cp.async with the first page tile (K2, K2b and
-//   K4: measured on an H100 18-20% faster than CfgBase at the serving
-//   shape, with the same scores bit for bit, PERF.md).
+//   The configuration K2, K2b and K4 run is CfgWide: 256 rows and 8 docs a
+//   CTA, 64 x 32 outputs a warp, the query block brought by cp.async with
+//   the first page tile (measured on an H100 18-20% faster than 128 rows
+//   and 32 x 32 a warp, tile_mma's layout, at the serving shape, with the
+//   same scores bit for bit, PERF.md).
 // - Each tile's similarity block comes from mma.sync tensor-core
 //   instructions (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, or three
 //   m16n8k8 tf32 products per k-step for float32, see mma() below): 8 warps
@@ -61,7 +59,7 @@
 
 namespace evdr {
 
-constexpr int kRows = 128;         // query-token rows per CTA (CfgBase)
+constexpr int kRows = 128;         // query-token rows of tile_mma's tile
 constexpr int kCols = 64;          // doc tokens per tile
 constexpr int kThreads = 256;      // 8 warps: 4 (rows) x 2 (cols)
 constexpr int kMaxGridY = 65535;
@@ -69,10 +67,9 @@ constexpr int kMaxGridY = 65535;
 // A tile configuration of maxsim_kernel: ROWS query-token rows per CTA
 // against 64-token page tiles, the 8 warps standing 4 x 2, so a warp holds
 // kI blocks of 16 rows x kJ blocks of 8 columns (kI ldmatrix.x4 of A and
-// two of B per k-step); DOCS docs per CTA (blockIdx.y). CfgBase is the
-// layout of K5 (32 x 32 a warp), which its machine code keeps; CfgWide the
-// one K2, K2b and K4 run (64 x 32 a warp on 256 x 64 tiles, as K1 float32
-// in maxsim_f32.cu: half the A and B ldmatrix bytes per product, and each
+// two of B per k-step); DOCS docs per CTA (blockIdx.y). CfgWide is the one
+// K2, K2b and K4 run (64 x 32 a warp on 256 x 64 tiles, as K1 float32 in
+// maxsim_f32.cu: half the A and B ldmatrix bytes per product, and each
 // page tile converted once per 256 query rows).
 template <int ROWS, int DOCS> struct TileCfg {
   static constexpr int kR = ROWS, kDocs = DOCS;
@@ -80,17 +77,16 @@ template <int ROWS, int DOCS> struct TileCfg {
   static constexpr int kWarpRows = ROWS / kWM, kWarpCols = kCols / kWN;
   static constexpr int kI = kWarpRows / 16, kJ = kWarpCols / 8;
 };
-using CfgBase = TileCfg<kRows, 4>;
 using CfgWide = TileCfg<2 * kRows, 8>;
 constexpr float kNegInit = -1e30f;    // pallas_maxsim.py NEG_INIT
 constexpr float kNegThresh = -1e29f;  // pallas_maxsim.py NEG_THRESH
 
-// kBf16: bf16 Q x bf16 P (K5). kInt8Bf16: bf16 Q x int8 codes widened to
-// bf16 in shared memory (K2, int8 mode). kInt8Int8: int8 Q x int8 codes,
-// int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P by split
-// TF32 products (K1, compute_dtype float32). kInt4Bf16 / kInt4Int8: the
-// same two K2 modes over token-pair packed int4 codes unpacked in shared
-// memory (K4).
+// kBf16: bf16 Q x bf16 P (K3's loop). kInt8Bf16: bf16 Q x int8 codes
+// widened to bf16 in shared memory (K2, int8 mode). kInt8Int8: int8 Q x
+// int8 codes, int32 accumulation (K2, int8full mode). kF32: f32 Q x f32 P
+// by split TF32 products (K1 and K5 at compute_dtype float32, K6's
+// recompute). kInt4Bf16 / kInt4Int8: the same two K2 modes over token-pair
+// packed int4 codes unpacked in shared memory (K4).
 enum Mode {
   kBf16 = 0, kInt8Bf16 = 1, kInt8Int8 = 2, kF32 = 3,
   kInt4Bf16 = 4, kInt4Int8 = 5
@@ -157,7 +153,7 @@ template <int MODE> __host__ __device__ inline size_t raw_tile_bytes(
 // Shared-memory carve-up, in bytes from the dynamic base. Row strides are
 // (units + 1) * 16 bytes. K2b (`defer`) keeps two `part` and two `red`
 // buffers, one of each per doc parity.
-template <int MODE, class CFG = CfgBase> struct Smem {
+template <int MODE, class CFG> struct Smem {
   int units, raw_units;
   size_t a, b, raw, colscale, qw, part, red, total;
   __host__ __device__ explicit Smem(int d, bool defer = false) {
@@ -382,16 +378,17 @@ __device__ inline float masked(float s, float cs) {
   return cs >= 0.f ? s * cs : kNegInit;
 }
 
-// One 128 x 64 similarity tile for K6's recompute and for K3: acc[i][j]
-// receives rows wm*32 + i*16 + {g, g+8} and columns wn*32 + j*8 + 2t +
-// {0, 1} of As (kRows query-token rows) against B (kCols doc-token rows),
-// summed over D in k-steps of two units, in order. It is maxsim_kernel's
-// k-loop below, instruction for instruction (the same ldmatrix fragments,
-// operand roles, MMA shape and k order), so each similarity K6 recomputes
-// is bit-identical to the one K5 took the max of, which K6's (sim == M)
-// indicator needs, and K3 scores as it did inside maxsim_kernel. Keep the
-// two loops identical. maxsim_kernel does not call this function: doing so
-// cost K2's int8 mode 4% on the H100 (more registers, another schedule;
+// One 128 x 64 similarity tile for K6's float32 recompute and for K3:
+// acc[i][j] receives rows wm*32 + i*16 + {g, g+8} and columns wn*32 + j*8 +
+// 2t + {0, 1} of As (kRows query-token rows, 32 x 32 outputs a warp)
+// against B (kCols doc-token rows), summed over D in k-steps of two units,
+// in order. Each output's arithmetic is maxsim_kernel's k-loop below and, in
+// float32 mode, K5's (maxsim_f32.cu: the same fragments, MMA shape, three
+// products a k-step in the same order, k order), so each similarity K6
+// recomputes is bit-identical to the one K5 took the max of, which K6's
+// (sim == M) indicator needs. Keep the loops' arithmetic identical.
+// maxsim_kernel does not call this function: doing so cost K2's int8 mode
+// 4% on the H100 (more registers, another schedule;
 // scripts/torch_kernel_ab.py, PERF.md).
 template <int MODE>
 __device__ inline void tile_mma(typename Traits<MODE>::TAcc (&acc)[2][4][4],
@@ -452,26 +449,25 @@ __device__ inline void defer_sum(const float* rr, float* out, int q0,
   }
 }
 
-// STORE_M: K5, which also stores each row's max in m_out. A template flag,
-// so the serving kernels compile without that store. DEFER: K2b, the doc
-// epilogue of K2 moved one tile later (see the doc-end block below); also
-// a template flag. CFG: the tile configuration (TileCfg).
-template <int MODE, bool STORE_M, bool DEFER = false, class CFG = CfgBase>
+// DEFER: K2b, the doc epilogue of K2 moved one tile later (see the doc-end
+// block below); a template flag. CFG: the tile configuration (TileCfg).
+// The unnamed pointer keeps the parameters' offsets, and so the machine
+// code, of the kernels measured in PERF.md.
+template <int MODE, bool DEFER, class CFG>
 __global__ void __launch_bounds__(kThreads)
 maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
               const float* __restrict__ qw,
               const typename Traits<MODE>::TP* __restrict__ p,
               const float* __restrict__ scales,
               const uint8_t* __restrict__ pmask, float* __restrict__ out,
-              float* __restrict__ m_out, int nq, int lq, int nd, int lp,
-              int d, int qb, int db) {
+              float*, int nq, int lq, int nd, int lp, int d, int qb,
+              int db) {
   using TQ = typename Traits<MODE>::TQ;
   using TP = typename Traits<MODE>::TP;
   using TAcc = typename Traits<MODE>::TAcc;
   // the MMA operand type: bf16 unless both sides are int8 (f32 for kF32)
   using TS = typename Traits<MODE>::TQ;
   constexpr int R = CFG::kR, kI = CFG::kI, kJ = CFG::kJ;
-  static_assert(!(STORE_M && DEFER), "K5 keeps the in-step epilogue");
   static_assert(R <= kThreads, "one row a thread in the doc epilogue");
   static_assert(kJ == 4, "two B ldmatrix.x4 a k-step");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -498,14 +494,10 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   const size_t row0 = (size_t)q0 * lq;
   const int p_units = d * (int)sizeof(TP) / 16;
 
-  // the query block, reused for every doc token: staged once, before the
-  // loop (CfgBase), or as one cp.async group with the first page tile
-  if constexpr (R == kRows)
-    stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
-               kRows, nrows, d * (int)sizeof(TQ) / 16, units, tid);
-  else
-    stage_async<R>(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
-                   nrows, d * (int)sizeof(TQ) / 16, units, tid);
+  // the query block, reused for every doc token: one cp.async group with
+  // the first page tile
+  stage_async<R>(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
+                 nrows, d * (int)sizeof(TQ) / 16, units, tid);
   for (int r = tid; r < R; r += kThreads)
     qw_s[r] = r < nrows ? qw[row0 + r] : 0.f;
   if constexpr (is_staged<MODE> && MODE != kInt8Bf16) {
@@ -544,10 +536,7 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
     }
     if (tid < kCols) {
       float cs = -1.f;  // the invalid-token sentinel (also an odd Lp's pad)
-      if (tid < ntok && pmask[tok0 + tid]) {
-        if constexpr (MODE == kBf16 || MODE == kF32) cs = 1.f;
-        else cs = scales[tok0 + tid];
-      }
+      if (tid < ntok && pmask[tok0 + tid]) cs = scales[tok0 + tid];
       colscale[buf * kCols + tid] = cs;
     }
   };
@@ -579,8 +568,8 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       B = Bs;
     }
 
-    // the tile's similarities; tile_mma above repeats this loop (CfgBase)
-    // for K6
+    // the tile's similarities; tile_mma above repeats this loop's
+    // arithmetic for K3 and K6
     TAcc acc[kI][kJ][4];
 #pragma unroll
     for (int i = 0; i < kI; ++i)
@@ -661,11 +650,6 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
         __syncthreads();
         if (tid < R) {  // R <= kThreads: one row a thread
           const float m = fmaxf(part[tid], part[R + tid]);
-          // K5: the row's raw max (before the no-valid-token rule), the
-          // residual K6 compares recomputed similarities against
-          if constexpr (STORE_M) {
-            if (tid < nrows) m_out[(row0 + tid) * nd + dd] = m;
-          }
           red[tid] = (m > kNegThresh ? m : 0.f) * qw_s[tid];
         }
         __syncthreads();
@@ -692,22 +676,20 @@ maxsim_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 }
 
 // Host launcher: validates what the kernel cannot take, sizes shared
-// memory, launches on `stream` and returns cudaGetLastError().
-// ``m_out`` (nq * lq, nd) f32 where K5 (STORE_M) stores each row's max;
-// unused (null) otherwise. DEFER: K2b (K2's modes only). CFG: the tile
-// configuration; a call takes Lq <= CFG::kR query tokens and D a multiple
-// of 16 (the wrappers slice longer queries and zero-pad D).
-template <int MODE, bool STORE_M = false, bool DEFER = false,
-          class CFG = CfgBase>
+// memory, launches on `stream` and returns cudaGetLastError(). DEFER: K2b
+// (K2's modes only). CFG: the tile configuration; a call takes Lq <=
+// CFG::kR query tokens and D a multiple of 16 (the wrappers slice longer
+// queries and zero-pad D).
+template <int MODE, bool DEFER, class CFG>
 int launch(const void* q, const void* qw, const void* p, const void* scales,
-           const void* pmask, void* out, void* m_out, int nq, int lq, int nd,
-           int lp, int d, void* stream) {
+           const void* pmask, void* out, int nq, int lq, int nd, int lp,
+           int d, void* stream) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > CFG::kR || d < 16 ||
       d % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Smem<MODE, CFG> lay(d, DEFER);
   if (lay.total > 232448) return (int)cudaErrorInvalidValue;
-  auto* kern = maxsim_kernel<MODE, STORE_M, DEFER, CFG>;
+  auto* kern = maxsim_kernel<MODE, DEFER, CFG>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
@@ -720,8 +702,7 @@ int launch(const void* q, const void* qw, const void* p, const void* scales,
       static_cast<const float*>(qw),
       static_cast<const typename Traits<MODE>::TP*>(p),
       static_cast<const float*>(scales), static_cast<const uint8_t*>(pmask),
-      static_cast<float*>(out), static_cast<float*>(m_out), nq, lq, nd, lp, d,
-      qb, db);
+      static_cast<float*>(out), nullptr, nq, lq, nd, lp, d, qb, db);
   return (int)cudaGetLastError();
 }
 

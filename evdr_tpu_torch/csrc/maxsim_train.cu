@@ -1,13 +1,8 @@
-// K5 and K6: the differentiable MaxSim op's forward-for-training and
-// backward, for Hopper (sm_90a), in bf16 and in float32.
-//
-// K5 replaces evdr_tpu/ops/pallas_maxsim_bwd.py:_fwd_train_kernel (entry
-// maxsim_pallas_fwd_train, reached from pallas_maxsim.py:_fwd). It is K1's
-// tile loop (maxsim_tile.cuh; bf16, or K1's float32 mode for
-// compute_dtype=float32) plus one store: at each doc's end, each
-// query-token row's max over the doc's tokens (before the no-valid-token
-// rule) goes to M[(q, t), d], an (nq * lq, nd) f32 array, the backward's
-// residual. Bound like K1, by operations; M adds nq * lq * nd * 4 bytes.
+// K6: the differentiable MaxSim op's backward, for Hopper (sm_90a), in
+// bf16 and in float32. Its forward, K5 (K1's kernels with an M store:
+// evdr_maxsim_fwd_train in maxsim_bf16.cu, evdr_maxsim_fwd_train_f32 in
+// maxsim_f32.cu), leaves M[(q, t), d], each query-token row's max over
+// each doc's tokens, the residual K6 compares against.
 //
 // K6 replaces pallas_maxsim_bwd.py:_dqdp_kernel + _indicator (entries
 // maxsim_pallas_bwd / _maxsim_pallas_bwd_impl, reached from
@@ -22,16 +17,19 @@
 // size (bf16 tensor rate; float32: TF32, three MMAs a k-step); the
 // gradient is ~one page row and one query row a (row, doc).
 // Design:
-// - sim is recomputed by tile_mma, a copy of K5's k-loop: the same operand
-//   roles (query rows as A, doc tokens as B), MMA shape, operand layout
-//   (row stride (units + 1) * 16) and order of k-steps over D, so every
-//   recomputed similarity is bit-identical to the one K5 took the max of
-//   and (sim == M) holds exactly where it did.
+// - sim is recomputed with K5's products, so every recomputed similarity
+//   is bit-identical to the one K5 took the max of and (sim == M) holds
+//   exactly where it did. bf16 (wg_hits): K5's wgmma m64n64k16 over its
+//   64-token tiles, each warpgroup 64 of the tile's 128 rows, the query
+//   block and page tiles in K5's 128B-swizzled layout, D / 16 k-steps in
+//   order. float32: tile_mma<kF32>, whose three TF32 products a k-step are
+//   K5 float32's (maxsim_f32.cu) element for element.
 // - Sparse gradients. E is one-hot but for ties (one nonzero a row and
 //   doc: 1 in 154 at the train step's shape), so each 128 x 64 tile's hits
 //   become bit masks in shared memory instead of two dense products on a
-//   0/1 tile: a row's 64 bits as two words (one per column warp) and a
-//   token's 128 bits as four (one per row warp), whole words, no atomics.
+//   0/1 tile: a row's 64 bits as two words and a token's 128 bits as four
+//   (bf16: eight halfwords, one per warp of 16 rows; float32: one word per
+//   column warp and per row warp), whole words, no atomics.
 //   dQ: thread (row r, half of D) adds e * P_tile[c, its half] for each of
 //   r's hits, in ascending c, into registers kept across the doc slice
 //   (D / 2 floats a thread). dP: below. Products of the stored operands
@@ -40,9 +38,11 @@
 // - A chunk's query blocks (at most 8, the wrapper's chunk) form one
 //   thread-block cluster along x (padding CTAs, without rows, up to a power
 //   of two), walking the same doc slice (y) in step. Each page tile
-//   reaches the cluster once: each CTA brings 1/C of its rows by bulk
-//   copies multicast to every CTA's ring stage (cp.async.bulk .multicast
-//   ::cluster, completing on each CTA's full mbarrier).
+//   reaches the cluster once: each CTA brings 1/C of its rows multicast to
+//   every CTA's ring stage (bf16: TMA boxes of the 128B-swizzled layout,
+//   kCols / C rows, at offsets that are multiples of 1024 bytes; float32:
+//   row-by-row bulk copies; .multicast::cluster, completing on each CTA's
+//   full mbarrier).
 // - kStep = 4 page tiles a cluster barrier (fewer where the ring holds
 //   fewer: float32 above D = 128): the tiles' recomputes and dQ walks, then
 //   one arrive/wait, then the pull of the tiles' dP. The barrier also
@@ -66,15 +66,12 @@
 //   cudaOccupancyMaxActiveClusters).
 // The measured choices (two tiles or one a barrier, hits loaded 4 or 16 at
 // a time, rings of 4 stages, no cluster, and earlier designs) are in
-// PERF.md. Shared memory: bf16 D = 128 191,104 bytes (8 stages), D = 256
-// 219,776 (4); float32 D = 128 219,776 (4), D = 192 217,728 (2): one CTA
+// PERF.md. Shared memory: bf16 D = 128 181,888 bytes (8 stages), D = 256
+// 214,656 (4); float32 D = 128 219,776 (4), D = 192 217,728 (2): one CTA
 // of 256 threads per SM. K6 takes D a multiple of 16 up to 256 (float32:
 // 192), as K5.
 //
 // C interfaces (ctypes; every pointer and the stream is a void*):
-// evdr_maxsim_fwd_train[_f32](q (nq, lq, d) bf16 [f32], qw f32 (nq, lq),
-//   p (nd, lp, d) bf16 [f32], pmask bool (nd, lp), out f32 (nq, nd),
-//   m f32 (nq*lq, nd), nq, lq, nd, lp, d, stream);
 // evdr_maxsim_bwd[_f32](q, qw, p, pmask, m, g f32 (nq, nd) already
 //   multiplied by doc_has_token, dq_part f32 (ceil(nd / db), nq*lq, d),
 //   dp f32 (ceil(n_qblocks / cluster), nd, lp, d) with n_qblocks =
@@ -83,13 +80,15 @@
 // evdr_bwd_config(f32, d, cluster, out int[5]): CTAs per SM, clusters of
 //   `cluster` CTAs the card holds at once, ring stages, shared bytes, page
 //   tiles a cluster barrier.
-// Each launch returns its error (a refused cluster launch included), else
-// cudaGetLastError().
-#include "maxsim_tile.cuh"
+// Each launch returns its error (a refused cluster launch included), minus
+// the CUresult of a refused tensor-map encode, else cudaGetLastError().
+#include "hopper.cuh"
 
 namespace evdr {
 namespace {
 
+// bf16 mode recomputes on wgmma (K5's products), float32 by tile_mma
+template <int MODE> constexpr bool kWg = MODE == kBf16;
 template <int MODE> constexpr int kBwdMaxD = MODE == kF32 ? 192 : 256;
 constexpr int kBwdStages = 8;       // ring stages, as many as fit
 constexpr int kBwdCluster = 8;      // the portable cluster size
@@ -150,32 +149,6 @@ template <int MODE> __device__ inline float2 peer_pair(uint32_t a) {
   }
 }
 
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-__device__ inline void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 // `bytes` from global to the shared buffer `dst` (16-byte aligned, a
 // multiple of 16 bytes), completing on `bar`; with `mask` != 1, into the
 // same offset of every CTA of the cluster in the mask, each completing on
@@ -199,28 +172,56 @@ __device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
 
 // ------------------------------------------------------------ layout
 
-// Shared-memory carve-up of K6, in bytes from the dynamic base: the query
-// block and the page-tile ring (row stride (units + 1) * 16, K5's), then
-// two parity buffers (tile i uses i & 1) of the column scales, each row's
-// M (NaN where W = 0: no hit), each row's e, the row masks (kRows x 2
+// Shared-memory carve-up of K6, in bytes from the dynamic base (bf16: from
+// a 1024-byte aligned base, `total` adding the slack): the query block and
+// the page-tile ring (bf16: K5's 128B-swizzled chunks of 64 columns, a
+// stage `tile` bytes; float32: rows of stride (units + 1) * 16, tile_mma's),
+// then two parity buffers (tile i uses i & 1) of the column scales, each
+// row's M (NaN where W = 0: no hit), each row's e, the row masks (kRows x 2
 // words) and the token masks (kCols x 4 words), then the ring's full
 // barriers.
 template <int MODE> struct BwdSmem {
-  size_t a, b, colscale, mrow, erow, rowbits, colbits, hits, bars, total;
+  size_t a, b, tile, colscale, mrow, erow, rowbits, colbits, hits, bars,
+      total;
   __host__ __device__ BwdSmem(int d, int stages) {
-    const size_t row = (size_t)(mma_units<MODE>(d) + 1) * 16;
     a = 0;
-    b = align128(row * kRows);
-    colscale = align128(b + row * kCols * stages);
+    if constexpr (kWg<MODE>) {
+      const size_t chunk = (size_t)((d + kBoxK - 1) / kBoxK) * 128;
+      b = chunk * kRows;
+      tile = chunk * kCols;
+    } else {
+      const size_t row = (size_t)(mma_units<MODE>(d) + 1) * 16;
+      b = align128(row * kRows);
+      tile = row * kCols;
+    }
+    colscale = align128(b + tile * stages);
     mrow = colscale + 2 * kCols * sizeof(float);
     erow = mrow + 2 * kRows * sizeof(float);
     rowbits = erow + 2 * kStep * kRows * sizeof(float);
     colbits = rowbits + 2 * kRows * 2 * sizeof(uint32_t);
     hits = colbits + 2 * kStep * kCols * 4 * sizeof(uint32_t);
     bars = align128(hits + (kThreads / 32) * kList * sizeof(uint16_t));
-    total = align128(bars + stages * sizeof(uint64_t));
+    total = align128(bars + stages * sizeof(uint64_t)) +
+            (kWg<MODE> ? 1024 : 0);
   }
 };
+
+// The query block in K5's layout (128B-swizzled chunks of 64 columns,
+// kRows rows each), rows at or past `valid` and columns at or past d zero;
+// then made visible to wgmma (the async proxy).
+__device__ inline void stage_q_sw128(unsigned char* dst,
+                                     const __nv_bfloat16* src, int valid,
+                                     int d, int tid) {
+  const int units = (d + kBoxK - 1) / kBoxK * 8;  // 16-byte units a row
+  for (int i = tid; i < kRows * units; i += kThreads) {
+    const int r = i / units, u = i % units;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < valid && u * 8 < d)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)r * d + u * 8);
+    *reinterpret_cast<uint4*>(dst + sw128_offset(r, u * 8, kRows)) = v;
+  }
+  fence_proxy_async();
+}
 
 // a[u] for a runtime u, by selects (no local memory)
 template <int N> __device__ inline int pick(const int (&a)[N], int u) {
@@ -258,6 +259,92 @@ template <int MODE> int bwd_stages(int d) {
 
 // NCH: 64-column chunks of D (a dP lane holds two columns of each; a dQ
 // thread half of D).
+// bf16 mode's recompute of a 128 x 64 tile and its hits. Each warpgroup
+// (wg = warp / 4) takes rows wg * 64 .. + 64 and issues K5's products:
+// wgmma m64n64k16 (kTrainTileN = 64 columns, maxsim_bf16.cu), A and B
+// through 128B-swizzle descriptors, the first k-step overwriting the
+// accumulators, D / 16 k-steps in ascending order, so each similarity is
+// the one K5 took the max of. A thread holds rows 16 (warp % 4) + 8h + g
+// of its warpgroup's 64 and columns 8j + 2t + {0, 1} (mma.sync's layout),
+// so a row's 64 bits gather in its quad and a token's 16 bits of a warp's
+// rows in the 8 lanes of equal t: rowbits gets a row's two words (columns
+// 0-31, 32-63; those at or past ntok cleared), colbits16 a token's 8
+// halfwords, halfword w the 16 rows of warp w (the same bits as the four
+// words of 32 rows the pull reads). Whole words, no atomics. `active`:
+// the CTA has rows (else every mask is 0).
+__device__ inline void wg_hits(const unsigned char* As,
+                               const unsigned char* B, const float* cs,
+                               const float* mr, uint2* rowbits,
+                               uint16_t* colbits16, int d, int ntok,
+                               bool active, int warp, int lane) {
+  const int g = lane / 4, t = lane % 4, wg = warp / 4;
+  uint32_t rw[2][2] = {{0u, 0u}, {0u, 0u}};  // row 8h + g: [h][columns / 32]
+  uint32_t cw[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};  // [j]: b = 0 | b = 1
+  if (active) {
+    float acc[32];
+    const uint64_t a_desc = sw128_desc(smem_addr(As) + wg * 64 * 128);
+    const uint64_t b_desc = sw128_desc(smem_addr(B));
+    fence_regs(acc);
+    wgmma_fence();
+    for (int k = 0; k < d / 16; ++k) {
+      // chunk k / 4, 32 bytes a k-step within it (descriptor units of 16)
+      const uint32_t kb = (k % 4) * 2;
+      wgmma(acc, a_desc + (((k / 4) * kRows * 128) >> 4) + kb,
+            b_desc + (((k / 4) * kCols * 128) >> 4) + kb, k);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mv = mr[wg * 64 + (warp % 4) * 16 + h * 8 + g];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const uint32_t hit =
+              masked(acc[4 * j + 2 * h + b], cs[8 * j + 2 * t + b]) == mv;
+          rw[h][j / 4] |= hit << ((j % 4) * 8 + 2 * t + b);
+          cw[j] |= hit << (b * 16 + h * 8 + g);
+        }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      rw[h][x] |= __shfl_xor_sync(0xffffffffu, rw[h][x], 1);
+      rw[h][x] |= __shfl_xor_sync(0xffffffffu, rw[h][x], 2);
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cw[j] |= __shfl_xor_sync(0xffffffffu, cw[j], 4);
+    cw[j] |= __shfl_xor_sync(0xffffffffu, cw[j], 8);
+    cw[j] |= __shfl_xor_sync(0xffffffffu, cw[j], 16);
+  }
+  if (t == 0) {
+    const uint32_t v0 = ntok >= 32 ? 0xffffffffu : (1u << ntok) - 1;
+    const uint32_t v1 = ntok >= 64   ? 0xffffffffu
+                        : ntok > 32 ? (1u << (ntok - 32)) - 1
+                                    : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rowbits[wg * 64 + (warp % 4) * 16 + h * 8 + g] =
+          make_uint2(rw[h][0] & v0, rw[h][1] & v1);
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        colbits16[(8 * j + 2 * t + b) * 8 + warp] =
+            (uint16_t)(cw[j] >> (16 * b));
+  }
+}
+
+// tm_p: bf16 mode's pages, a (nd * lp, d) tensor in boxes of 64 columns x
+// kCols / cluster rows, 128B-swizzled (float32 mode: unused). The last
+// parameter, so the float32 kernels' parameters keep their offsets.
 template <int MODE, int NCH>
 __global__ void __launch_bounds__(kThreads)
 maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
@@ -267,10 +354,15 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
                   const float* __restrict__ m, const float* __restrict__ g,
                   float* __restrict__ dq_part, float* __restrict__ dp_out,
                   int nq, int lq, int nd, int lp, int d, int qb, int db,
-                  int stages) {
+                  int stages, const __grid_constant__ CUtensorMap tm_p) {
   using T = typename Traits<MODE>::TQ;
   using TAcc = typename Traits<MODE>::TAcc;
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if constexpr (kWg<MODE>) {
+    const uint32_t raw = smem_addr(smem_raw);
+    smem += ((raw + 1023) & ~1023u) - raw;
+  }
   const BwdSmem<MODE> lay(d, stages);
   const int units = mma_units<MODE>(d);
   const size_t stride = (size_t)(units + 1) * 16;
@@ -336,22 +428,46 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
   // of the cluster; each CTA's barrier expects the whole tile
   auto issue = [&](const TilePos& x) {
     const int l0 = x.t * kCols;
-    const int ntok = min(kCols, lp - l0);
-    if (tid == 0) mbar_arrive_tx(full + x.s, (uint32_t)ntok * rowbytes);
-    // row rank + C i, i = warp + 8 lane: one copy a warp where C = 8
-    const int r = rank + ncta * (warp + 8 * lane);
-    if (r < ntok)
-      bulk_load(Bs + ((size_t)x.s * kCols + r) * stride,
-                p + ((size_t)x.dd * lp + l0 + r) * d, rowbytes, full + x.s,
-                cta_mask);
+    if constexpr (kWg<MODE>) {
+      // K5's boxes: kCols rows from the tile's first token (the next doc's
+      // tokens or zeros past the doc, which the column scales mask), each
+      // CTA kCols / C of them, every 64-column chunk; TMA counts the whole
+      // box, zeros included. Lane 0 of warp (stage % 8) issues them, so a
+      // step's refills spread over the warps that then start the pull.
+      if (tid == 32 * (x.s % (kThreads / 32))) {
+        const int rows = kCols / ncta;
+        mbar_arrive_tx(full + x.s, (uint32_t)lay.tile);
+        unsigned char* dst = Bs + x.s * lay.tile + rank * rows * 128;
+        const int r0 = x.dd * lp + l0 + rank * rows;
+        for (int c = 0; c * kBoxK < d; ++c) {
+          if (ncta == 1)
+            tma_load(dst + c * kCols * 128, &tm_p, c * kBoxK, r0, full + x.s);
+          else
+            tma_load_multicast(dst + c * kCols * 128, &tm_p, c * kBoxK, r0,
+                               full + x.s, cta_mask);
+        }
+      }
+    } else {
+      const int ntok = min(kCols, lp - l0);
+      if (tid == 0) mbar_arrive_tx(full + x.s, (uint32_t)ntok * rowbytes);
+      // row rank + C i, i = warp + 8 lane: one copy a warp where C = 8
+      const int r = rank + ncta * (warp + 8 * lane);
+      if (r < ntok)
+        bulk_load(Bs + ((size_t)x.s * kCols + r) * stride,
+                  p + ((size_t)x.dd * lp + l0 + r) * d, rowbytes, full + x.s,
+                  cta_mask);
+    }
   };
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d), kRows,
-             nrows, units, units, tid);
+  if constexpr (kWg<MODE>)
+    stage_q_sw128(As, q + row0 * d, nrows, d, tid);
+  else
+    stage_sync(As, reinterpret_cast<const unsigned char*>(q + row0 * d),
+               kRows, nrows, units, units, tid);
   // the tile being processed, the next one's metadata, the next to issue
   TilePos cur = {d_begin, 0, 0, 0};
   TilePos nxt = cur, iss = cur;
@@ -397,69 +513,77 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
       const int l0 = cur.t * kCols;
       const int ntok = min(kCols, lp - l0);
       const bool more = it + 1 < total;
-      const unsigned char* B = Bs + (size_t)cur.s * stride * kCols;
+      const unsigned char* B =
+          Bs + (kWg<MODE> ? cur.s * lay.tile : (size_t)cur.s * stride * kCols);
       step_dd[u] = cur.dd;
       step_l0[u] = l0;
       if (more) load_meta(nxt);
       mbar_wait(full + cur.s, cur.ph);
 
       // recompute the similarity tile exactly as K5 did; hits into masks
-      uint32_t rw[2][2] = {{0u, 0u}, {0u, 0u}};  // rows i*16 + h*8 + gq
-      uint32_t cw[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
-      if (nrows > 0) {
-        TAcc acc[2][4][4];
-        tile_mma<MODE>(acc, As, B, units, stride, lane, wm, wn);
-        const float* cs = colscale + pb * kCols + wn * 32 + 2 * t;
-        const float* mr = mrow + pb * kRows + wm * 32 + gq;
+      if constexpr (kWg<MODE>) {
+        wg_hits(As, B, colscale + pb * kCols, mrow + pb * kRows,
+                reinterpret_cast<uint2*>(rowbits) + pb * kRows,
+                reinterpret_cast<uint16_t*>(colbits) + buf * kCols * 8, d,
+                ntok, nrows > 0, warp, lane);
+      } else {
+        uint32_t rw[2][2] = {{0u, 0u}, {0u, 0u}};  // rows i*16 + h*8 + gq
+        uint32_t cw[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+        if (nrows > 0) {
+          TAcc acc[2][4][4];
+          tile_mma<MODE>(acc, As, B, units, stride, lane, wm, wn);
+          const float* cs = colscale + pb * kCols + wn * 32 + 2 * t;
+          const float* mr = mrow + pb * kRows + wm * 32 + gq;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float mv = mr[i * 16 + h * 8];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int b = 0; b < 2; ++b) {
+                  const uint32_t hit =
+                      masked((float)acc[i][j][2 * h + b], cs[j * 8 + b]) == mv;
+                  rw[i][h] |= hit << (j * 8 + 2 * t + b);
+                  cw[j][b] |= hit << (i * 16 + h * 8 + gq);
+                }
+            }
+        }
+        // a row's word: the quad's columns; a token's word: the warp's rows
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float mv = mr[i * 16 + h * 8];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int b = 0; b < 2; ++b) {
-                const uint32_t hit =
-                    masked((float)acc[i][j][2 * h + b], cs[j * 8 + b]) == mv;
-                rw[i][h] |= hit << (j * 8 + 2 * t + b);
-                cw[j][b] |= hit << (i * 16 + h * 8 + gq);
-              }
+            rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 1);
+            rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 2);
           }
-      }
-      // a row's word: the quad's columns; a token's word: the warp's rows
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 1);
-          rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 2);
-        }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 4);
-          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 8);
-          cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 16);
-        }
-      const int nv = min(max(ntok - wn * 32, 0), 32);
-      const uint32_t vm = nv == 32 ? 0xffffffffu : (1u << nv) - 1;
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            rowbits[(pb * kRows + wm * 32 + i * 16 + h * 8 + gq) * 2 + wn] =
-                rw[i][h] & vm;
-      }
-      if (gq == 0) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int b = 0; b < 2; ++b)
-            colbits[(buf * kCols + wn * 32 + j * 8 + 2 * t + b) * 4 + wm] =
-                cw[j][b];
+          for (int b = 0; b < 2; ++b) {
+            cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 4);
+            cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 8);
+            cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 16);
+          }
+        const int nv = min(max(ntok - wn * 32, 0), 32);
+        const uint32_t vm = nv == 32 ? 0xffffffffu : (1u << nv) - 1;
+        if (t == 0) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              rowbits[(pb * kRows + wm * 32 + i * 16 + h * 8 + gq) * 2 + wn] =
+                  rw[i][h] & vm;
+        }
+        if (gq == 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+              colbits[(buf * kCols + wn * 32 + j * 8 + 2 * t + b) * 4 + wm] =
+                  cw[j][b];
+        }
       }
       // this tile's e (W rounded to the compute dtype); the next tile's M
       // and column scales
@@ -490,7 +614,13 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 #pragma unroll
           for (int v = 0; v < kHalf / kVals; ++v) {
             if (v * kVals < half_d) {
-              const uint4 x = src[v];
+              uint4 x;
+              if constexpr (kWg<MODE>)  // K5's swizzled row c
+                x = *reinterpret_cast<const uint4*>(
+                    B + sw128_offset(c, (tid & 1) * half_d + v * kVals,
+                                     kCols));
+              else
+                x = src[v];
               const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
               for (int k = 0; k < 4; ++k) {
@@ -580,8 +710,13 @@ maxsim_bwd_kernel(const typename Traits<MODE>::TQ* __restrict__ q,
 #pragma unroll
         for (int ch = 0; ch < NCH; ++ch) {
           const int col = ch * 64 + 2 * lane;
-          v[ch] = col < d ? peer_pair<MODE>(qrow + col * sizeof(T))
-                          : make_float2(0.f, 0.f);
+          if constexpr (kWg<MODE>)  // K5's swizzled row rr
+            v[ch] = col < d ? peer_pair<MODE>(pj + (uint32_t)lay.a +
+                                              sw128_offset(rr, col, kRows))
+                            : make_float2(0.f, 0.f);
+          else
+            v[ch] = col < d ? peer_pair<MODE>(qrow + col * sizeof(T))
+                            : make_float2(0.f, 0.f);
         }
       };
       auto add = [&](int rel, float e, const float2 (&v)[NCH]) {
@@ -671,7 +806,7 @@ template <int MODE>
 using BwdKern = void (*)(const typename Traits<MODE>::TQ*, const float*,
                          const typename Traits<MODE>::TQ*, const uint8_t*,
                          const float*, const float*, float*, float*, int, int,
-                         int, int, int, int, int, int);
+                         int, int, int, int, int, int, const CUtensorMap);
 
 // The instantiation for `nch` 64-column chunks of D.
 template <int MODE, int N = 1> BwdKern<MODE> bwd_kernel(int nch) {
@@ -720,13 +855,19 @@ int launch_bwd(const void* q, const void* qw, const void* p,
                void* dq_part, void* dp_out, int nq, int lq, int nd, int lp,
                int d, int db, int cluster, void* stream) {
   if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || lq > kRows || db < 1 ||
-      (nd + db - 1) / db > kMaxGridY)
+      (nd + db - 1) / db > kMaxGridY || (long long)nd * lp >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   BwdKern<MODE> kern;
   int stages;
   size_t smem;
   int e = bwd_plan<MODE>(d, cluster, &kern, &stages, &smem);
   if (e != 0) return e;
+  // bf16: the pages in K5's boxes, each CTA of a cluster loading kCols / C
+  // rows of a tile (a refused encode returns minus its CUresult)
+  alignas(64) CUtensorMap tm_p = {};
+  if (kWg<MODE> &&
+      (e = encode_rows(&tm_p, p, nd * lp, d, kCols / cluster)) != 0)
+    return e;
   using T = typename Traits<MODE>::TQ;
   const int qb = kRows / lq;
   const int nqb = (nq + qb - 1) / qb;
@@ -739,7 +880,7 @@ int launch_bwd(const void* q, const void* qw, const void* p,
       static_cast<const T*>(p), static_cast<const uint8_t*>(pmask),
       static_cast<const float*>(m), static_cast<const float*>(g),
       static_cast<float*>(dq_part), static_cast<float*>(dp_out), nq, lq, nd,
-      lp, d, qb, db, stages);
+      lp, d, qb, db, stages, tm_p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -762,22 +903,6 @@ template <int MODE> int bwd_config(int d, int cluster, int* out) {
 
 }  // namespace
 }  // namespace evdr
-
-extern "C" int evdr_maxsim_fwd_train(const void* q, const void* qw,
-                                     const void* p, const void* pmask,
-                                     void* out, void* m, int nq, int lq,
-                                     int nd, int lp, int d, void* stream) {
-  return evdr::launch<evdr::kBf16, true>(q, qw, p, nullptr, pmask, out, m,
-                                         nq, lq, nd, lp, d, stream);
-}
-
-extern "C" int evdr_maxsim_fwd_train_f32(const void* q, const void* qw,
-                                         const void* p, const void* pmask,
-                                         void* out, void* m, int nq, int lq,
-                                         int nd, int lp, int d, void* stream) {
-  return evdr::launch<evdr::kF32, true>(q, qw, p, nullptr, pmask, out, m,
-                                        nq, lq, nd, lp, d, stream);
-}
 
 extern "C" int evdr_maxsim_bwd(const void* q, const void* qw, const void* p,
                                const void* pmask, const void* m,

@@ -35,7 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARIES = {
     "maxsim_bf16": {
         "evdr_maxsim_bf16": [_P] * 5 + [_I] * 5 + [_P],
-        "evdr_bf16_config": [_I, _P],
+        "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_bf16_config": [_I, _I, _P],
     },
     "maxsim_int8": {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],
@@ -47,7 +48,8 @@ LIBRARIES = {
     },
     "maxsim_f32": {
         "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
-        "evdr_f32_occupancy": [_I, _P],
+        "evdr_maxsim_fwd_train_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_f32_occupancy": [_I, _I, _P],
     },
     "maxsim_int4": {
         "evdr_maxsim_int4full": [_P] * 6 + [_I] * 5 + [_P],
@@ -60,8 +62,6 @@ LIBRARIES = {
         "evdr_pq_occupancy": [_I] * 4 + [_P],
     },
     "maxsim_train": {
-        "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
-        "evdr_maxsim_fwd_train_f32": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_bwd": [_P] * 8 + [_I] * 7 + [_P],
         "evdr_maxsim_bwd_f32": [_P] * 8 + [_I] * 7 + [_P],
         "evdr_bwd_config": [_I] * 3 + [_P],

@@ -30,7 +30,7 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
   thread-block clusters of :func:`pq_cluster` CTAs share each page tile's
   decode.
 
-Shapes: a launch takes at most ``ROW_CAP[library]`` query tokens (its
+Shapes: a launch takes at most ``row_cap(library, D)`` query tokens (its
 CTA's query-token rows) and D a multiple of ``D_GRANULE``. A wrapper scores
 a longer query in slices of at most that many tokens and adds their
 partial scores (``split_queries``; a tolerance against one pass, since
@@ -71,14 +71,27 @@ _PLAIN_CHUNK_ELEMS = 1 << 27
 
 KERNEL_ROWS = 128   # query-token rows per CTA (maxsim_tile.cuh kRows)
 # The most query tokens one launch of each library takes: its CTA's
-# query-token rows (K1 bf16 runs two warpgroups of 128 rows, maxsim_bf16.cu;
-# K2, K2b and K4 stand on 256-row tiles, maxsim_tile.cuh CfgWide). A longer
-# query is scored in slices of at most this many tokens whose partial
-# scores add up (split_queries).
-ROW_CAP = {"maxsim_bf16": 2 * KERNEL_ROWS, "maxsim_f32": KERNEL_ROWS,
-           "maxsim_int8": 2 * KERNEL_ROWS, "maxsim_int4": 2 * KERNEL_ROWS,
+# query-token rows (K1 and K5 bf16 run two warpgroups of 128 rows,
+# maxsim_bf16.cu; K2, K2b and K4 stand on 256-row tiles, maxsim_tile.cuh
+# CfgWide; K6 on 128, maxsim_train.cu). A longer query is scored in slices
+# of at most this many tokens whose partial scores add up (split_queries).
+# K1 and K5 float32 (maxsim_f32.cu) take their tile's rows, which depend on
+# D: ``row_cap``.
+ROW_CAP = {"maxsim_bf16": 2 * KERNEL_ROWS, "maxsim_int8": 2 * KERNEL_ROWS,
+           "maxsim_int4": 2 * KERNEL_ROWS,
            "maxsim_int8_defer": 2 * KERNEL_ROWS, "maxsim_pq": KERNEL_ROWS,
            "maxsim_train": KERNEL_ROWS}
+# maxsim_f32.cu's rule by D: 256 x 64 tiles up to this kernel width (where
+# they fit in shared memory), 128 x 32 above
+F32_TALL_MAX_D = 144
+
+
+def row_cap(lib: str, d: int) -> int:
+    """The most query tokens one launch of library ``lib`` takes at kernel
+    width ``d``."""
+    if lib == "maxsim_f32":
+        return 2 * KERNEL_ROWS if d <= F32_TALL_MAX_D else KERNEL_ROWS
+    return ROW_CAP[lib]
 # The kernels take D a multiple of D_GRANULE; a narrower D is zero-padded
 # up to it, which adds nothing to any product. Above MAX_D the operand
 # tiles leave shared memory, and a max over tokens does not split over D,
@@ -410,8 +423,8 @@ def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
     """Launch ``func`` of ``lib`` on (nq, Lq, D) queries ``q`` in the
     kernel's type with post-max weights ``qw`` against ``P`` (whose last
     axis is D, zero-padded up to the kernel's granule here where it is
-    not), once per slice of at most ROW_CAP[lib] query tokens; each launch
-    counts on ``wrapper``."""
+    not), once per slice of at most ``row_cap(lib, D)`` query tokens; each
+    launch counts on ``wrapper``."""
     nq, _, d = q.shape
     nd, lp = pmask.shape
     dk = kernel_dim(d)
@@ -425,7 +438,7 @@ def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
         _count(wrapper, func, nq, qs.shape[1], nd, lp)
         return out
 
-    return split_queries(one, q, qw, ROW_CAP[lib])
+    return split_queries(one, q, qw, row_cap(lib, dk))
 
 
 def maxsim_cuda(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
@@ -592,24 +605,26 @@ def pq_occupancy(mode: str, d: int, m: int, cluster: int) -> tuple:
     return out[0], out[1]
 
 
-def bf16_config(d: int) -> dict:
-    """The configuration K1 bf16 runs at width ``d`` (a multiple of 16), on
-    the current GPU (``maxsim_bf16.cu``'s rule by D)."""
+def bf16_config(d: int, train: bool = False) -> dict:
+    """The configuration K1 bf16 (``train``: K5 bf16) runs at width ``d``
+    (a multiple of 16), on the current GPU (``maxsim_bf16.cu``'s rule by
+    D)."""
     out = (ctypes.c_int * 6)()
     rc = _cuda_build.kernel("maxsim_bf16", "evdr_bf16_config")(
-        d, ctypes.addressof(out))
+        d, int(train), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"evdr_bf16_config failed: cudaError {rc}")
     return dict(zip(("ctas_per_sm", "rows", "tile_tokens", "stages",
                      "consumer_warpgroups", "smem_bytes"), out))
 
 
-def f32_occupancy(d: int) -> tuple:
-    """The tile configuration K1 float32 runs at width ``d``, on the
-    current GPU: (CTAs per SM, query-token rows, page-tile tokens)."""
+def f32_occupancy(d: int, train: bool = False) -> tuple:
+    """The tile configuration K1 float32 (``train``: K5 float32) runs at
+    width ``d``, on the current GPU: (CTAs per SM, query-token rows,
+    page-tile tokens)."""
     out = (ctypes.c_int * 3)()
     rc = _cuda_build.kernel("maxsim_f32", "evdr_f32_occupancy")(
-        d, ctypes.addressof(out))
+        d, int(train), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"evdr_f32_occupancy failed: cudaError {rc}")
     return tuple(out)

@@ -5,22 +5,26 @@ Counterpart of ``maxsim_pallas``'s ``custom_vjp``
 (``evdr_tpu/ops/pallas_maxsim.py:597-641`` with the fused backward of
 ``evdr_tpu/ops/pallas_maxsim_bwd.py``):
 
-- ``maxsim_cuda_fwd_train`` (K5, ``csrc/maxsim_train.cu``): K1's scores
-  plus M, each query-token row's max over each doc's tokens, (nq * Lq, nd)
-  f32, the residual the backward compares against.
+- ``maxsim_cuda_fwd_train`` (K5, ``csrc/maxsim_bf16.cu``): K1's kernel
+  with an M store, so K1's scores bit for bit plus M, each query-token
+  row's max over each doc's tokens, (nq * Lq, nd) f32, the residual the
+  backward compares against. It runs 64-token page tiles at every D, the
+  tiles K6 recomputes.
 - ``maxsim_cuda_bwd`` (K6, ``csrc/maxsim_train.cu``): recomputes every
-  similarity bit for bit as K5 did, E = (sim == M) * W with W = g * qmask *
-  doc_has_token rounded to the compute dtype, dQ = sum E * P and dP = sum
-  E * Q, over E's nonzeros only (the hits), a chunk's query blocks in one
-  thread-block cluster that sums each tile's dP once. The gradient is
+  similarity bit for bit as K5 did (bf16: K5's wgmma products), E = (sim
+  == M) * W with W = g * qmask * doc_has_token rounded to the compute
+  dtype, dQ = sum E * P and dP = sum E * Q, over E's nonzeros only (the
+  hits), a chunk's query blocks in one thread-block cluster that sums each
+  tile's dP once. The gradient is
   SUMMED over tied argmax tokens, as on the TPU
   (``pallas_maxsim_bwd.py:18-20``); ``torch.amax``'s autograd splits it
   evenly, so the plain version is written in the indicator form, not as
   autograd of ``maxsim_torch``.
 - ``compute_dtype=torch.float32`` (the TPU kernels at Precision.HIGHEST)
   hands both to their float32 modes, ``maxsim_cuda_fwd_train_f32`` (K1's
-  float32 tile with the M store) and ``maxsim_cuda_bwd_f32`` (E kept in
-  f32, exact f32 products of the hits), each with its own launch count.
+  float32 kernel with the M store, ``csrc/maxsim_f32.cu``) and
+  ``maxsim_cuda_bwd_f32`` (E kept in f32, exact f32 products of the hits),
+  each with its own launch count.
 - ``MaxSimFn``: forward K5 when Q or P needs a gradient, else K1 (with
   ``compute_dtype`` float32 K1's float32 mode); backward K6; the gradients
   come back in Q's and P's dtypes (``pallas_maxsim.py:635``).
@@ -41,14 +45,14 @@ from evdr_tpu_torch.ops.cuda_maxsim import (F32_MAX_D, MAX_D, ROW_CAP,
                                             _plain_core, call_kernel,
                                             kernel_dim, mask_sentinel,
                                             maxsim_cuda, pad_dim, plain_sims,
-                                            split_queries)
+                                            row_cap, split_queries)
 
 # Above this many query blocks the backward chunks the query axis (as the
 # TPU's _MAX_QB_BLOCKS, pallas_maxsim_bwd.py:213); a chunk's query blocks
 # form one thread-block cluster of K6 (8: the portable cluster size), which
 # writes each dP once
 MAX_QB_BLOCKS = 8
-_ROWS = ROW_CAP["maxsim_train"]  # query-token rows per CTA
+_ROWS = ROW_CAP["maxsim_train"]  # K6's query-token rows per CTA
 
 
 # ----------------------------------------------------------------- plain
@@ -91,10 +95,11 @@ def _check_compute(compute_dtype):
                         f"{compute_dtype}")
 
 
-def _fwd_train(wrapper, func, dtype, Q, P, qmask, pmask):
-    """K5's host side: D zero-padded to the granule (as K1 pads it, so the
-    float32 scores stay K1's), one launch per slice of at most _ROWS query
-    tokens, each with its own rows of M; the slices' scores add up."""
+def _fwd_train(wrapper, lib, func, dtype, Q, P, qmask, pmask):
+    """K5's host side, K1's slicing (so its scores stay K1's bit for bit):
+    D zero-padded to the granule, one launch per slice of at most
+    ``row_cap(lib, D)`` query tokens, each with its own rows of M; the
+    slices' scores add up."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
@@ -107,14 +112,13 @@ def _fwd_train(wrapper, func, dtype, Q, P, qmask, pmask):
         qs, ls = qs.contiguous(), qs.shape[1]
         out = torch.empty((nq, nd), dtype=torch.float32, device=Q.device)
         M = torch.empty((nq * ls, nd), dtype=torch.float32, device=Q.device)
-        call_kernel("maxsim_train", func,
-                    (qs, qws.contiguous(), p, pmask, out, M),
+        call_kernel(lib, func, (qs, qws.contiguous(), p, pmask, out, M),
                     nq, ls, nd, lp, dk, aligned=(qs, p))
         _count(wrapper, func, nq, ls, nd, lp)
         Ms.append(M.view(nq, ls, nd))
         return out
 
-    out = split_queries(one, q, qmask.float(), _ROWS)
+    out = split_queries(one, q, qmask.float(), row_cap(lib, dk))
     M = Ms[0] if len(Ms) == 1 else torch.cat(Ms, dim=1)
     return out, M.reshape(nq * lq, nd)
 
@@ -127,8 +131,9 @@ def maxsim_cuda_fwd_train(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
         return maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask)
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.bfloat16)
-    return _fwd_train(maxsim_cuda_fwd_train, "evdr_maxsim_fwd_train",
-                      torch.bfloat16, Q, P, qmask, pmask)
+    return _fwd_train(maxsim_cuda_fwd_train, "maxsim_bf16",
+                      "evdr_maxsim_fwd_train", torch.bfloat16, Q, P, qmask,
+                      pmask)
 
 
 def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
@@ -137,8 +142,9 @@ def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.float32)
     kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K5's float32 mode")
-    return _fwd_train(maxsim_cuda_fwd_train_f32, "evdr_maxsim_fwd_train_f32",
-                      torch.float32, Q, P, qmask, pmask)
+    return _fwd_train(maxsim_cuda_fwd_train_f32, "maxsim_f32",
+                      "evdr_maxsim_fwd_train_f32", torch.float32, Q, P, qmask,
+                      pmask)
 
 
 def maxsim_cuda_bwd(Q, P, qmask, pmask, M, g, compute_dtype=torch.bfloat16):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Write variant roots of K6 (``csrc/maxsim_train.cu``) for
-``scripts/torch_kernel_ab.py``: copies of ``evdr_tpu_torch/`` with one
-design choice of K6 changed or one stage of it removed.
+"""Write variant roots of K6 (``csrc/maxsim_train.cu``) and of K5 bf16
+(``csrc/maxsim_bf16.cu``) for ``scripts/torch_kernel_ab.py``: copies of
+``evdr_tpu_torch/`` with one design choice changed or one stage removed.
 
     python3 scripts/k6_variants.py OUT_DIR [NAME ...]
 
@@ -21,6 +21,12 @@ missing from the source raises: the variants follow the source.
 - ``no_pull`` / ``no_walk`` / ``no_recompute``: the dP pull, the dQ walk or
   the recompute (and so every hit) left out, to split the time; their
   outputs are wrong on purpose.
+- ``no_hits``: the recompute runs but finds no hit (every row's M read as
+  NaN), so the dQ walk and the pull have nothing to do: against
+  ``no_recompute``, the recompute's own time. Wrong on purpose.
+- ``k5_tile128``: K5 bf16 on 128-token page tiles (shipped: 64, the width
+  K6 recomputes; this root's K6 no longer recomputes K5's products, so
+  time only its K5).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CU = "csrc/maxsim_train.cu"
+BF = "csrc/maxsim_bf16.cu"
 PY = "ops/cuda_maxsim_train.py"
 VARIANTS = {
     "no_cluster": [(PY, "    while c < n_qb:\n", "    while c < 1:\n")],
@@ -45,8 +52,14 @@ VARIANTS = {
                  "    for (int i0 = 0; i0 < 0; i0 += 2) {\n")],
     "no_walk": [(CU, "      if (bits != 0) {\n        const float e = erow",
                  "      if (false) {\n        const float e = erow")],
-    "no_recompute": [(CU, "      if (nrows > 0) {\n        TAcc acc",
-                      "      if (false) {\n        TAcc acc")],
+    "no_recompute": [(CU, "ntok, nrows > 0, warp, lane);",
+                      "ntok, false, warp, lane);"),
+                     (CU, "        if (nrows > 0) {\n          TAcc acc",
+                      "        if (false) {\n          TAcc acc")],
+    "no_hits": [(CU, "          cur_w != 0.f ? cur_m : __int_as_float(0x7fffffff);",
+                 "          __int_as_float(0x7fffffff);")],
+    "k5_tile128": [(BF, "constexpr int kTrainTileN = 64;",
+                    "constexpr int kTrainTileN = 128;")],
 }
 
 

@@ -25,18 +25,22 @@ Inputs are made on the device from seed 0, with ~10% invalid tokens:
 - K5 and K6 in both modes at the train step's shape (32 x 32 queries
   against 1,000 x 154 pages) and at 256 x 32 queries (eight chunks of K6),
   K6 on K5's M and a random upstream gradient; their output hashes cover
-  scores and M, dQ and dP.
+  scores and M, dQ and dP; K5 bf16's scores checked bit-equal to K1's.
 ``--only`` keeps the kernels whose names start with one of the given
 prefixes (e.g. ``maxsim_pq,maxsim_f32``). The card's name and power limit
 come first. After the roots, one ``compare`` line against the first root:
-for each library whether its SASS hashes are the first root's (and for
-``maxsim_train`` whether K5's kernels' are), and, for each root whose K1
-bf16 output hash differs from the first root's, the largest score
+for each library whether its SASS hashes are the first root's, and how
+many of the first root's kernels have their machine code, by hash, among
+this root's kernels of the library (``sass_kept``; a kernel whose name
+changed, a template flag or a parameter added at the end, still counts),
+with the names of those that do not (``sass_lost``); for each root whose
+K1 bf16 output hash differs from the first root's, the largest score
 difference and the top-1 and top-10 agreement (the share of queries whose
 best doc is the same; the mean share of the first root's ten best docs
-among the root's ten best); for each K6 timing whose output hash differs,
-the largest difference of dQ and of dP relative to the first root's
-largest magnitude.
+among the root's ten best); for each K5 timing whose output differs, the
+largest difference of its scores and M; for each K6 timing whose output
+hash differs, the largest difference of dQ and of dP relative to the first
+root's largest magnitude.
 """
 
 from __future__ import annotations
@@ -202,6 +206,10 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
     for name, args in f32.items():
         checks[f"maxsim_f32_{name} == K5 f32"] = bool(torch.equal(
             cm.maxsim_cuda_f32(*args), ct.maxsim_cuda_fwd_train_f32(*args)[0]))
+    for name, (Qt, Pt, qmt, pmt, _) in train.items():
+        checks[f"maxsim_fwd_train_{name} == K1"] = bool(torch.equal(
+            cm.maxsim_cuda(Qt, Pt, qmt, pmt),
+            ct.maxsim_cuda_fwd_train(Qt, Pt, qmt, pmt)[0]))
     if only:
         calls = {k: v for k, v in calls.items() if k.startswith(tuple(only))}
     times, outs, kept = {}, {}, {}
@@ -210,7 +218,7 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
         if isinstance(out, tuple):  # K5: scores, M; K6: dQ, dP
             out = torch.cat([x.flatten() for x in out])
         outs[name] = digest(out)
-        if name == "maxsim_bf16":
+        if name == "maxsim_bf16" or name.startswith("maxsim_fwd_train"):
             kept[name] = out.cpu().numpy()
         elif name in k6_out:
             n = k6_out[name]
@@ -273,28 +281,37 @@ def agreement(a, b) -> dict:
 
 
 def compare(results, tmp) -> dict:
-    """Each root against the first: SASS hashes per library (and of K5's
-    kernels in maxsim_train) and, where K1 bf16's output differs, its
-    agreement; where a K6 output differs, its largest relative
+    """Each root against the first: SASS hashes per library, and which of
+    the first root's kernels keep their machine code; where K1 bf16's
+    output differs, its agreement; where a K5 output differs, its largest
+    difference; where a K6 output differs, its largest relative
     difference."""
     first = results[0]
     out = {"compare_to": first["root"], "roots": []}
     ref = np.load(os.path.join(tmp, "0.npz"))
 
-    def k5(r):
-        return {k: v for k, v in r["sass"].get("maxsim_train", {}).items()
-                if "maxsim_kernel" in k}
+    def short(name):
+        return name.split("(anon)")[-1][:48]
 
     for i, r in enumerate(results):
+        kept, lost = {}, {}
+        for n, kernels in first["sass"].items():
+            mine = set(r["sass"].get(n, {}).values())
+            gone = [short(k) for k, h in kernels.items() if h not in mine]
+            kept[n] = f"{len(kernels) - len(gone)}/{len(kernels)}"
+            if gone:
+                lost[n] = gone
         row = {"root": r["root"], "sass_equal": {
             n: r["sass"].get(n) == first["sass"].get(n) for n in r["sass"]},
-            "k5_sass_equal": k5(r) == k5(first)}
+            "sass_kept": kept, "sass_lost": lost}
         got = np.load(os.path.join(tmp, f"{i}.npz"))
         for name, h in r["out_sha1"].items():
             if h == first["out_sha1"].get(name):
                 continue
             if name == "maxsim_bf16":
                 row[name] = agreement(ref[name], got[name])
+            elif name.startswith("maxsim_fwd_train") and name in ref.files:
+                row[name] = float(np.abs(got[name] - ref[name]).max())
             elif name + ".dq" in got.files and name + ".dq" in ref.files:
                 row[name] = {part: float(
                     np.abs(got[f"{name}.{part}"] - ref[f"{name}.{part}"]).max()

@@ -140,6 +140,25 @@ def test_kernel_build_is_keyed_on_every_source(tmp_path, monkeypatch):
         _cuda_build.build_all()
 
 
+def test_library_map_matches_each_sources_exports():
+    """Each library's ctypes map (``_cuda_build.LIBRARIES``) names exactly
+    the ``extern "C"`` functions its source exports, each with one argtype
+    per parameter: c_void_p for a pointer (the stream included), c_int for
+    an int (K5's exports live in K1's libraries, K6's in maxsim_train)."""
+    import ctypes
+    import re
+
+    for lib, funcs in _cuda_build.LIBRARIES.items():
+        src = (_cuda_build.CSRC / f"{lib}.cu").read_text()
+        found = {name: [ctypes.c_void_p if "*" in p else ctypes.c_int
+                        for p in params.split(",")]
+                 for name, params in re.findall(
+                     r'extern "C" int (\w+)\(([^)]*)\)', src)}
+        assert found == funcs, lib
+    assert "evdr_maxsim_fwd_train" in _cuda_build.LIBRARIES["maxsim_bf16"]
+    assert "evdr_maxsim_fwd_train_f32" in _cuda_build.LIBRARIES["maxsim_f32"]
+
+
 def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -654,7 +673,7 @@ def test_every_wrapper_serves_any_lq_and_d_on_the_card(lq, d):
         got = kern(*args)
         torch.cuda.synchronize()
         assert (cm.launch_counts()[kern.__name__]
-                == n0 + -(-lq // cm.ROW_CAP[lib]))
+                == n0 + -(-lq // cm.row_cap(lib, cm.kernel_dim(d))))
         torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-4,
                                    msg=kern.__name__)
         assert got[:, nd // 2].abs().max().item() == 0.0
@@ -749,3 +768,84 @@ def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
     e = w if cd == torch.float32 else w.to(torch.bfloat16).float()
     want = (e[:, None, None] * pm[..., None] * P.to(cd).float()).sum((0, 1))
     torch.testing.assert_close(dq[-1, 0], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nq,lq,nd,lp,d", [
+    (32, 32, 200, 137, 128),  # the train step's queries, mf5 pages
+    (36, 32, 60, 154, 96),    # 9 K6 query blocks: two chunks
+    (5, 200, 30, 77, 64),     # odd Lp; Lq 200: one K5 launch, two K6 slices
+    (12, 20, 40, 137, 192),   # D 192: float32's narrow tile, K6 at 2 stages
+    (6, 16, 25, 154, 256),    # D 256 (bf16 only)
+    (3, 7, 9, 1, 32),         # Lp 1: a doc ends every tile
+])
+def test_k5_is_k1_with_an_m_store_and_k6_follows_it_on_the_card(
+        nq, lq, nd, lp, d, cd):
+    """K5 in both modes is K1's kernel with an M store: its scores equal
+    K1's on the same inputs bit for bit (the same kernel, tiles and
+    slices), and with M lie within 1e-4 of the plain version (summation
+    order); its launches take K1's row cap. K6 on K5's M against the plain
+    pair within 1e-3 (bf16) and 1e-4 (float32) relative, Frobenius, with
+    exact ties planted after the data is made tie-free (a page token
+    duplicated in its doc, a zero query token with qmask 1), at the mf5
+    student's Lp 137 and 154, odd Lp 77, Lp 1, D 32 to 256 (float32 to
+    192) and 1 to 9 query blocks; two calls of K6 give the same bits. K5
+    bf16 runs 64-token tiles, the width K6 recomputes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cd = getattr(torch, cd)
+    if cd == torch.float32 and d > cuda_maxsim.F32_MAX_D:
+        pytest.skip("float32 mode stops at F32_MAX_D")
+    cm, ct = cuda_maxsim, cuda_maxsim_train
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(nq + lq + lp + d)
+    dev = "cuda"
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return (x / x.norm(dim=-1, keepdim=True)).to(dev)
+
+    Q, P = unit(nq, lq, d), unit(nd, lp, d)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    qm[:, 0] = True
+    pm[:, 0] = True
+    pm[nd // 2] = False
+    _untie(Q, qm, P, pm, dtype=cd)
+    if lp > 1:
+        P[1, lp - 1] = P[1, 0]
+        pm[1, lp - 1] = True
+    Q[-1, 0] = 0.0
+    qm[-1, 0] = True
+    g = torch.from_numpy(rng.normal(size=(nq, nd)).astype(np.float32)).to(dev)
+    lib, fwd = (("maxsim_f32", "maxsim_cuda_fwd_train_f32")
+                if cd == torch.float32
+                else ("maxsim_bf16", "maxsim_cuda_fwd_train"))
+    n0 = cm.launch_counts()[fwd]
+    out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, cd)
+    torch.cuda.synchronize()
+    assert (cm.launch_counts()[fwd]
+            == n0 + -(-lq // cm.row_cap(lib, cm.kernel_dim(d))))
+    assert torch.equal(out, cm.maxsim_cuda(Q, P, qm, pm, cd))
+    out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, cd)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(M, M_p, rtol=0, atol=1e-4)
+    assert float(out[:, nd // 2].abs().max()) == 0.0
+    dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    dq2, dp2 = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    assert torch.equal(dq, dq2) and torch.equal(dp, dp2)
+    dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, cd)
+    rel = 1e-4 if cd == torch.float32 else 1e-3
+    for a, b in ((dq, dq_p), (dp, dp_p)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm() / b.norm()) <= rel
+    if lp > 1:
+        assert torch.equal(dp[1, 0], dp[1, lp - 1])
+    assert float(dp[nd // 2].abs().max()) == 0.0
+    if cd == torch.bfloat16:
+        cfg = cm.bf16_config(cm.kernel_dim(d), train=True)
+        assert (cfg["rows"], cfg["tile_tokens"]) == (256, 64)
+    else:
+        rows = cm.f32_occupancy(cm.kernel_dim(d), train=True)[1]
+        assert rows == cm.row_cap(lib, cm.kernel_dim(d))

@@ -107,6 +107,33 @@ def test_plain_k5_k6_match_jax(case, tdtype, jdtype):
     np.testing.assert_allclose(dp.numpy(), want_dp, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("lp", [137, 154])
+@pytest.mark.parametrize("tdtype,jdtype", DTYPES)
+def test_plain_k5_matches_pallas_fwd_train_at_student_pages(lp, tdtype,
+                                                            jdtype):
+    """K5's plain version against maxsim_pallas_fwd_train in interpret mode
+    at the mf5 student's page lengths (Lp 137 and 154, which 64-token tiles
+    fill in three tiles, the last ragged): the scores, and M (the TPU's
+    (query block, doc block, doc, row) blocks laid out as (q * Lq + t,
+    doc)) on every valid query row. Both round Q and P to the compute dtype
+    and sum exact products in f32; only the order of the sums differs ->
+    1e-5, as the cases above."""
+    from evdr_tpu.ops.pallas_maxsim_bwd import _prep
+
+    Q, P, qm, pm, g = _case(lp, nq=5, lq=9, nd=6, lp=lp, d=48)
+    out_j, M_j = maxsim_pallas_fwd_train(*map(jnp.asarray, (Q, P, qm, pm)),
+                                         jdtype, True)
+    dm = _prep(*map(jnp.asarray, (Q, P, qm, pm)), jdtype, 1024, 1024)[-1]
+    M_j = np.asarray(M_j).transpose(0, 3, 1, 2).reshape(
+        dm["n_qb"] * dm["qb"], dm["lq_pad"], -1)[:5, :9, :6]
+    Qt, Pt, qmt, pmt = _t(Q, P, qm, pm)
+    out, M = maxsim_fwd_train_plain(Qt, Pt, qmt, pmt, tdtype)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(M.numpy().reshape(5, 9, 6)[qm], M_j[qm],
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     Q, P, qm, pm, g = _case(3)
     Qt, Pt, qmt, pmt, gt = _t(Q, P, qm, pm, g)

@@ -2,7 +2,7 @@
 torch port, on the CPU.
 
 The kernels take at most a CTA's query-token rows per launch
-(``cuda_maxsim.ROW_CAP``) and D a multiple of 16 up to a bound.
+(``cuda_maxsim.row_cap``) and D a multiple of 16 up to a bound.
 The wrappers score longer queries in slices whose partial scores add up
 (``split_queries``) and zero-pad D; the engine pads its stored index once,
 at build, and the queries per call. Here:
@@ -13,7 +13,8 @@ at build, and the queries per call. Here:
   the kernel's function from the operands it is handed and refuses any
   shape the kernel refuses (more query tokens than its cap, D off its
   granule): every wrapper at Lq 129 to 257 and D 40 / 72 against its plain
-  version, and ``MaxSimFn`` against the JAX package's custom_vjp;
+  version, and ``MaxSimFn`` against the JAX package's custom_vjp; K5 at
+  K1's row caps (Lq 200 and 300), its M reassembled from the slices;
 - engines of every tier built at D 40 and 72 against the JAX engine
   (``impl='xla'``) on the same index, with ``dim`` the true D;
 - the bounds that padding cannot lift, each with its message.
@@ -131,23 +132,32 @@ def _kernel_stand_in(seen):
     """A stand-in for ``call_kernel``: checks that the launch is one the
     kernel takes (query tokens within its library's cap, D on its granule,
     16-byte aligned operands), then writes what the kernel computes from
-    the operands it was handed, by the plain versions' arithmetic."""
+    the operands it was handed, by the plain versions' arithmetic. K5's M
+    and K6's recompute take one query token at a time, so that each
+    similarity is the same bits whatever slice of the query a launch holds,
+    as the kernels' products are (K5 slices at K1's row cap, K6 at its
+    own)."""
 
     def run(lib, func, ops, *args, aligned=()):
         seen.append((lib, func) + tuple(args))
         assert all(t.is_contiguous() for t in ops if t is not None)
+        nq, lq, nd, lp, d = args[:5]
+        f32 = func.endswith("_f32")
+        comp = torch.float32 if f32 else torch.bfloat16
+        if func.startswith("evdr_maxsim_fwd_train"):
+            # K5: K1's kernel with the M store, in K1's library
+            assert lib == ("maxsim_f32" if f32 else "maxsim_bf16")
+            assert lq <= cm.row_cap(lib, d) and d % cm.D_GRANULE == 0
+            q, qw, p, pmask, out, M = ops
+            out.copy_(cm._plain_core(q.float(), qw, p, comp,
+                                     cm.mask_sentinel(pmask)))
+            M.view(nq, lq, nd).copy_(torch.stack([
+                cm._plain_core(q[:, t:t + 1].float(), qw[:, t:t + 1], p,
+                               comp, cm.mask_sentinel(pmask), want_m=True)[1]
+                for t in range(lq)], dim=1))
+            return
         if lib == "maxsim_train":
-            nq, lq, nd, lp, d = args[:5]
             assert lq <= cm.ROW_CAP[lib] and d % cm.D_GRANULE == 0
-            f32 = func.endswith("_f32")
-            comp = torch.float32 if f32 else torch.bfloat16
-            if func.startswith("evdr_maxsim_fwd_train"):
-                q, qw, p, pmask, out, M = ops
-                o, m = cm._plain_core(q.float(), qw, p, comp,
-                                      cm.mask_sentinel(pmask), want_m=True)
-                out.copy_(o)
-                M.copy_(m)
-                return
             # K6: the bound of K5's mode, a cluster of 1-8 CTAs, one dQ
             # partial a doc slice and one dP a cluster of query blocks
             db, cluster = args[5:7]
@@ -157,15 +167,17 @@ def _kernel_stand_in(seen):
             n_qb = -(-nq // (cm.ROW_CAP[lib] // lq))
             assert dp_out.shape == (-(-n_qb // cluster), nd, lp, d)
             assert dq_part.shape == (-(-nd // db), nq * lq, d)
-            dq, dp = ct.maxsim_bwd_plain(q.float(), p.float(), qw > 0, pmask,
-                                         M, g2, comp)
             dq_part.zero_()
             dp_out.zero_()
-            dq_part[0] = dq.reshape(nq * lq, d)
-            dp_out[0] = dp
+            M3 = M.view(nq, lq, nd)
+            for t in range(lq):
+                dq, dp = ct.maxsim_bwd_plain(
+                    q[:, t:t + 1].float(), p.float(), qw[:, t:t + 1] > 0,
+                    pmask, M3[:, t], g2, comp)
+                dq_part[0].view(nq, lq, d)[:, t] = dq[:, 0]
+                dp_out[0] += dp
             return
-        nq, lq, nd, lp, d = args[:5]
-        assert lq <= cm.ROW_CAP[lib], (lib, lq)
+        assert lq <= cm.row_cap(lib, d), (lib, lq)
         assert d % cm.D_GRANULE == 0 and d <= cm.MAX_D
         if lib == "maxsim_pq":
             q, qw, codes, kb, pmask, out = ops
@@ -250,23 +262,23 @@ def _wrapper_cases(Q, P, qm, pm, rng):
                                   (32, 72), (256, 40), (257, 72)])
 def test_wrappers_split_and_pad_for_the_kernels(on_card, lq, d):
     """Each forward wrapper's launches take only shapes the kernel takes,
-    one launch per slice of ROW_CAP tokens (counted), and add up to the
+    one launch per slice of ``row_cap`` tokens (counted), and add up to the
     plain version of the whole call (1e-6 relative: summation order
-    alone). At Lq 200 and 256 K1 bf16 and K2b (256 rows a launch) launch
-    once, K1 float32 and K3 (128) twice; at 257 the first two launch
-    twice."""
+    alone). At Lq 200 and 256 K1 bf16 and float32 and K2b (256 rows a
+    launch at these D) launch once, K3 (128) twice; at 257 the first three
+    launch twice."""
     rng = np.random.default_rng(lq + d)
     Q, P, qm, pm = _t(*_case(lq + d, lq=lq, d=d))
     for wrapper, plain, args in _wrapper_cases(Q, P, qm, pm, rng):
         n0, k0 = wrapper.launches, len(on_card)
         got = wrapper(*args)
         lib = on_card[-1][0]
-        slices = -(-lq // cm.ROW_CAP[lib])
+        cap = cm.row_cap(lib, cm.kernel_dim(d))
+        slices = -(-lq // cap)
         assert wrapper.launches - n0 == len(on_card) - k0 == slices, (
             wrapper.__name__)
         assert [c[3] for c in on_card[k0:]] == [
-            min(cm.ROW_CAP[lib], lq - s * cm.ROW_CAP[lib])
-            for s in range(slices)]
+            min(cap, lq - s * cap) for s in range(slices)]
         want = plain(*args)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5,
                                    msg=wrapper.__name__)
@@ -286,8 +298,9 @@ def test_maxsimfn_splits_and_pads_as_the_jax_custom_vjp(on_card, lq, d,
     stand-in): scores, dQ and dP against the JAX package's maxsim_pallas
     custom_vjp in interpret mode (which pads Lq and D itself); float32 to
     1e-4, bf16 within bf16's rounding of the inputs (2e-2 on scores summed
-    over ~160 tokens, 2e-2 on the gradients). K6's dQ drops its pad columns
-    and dP sums over the slices."""
+    over ~160 tokens, 2e-2 on the gradients). K5 slices at K1's row cap,
+    K6 at its own 128 rows; K6's dQ drops its pad columns and dP sums over
+    the slices."""
     rng = np.random.default_rng(d)
     Q, P, qm, pm = _case(d, nq=2, lq=lq, nd=5, lp=9, d=d)
     g = rng.normal(size=(2, 5)).astype(np.float32)
@@ -301,17 +314,48 @@ def test_maxsimfn_splits_and_pads_as_the_jax_custom_vjp(on_card, lq, d,
     Pt.requires_grad_(True)
     got = ct.MaxSimFn.apply(Qt, Pt, qmt, pmt, tdtype)
     got.backward(gt)
-    slices = -(-lq // cm.ROW_CAP["maxsim_train"])
+    lib = "maxsim_f32" if tdtype == torch.float32 else "maxsim_bf16"
     fwd, bwd = ((ct.maxsim_cuda_fwd_train_f32, ct.maxsim_cuda_bwd_f32)
                 if tdtype == torch.float32
                 else (ct.maxsim_cuda_fwd_train, ct.maxsim_cuda_bwd))
-    assert fwd.launches == bwd.launches == slices
+    assert fwd.launches == -(-lq // cm.row_cap(lib, cm.kernel_dim(d)))
+    assert bwd.launches == -(-lq // cm.ROW_CAP["maxsim_train"])
     tol = 1e-4 if tdtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                rtol=0, atol=tol)
     assert Qt.grad.shape == Qt.shape and Pt.grad.shape == Pt.shape
     np.testing.assert_allclose(Qt.grad.numpy(), want_dq, rtol=0, atol=tol)
     np.testing.assert_allclose(Pt.grad.numpy(), want_dp, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("lq", [200, 300])
+@pytest.mark.parametrize("compute,d,cap", [(torch.bfloat16, 72, 256),
+                                           (torch.float32, 72, 256),
+                                           (torch.float32, 160, 128)])
+def test_k5_slices_at_k1s_row_caps_and_reassembles_m(on_card, lq, compute, d,
+                                                     cap):
+    """K5's host side at its row caps, K1's (bf16 256; float32 256 up to D
+    144, 128 above): one launch a slice in K1's library, in order, each
+    with its own rows of M; the slices' M rows reassembled in (query,
+    token) order equal the plain version's M, and the scores its scores
+    (1e-6 relative: summation order over the slices alone), and equal K1's
+    on the same inputs bit for bit (the same slices)."""
+    Q, P, qm, pm = _t(*_case(lq + d, lq=lq, d=d))
+    lib = "maxsim_f32" if compute == torch.float32 else "maxsim_bf16"
+    assert cm.row_cap(lib, cm.kernel_dim(d)) == cap
+    k0 = len(on_card)
+    out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, compute)
+    calls = on_card[k0:]
+    slices = [min(cap, lq - s) for s in range(0, lq, cap)]
+    assert [c[:2] for c in calls] == [(lib, "evdr_maxsim_fwd_train"
+                                       + ("_f32" if lib == "maxsim_f32"
+                                          else ""))] * len(slices)
+    assert [c[3] for c in calls] == slices
+    out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, compute)
+    assert M.shape == M_p.shape == (Q.shape[0] * lq, P.shape[0])
+    torch.testing.assert_close(M, M_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(out, out_p, rtol=1e-6, atol=1e-5)
+    assert torch.equal(out, cm.maxsim_cuda(Q, P, qm, pm, compute))
 
 
 # --------------------------------------------------------- the D pad at build
