@@ -104,21 +104,46 @@ line each:
     same index (K3 scores them in two slices of 128 and 72 tokens, K1,
     K2 and K4 in one launch of their 256-row tiles); then tools/serve_http
     over the bf16 engine, one request of 200 tokens coalesced with three of
-    32 tokens, every request answered with search_dense's top-1.
+    32 tokens, every request answered with search_dense's top-1;
+20. every token width above the fast kernels' bound (256; float32 192):
+    an index of D = 320 on every tier (3,000 pages x 768 tokens; PQ at
+    M = 16 with compact books of 20 dims and the same codes with the books
+    expanded to full width), 256 planted queries x 32 tokens through
+    search_dense on the wide functions, against the plain versions; K2b's
+    wide entry points bit-equal to K2's; K1 float32 at D 200 and 320;
+    MaxSimFn at D 320 in both modes against the plain K5/K6 pair, the wide
+    K5 bit-equal to the wide K1, the wide K6 on planted exact ties and
+    bit-equal across two calls; each wide kernel's time beside its bound;
+21. pruned two-stage search: 50,000 float pages (phase 4's shape) and 256
+    planted queries; the summary build (4 k-means centres a page) timed;
+    engines with prune_centroids=4 through build: int8 (int8 summaries,
+    stage 1 on K2), the same with quantize_queries (K2's full mode), int8
+    with int4 summaries (K4) and pq (bf16 summaries, K1); at 512 and
+    2,500 candidates (1% and 5%) each engine's q/s, recall@1 and @10
+    against its exact search, stage 1 and stage 2 timed apart by CUDA
+    events, stage 1's launches by shape (Lp 4) and its bound; gates: the
+    rerank's scores equal plain exact f32 MaxSim of the returned docs, no
+    index >= n_docs, and at n_candidates = n_docs (the first 2,000 pages,
+    int8 and pq) the top-10 equal to exact MaxSim's at every untied rank;
+    a pruned PQ npz through from_npz, tools/search.main and
+    tools/serve_http (/healthz reports pruned).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
 line. Launch counts in the kernels line come from the main paths' runs
 only: phases 4-5 (serving: K1 bf16, K2), phase 8 (the trainer: K1 float32),
-phase 9 (the train step: K5, K6) and phases 12-14 (the capacity tiers: K4,
-K3), each with the counts set to 0 just before it; K1 float32's and K3's
+phase 9 (the train step: K5, K6), phases 12-14 (the capacity tiers: K4,
+K3) and phase 20's engines (the wide functions, by kernel function),
+each with the counts set to 0 just before it; K1 float32's and K3's
 also by kernel function and shape (``cuda_maxsim.launch_shapes``; K3's
 compact-books pq and pqfull and its expanded-books path are three
 entries). The float32 modes of
 K5/K6 and K2b have no trainer or engine path, in the JAX package either
 (its student is scored by maxsim_xla, its engine never passes
 ``deferred``): their launches come from their entry points' calls in
-phases 16 and 17, with the counts set to 0 just before each.
+phases 16, 17 and 20, with the counts set to 0 just before each. Phase
+21's stage 1 launches (K1, K2, K4 at Lp 4) join the entries of K1 bf16,
+K2 and K4 as ``pruned_stage1_launches``.
 """
 
 from __future__ import annotations
@@ -134,6 +159,7 @@ import sys
 import threading
 import time
 import urllib.request
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -165,6 +191,17 @@ SHORT_DOCS, SHORT_LP = 100_000, 64
 # zero-padded to 80) and queries of 200 tokens (K1 and K3 score them in
 # two slices, 128 + 72 tokens; K2 and K4 take 256 in one launch)
 SHAPES_DOCS, SHAPES_D, SHAPES_LQ, SHAPES_PQ_M = 3_000, 72, 200, 8
+# every width (phase 20): 3,000 pages x 768 tokens at D = 320, above the
+# fast kernels' 256 (PQ at M = 16: compact books of 20 dims, and the same
+# codes with the books expanded to full width), K1 float32 also at D 200
+# (above its 192); the plain versions timed on the first 1,000 pages
+WIDE_DOCS, WIDE_D, WIDE_PQ_M, WIDE_F32_DS = 3_000, 320, 16, (200, 320)
+PLAIN_WIDE_DOCS = 1_000
+# pruned search (phase 21): phase 4's shape as float pages, 4 k-means
+# centres a page (the engine's default), 1% and 5% of the pages as
+# candidates; the full-cover gate and the files on the first 2,000 pages
+PRUNE_DOCS, PRUNE_K, PRUNE_CANDS = 50_000, 4, (512, 2_500)
+PRUNE_FULL_DOCS = 2_000
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -1630,6 +1667,659 @@ def shapes_phase(cm, gen):
             f"{k} {v:.1f}" for k, v in rates.items()))
 
 
+# ------------------------------------------------- every width (phase 20)
+
+
+def wide_pages(n, d, gen, chunk=1_000):
+    """(n, LP, d) unit f32 tokens, ~10% invalid (zeroed), on the device."""
+    P = torch.empty((n, LP, d), dtype=torch.float32, device=DEVICE)
+    for i in range(0, n, chunk):
+        c = min(chunk, n - i)
+        P[i:i + c] = unit(torch.randn((c, LP, d), device=DEVICE,
+                                      generator=gen))
+    pm = torch.rand((n, LP), device=DEVICE, generator=gen) > 0.1
+    return P * pm[..., None], pm
+
+
+def fwd_entry(phase, kname, kern, plain, kargs, pargs, d, peak, src, repl,
+              launches, err, tol, smi, extra=None):
+    """Time one forward kernel (median of 7 CUDA-event timings) beside its
+    bound at width ``d`` and its plain version on ``pargs`` (median of 3);
+    returns its kernels-line entry."""
+    ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
+    plain_ms, _, _ = cuda_ms(lambda: plain(*pargs), 3)
+    qmask, pmask = kargs[-2], kargs[-1]
+    if kargs[-1].dtype != torch.bool:  # K3: (Q, codes, qm, pm, books)
+        qmask, pmask = kargs[2], kargs[3]
+    nq, nd = kargs[0].shape[0], pmask.shape[0]
+    ops = 2.0 * d * float(qmask.sum()) * float(pmask.sum())
+    bms, by = bound(tensor_bytes(*kargs) + nq * nd * 4, ops, peak)
+    plain_nd = (pargs[-1] if pargs[-1].dtype == torch.bool
+                else pargs[3]).shape[0]
+    log(f"phase {phase} time {kname}: {ms:.3f} ms median of 7 (spread "
+        f"{lo:.3f}-{hi:.3f}) at {tuple(kargs[0].shape)} queries x {nd}x"
+        f"{pmask.shape[1]} pages, D = {d}; bound {bms:.3f} ms by {by} ({peak} "
+        f"peak; {bms / ms:.1%} of the time); plain {plain_ms:.3f} ms (median "
+        f"of 3, on {plain_nd} pages); library: none; {launches} launches; "
+        f"{smi}")
+    return {"name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": err, "tol": tol, "ms": ms,
+            "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "d": d,
+            **(extra or {})}
+
+
+def wide_phase(cm, ct, gen, smi):
+    """Phase 20: every tier above the fast kernels' bound (D 256; float32
+    192). An index of D = 320 on every tier (3,000 pages x 768 tokens; PQ
+    at M = 16 with compact books of 20 dims, and the same codes with the
+    books expanded to full width), 256 planted queries x 32 tokens through
+    search_dense against the plain versions; K2b's wide entry points, bit
+    for bit K2's; K1 float32 at D 200 and 320; MaxSimFn at D 320 in both
+    modes (scores, M, dQ, dP against the plain pair, the wide K5 bit-equal
+    to the wide K1, K6 on planted exact ties, two K6 calls bit-equal);
+    each wide kernel's time beside its bound. Returns their kernels-line
+    entries (launches from this phase's engines; K2b's, K5's and K6's from
+    their entry points' calls, counts zeroed before each)."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.pq import encode_pq_device, expand_books, train_pq
+
+    t0 = time.perf_counter()
+    n, d = WIDE_DOCS, WIDE_D
+    P, pm = wide_pages(n, d, gen)
+    pm[7] = False                     # a doc with no valid token
+    P[7] = 0.0
+    Q, qm, tgt = planted_queries(lambda t: P[t], n, gen)
+    books = train_pq(P[:300], pm[:300], m=WIDE_PQ_M, sample=PQ_SAMPLE,
+                     seed=0)
+    codes = encode_pq_device(P, books, pm)
+    books_t = torch.as_tensor(books, device=DEVICE)
+    # the same codes with full-width books: the sum decode's wide path
+    books_ex = torch.as_tensor(expand_books(books, np.eye(d, dtype=np.float32)),
+                               device=DEVICE)
+    Qp, qmp, tgtp = planted_queries(lambda t: pq_tokens(codes[t], books_t),
+                                    n, gen)
+    log(f"phase 20 data: {n} pages x {LP} x {d} (unit, ~10% masked, doc 7 "
+        f"empty), PQ books {tuple(books.shape)} on {PQ_SAMPLE} sampled "
+        f"tokens and expanded {tuple(books_ex.shape)}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cm.reset_launch_counts()
+    base = "cuda" if DEVICE == "cuda" else "plain"
+    bf = RetrievalEngine(dtype="bfloat16").build(P, pm)
+    i8q = RetrievalEngine(dtype="int8", quantize_queries=True).build(P, pm)
+    i8 = RetrievalEngine.from_index(i8q.index.P, i8q.index.pmask, n,
+                                    scales=i8q.index.scales, dtype="int8")
+    i4q = RetrievalEngine(dtype="int4", quantize_queries=True).build(P, pm)
+    i4 = RetrievalEngine.from_index(i4q.index.P, i4q.index.pmask, n,
+                                    scales=i4q.index.scales, dtype="int4")
+    pqq = RetrievalEngine(dtype="pq", quantize_queries=True).build_from_pq(
+        codes, books, pm)
+    pq = RetrievalEngine.from_index(pqq.index.P, pqq.index.pmask, n,
+                                    books=pqq.index.books, dtype="pq")
+    pqx = RetrievalEngine.from_index(pqq.index.P, pqq.index.pmask, n,
+                                     books=books_ex, books_expanded=True,
+                                     dtype="pq")
+    check(all(e.dim == d for e in (bf, i8, i4, pq, pqx))
+          and i8q.impl == base + "_q8" and pqq.impl == base + "_q8",
+          "phase 20 engines: dim and impl")
+    rates = {}
+    for label, eng, q, m_, t_, plain, tol in (
+            ("bfloat16", bf, Q, qm, tgt, cm.maxsim_plain, 2e-2),
+            ("int8+quantize_queries", i8q, Q, qm, tgt,
+             cm.maxsim_int8full_plain, 1e-3),
+            ("int8", i8, Q, qm, tgt, cm.maxsim_int8_plain, 2e-2),
+            ("int4+quantize_queries", i4q, Q, qm, tgt,
+             cm.maxsim_int4full_plain, 1e-3),
+            ("int4", i4, Q, qm, tgt, cm.maxsim_int4_plain, 2e-2),
+            ("pq+quantize_queries", pqq, Qp, qmp, tgtp,
+             cm.maxsim_pqfull_plain, 1e-3),
+            ("pq", pq, Qp, qmp, tgtp, cm.maxsim_pq_plain, 2e-2),
+            ("pq expanded books", pqx, Qp, qmp, tgtp, cm.maxsim_pq_plain,
+             2e-2)):
+        rates[label] = check_engine(20, f"{label} (D {d})", eng, q, m_, t_,
+                                    plain, tol)
+    torch.cuda.synchronize()
+    funcs = ("evdr_maxsim_bf16_wide", "evdr_maxsim_int8_wide",
+             "evdr_maxsim_int8full_wide", "evdr_maxsim_int4_wide",
+             "evdr_maxsim_int4full_wide", "evdr_maxsim_pq_wide",
+             "evdr_maxsim_pqfull_wide", "evdr_maxsim_pq_sum_wide")
+    launches = {f: cm.func_launches(f) for f in funcs}
+    log(f"phase 20 launches: {launches}; by shape: "
+        f"{sorted((k[1], k[3], k[4]) for k in cm.launch_shapes)}")
+    check(all(launches[f] > 0 for f in funcs)
+          and not any(not k[1].endswith("_wide") for k in cm.launch_shapes),
+          "phase 20 ran every wide function and no fast kernel")
+
+    # K2b's wide path through its entry points: K2's wide scores bit for bit
+    i8x = i8q.index
+    k2_args = (Q, i8x.P, i8x.scales, qm, i8x.pmask)
+    cm.reset_launch_counts()
+    same = {}
+    for mode, kern in (("int8", cm.maxsim_cuda_int8),
+                       ("int8full", cm.maxsim_cuda_int8full)):
+        same[mode] = bool(torch.equal(kern(*k2_args, deferred=True),
+                                      kern(*k2_args)))
+    defer_launches = {f: cm.func_launches(f) for f in (
+        "evdr_maxsim_int8_defer_wide", "evdr_maxsim_int8full_defer_wide")}
+    log(f"phase 20 K2b wide: bit-equal to K2 wide {same}; launches "
+        f"{defer_launches}")
+    check(all(same.values()) and all(defer_launches.values()),
+          "K2b's wide path equals K2's")
+
+    # K1 float32 at D 200 and 320, on the first 1,000 pages
+    f32_err = {}
+    for dd in WIDE_F32_DS:
+        Pd = P[:1_000, :, :dd].contiguous()
+        f32_err[dd] = parity_case(20, "maxsim_f32_wide", f"D {dd}",
+                                  cm.maxsim_cuda_f32,
+                                  lambda *a: cm.maxsim_plain(
+                                      *a, compute=torch.float32),
+                                  (Q[..., :dd].contiguous(), Pd, qm,
+                                   pm[:1_000]), 1e-4, 7)
+    del Pd
+
+    train_errs, train_kargs = wide_train_checks(ct, cm, gen, d)
+
+    # times at the engines' shapes (plain versions on the first 1,000 pages)
+    pl = PLAIN_WIDE_DOCS
+    i4x, pqx_ix = i4q.index, pqq.index
+    bfx = bf.index
+    fx = (Q, P, qm, pm)
+    a_bf = (Q, bfx.P, qm, bfx.pmask)
+    a_i8 = k2_args
+    a_i4 = (Q, i4x.P, i4x.scales, qm, i4x.pmask)
+    a_pq = (Qp, pqx_ix.P, qmp, pqx_ix.pmask, pqx_ix.books)
+    a_ex = (Qp, pqx_ix.P, qmp, pqx_ix.pmask, books_ex)
+
+    def cut(a):
+        if a[-1].dtype == torch.bool:
+            return a[:1] + tuple(x[:pl] for x in a[1:-2]) + (a[-2], a[-1][:pl])
+        return (a[0], a[1][:pl], a[2], a[3][:pl], a[4])
+
+    K1S, K2S = "evdr_tpu/ops/pallas_maxsim.py:433", \
+        "evdr_tpu/ops/pallas_maxsim.py:686"
+    cs = "evdr_tpu_torch/csrc/"
+    timed = [
+        ("maxsim_bf16_wide", cm.maxsim_cuda, cm.maxsim_plain, a_bf, "bf16",
+         cs + "maxsim_bf16.cu", K1S, launches["evdr_maxsim_bf16_wide"]),
+        ("maxsim_int8_wide", cm.maxsim_cuda_int8, cm.maxsim_int8_plain,
+         a_i8, "bf16", cs + "maxsim_int8.cu", K2S,
+         launches["evdr_maxsim_int8_wide"]),
+        ("maxsim_int8full_wide", cm.maxsim_cuda_int8full,
+         cm.maxsim_int8full_plain, a_i8, "int8", cs + "maxsim_int8.cu", K2S,
+         launches["evdr_maxsim_int8full_wide"]),
+        ("maxsim_int8_defer_wide", cm.maxsim_cuda_int8_deferred,
+         cm.maxsim_int8_plain, a_i8, "bf16", cs + "maxsim_int8_defer.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:740",
+         defer_launches["evdr_maxsim_int8_defer_wide"]),
+        ("maxsim_int8full_defer_wide", cm.maxsim_cuda_int8full_deferred,
+         cm.maxsim_int8full_plain, a_i8, "int8", cs + "maxsim_int8_defer.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:740",
+         defer_launches["evdr_maxsim_int8full_defer_wide"]),
+        ("maxsim_int4_wide", cm.maxsim_cuda_int4, cm.maxsim_int4_plain, a_i4,
+         "bf16", cs + "maxsim_int4.cu", "evdr_tpu/ops/pallas_maxsim.py:1413",
+         launches["evdr_maxsim_int4_wide"]),
+        ("maxsim_int4full_wide", cm.maxsim_cuda_int4full,
+         cm.maxsim_int4full_plain, a_i4, "int8", cs + "maxsim_int4.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1413",
+         launches["evdr_maxsim_int4full_wide"]),
+        ("maxsim_pq_wide", cm.maxsim_cuda_pq, cm.maxsim_pq_plain, a_pq,
+         "bf16", cs + "maxsim_pq.cu", "evdr_tpu/ops/pallas_maxsim.py:1109",
+         launches["evdr_maxsim_pq_wide"]),
+        ("maxsim_pqfull_wide", cm.maxsim_cuda_pqfull, cm.maxsim_pqfull_plain,
+         a_pq, "int8", cs + "maxsim_pq.cu",
+         "evdr_tpu/ops/pallas_maxsim.py:1109",
+         launches["evdr_maxsim_pqfull_wide"]),
+        ("maxsim_pq_sum_wide", cm.maxsim_cuda_pq, cm.maxsim_pq_plain, a_ex,
+         "bf16", cs + "maxsim_pq.cu", "evdr_tpu/ops/pallas_maxsim.py:1109",
+         launches["evdr_maxsim_pq_sum_wide"]),
+    ]
+    kernels = []
+    for kname, kern, plain, kargs, peak, src, repl, n_l in timed:
+        err = float((kern(*cut(kargs)) - plain(*cut(kargs))).abs().max())
+        tol = 1e-3 if peak == "int8" else 2e-2
+        check(err <= tol, f"{kname} against its plain version ({err})")
+        kernels.append(fwd_entry(20, kname, kern, plain, kargs, cut(kargs), d,
+                                 peak, src, repl, n_l, err, tol, smi))
+    del a_bf, a_i8, a_i4, bf, i8q, i8, i4q, i4, pqq, pq, pqx, bfx, i8x, i4x
+    torch.cuda.empty_cache()
+    for dd in WIDE_F32_DS:
+        fa = (Q[..., :dd].contiguous(), P[..., :dd].contiguous(), qm, pm)
+        cm.reset_launch_counts()
+        cm.maxsim_cuda_f32(*fa)
+        nl = cm.func_launches("evdr_maxsim_f32_wide")
+        kernels.append(fwd_entry(
+            20, f"maxsim_f32_wide_d{dd}", cm.maxsim_cuda_f32,
+            lambda *a: cm.maxsim_plain(*a, compute=torch.float32), fa,
+            cut(fa), dd, "tf32", cs + "maxsim_f32.cu", K1S, nl, f32_err[dd],
+            1e-4, smi))
+        del fa
+    kernels += wide_train_times(ct, cm, train_kargs, train_errs, d, smi)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s; search_dense q/s at "
+        f"D {d}: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    return kernels
+
+
+def wide_train_checks(ct, cm, gen, d):
+    """Phase 20's MaxSimFn at D = ``d`` in both modes (STEP_NQ x LQ queries
+    against 300 pages of the student's length), on tie-free data with an
+    empty doc, against the plain K5/K6 pair; the wide K5 bit-equal to the
+    wide K1; K6 on planted exact ties; two K6 calls bit-equal. Returns the
+    errors and the timing phase's arguments per mode."""
+    nd, lp = 300, -(-DOC_LEN[1] // MF)
+    errs, kargs = {}, {}
+    for dtype, rel_tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-4)):
+        Q = unit(torch.randn((STEP_NQ, LQ, d), device=DEVICE, generator=gen))
+        qm = torch.rand((STEP_NQ, LQ), device=DEVICE, generator=gen) > 0.15
+        P = unit(torch.randn((nd, lp, d), device=DEVICE, generator=gen))
+        pm = torch.rand((nd, lp), device=DEVICE, generator=gen) > 0.1
+        qm[:, 0] = True
+        pm[:, 0] = True
+        pm[7] = False
+        Q[0, 0] = P[1, 0]
+        untie(Q, qm, P, pm, dtype=dtype)
+        w = torch.randn((STEP_NQ, nd), device=DEVICE, generator=gen)
+        cm.reset_launch_counts()
+        Qg, Pg = Q.clone().requires_grad_(True), P.clone().requires_grad_(True)
+        out = ct.MaxSimFn.apply(Qg, Pg, qm, pm, dtype)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        sfx = "_f32" if dtype == torch.float32 else ""
+        n_fwd = cm.func_launches(f"evdr_maxsim_fwd_train{sfx}_wide")
+        n_bwd = cm.func_launches(f"evdr_maxsim_bwd{sfx}_wide")
+        out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, dtype)
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, w, dtype)
+        e_out = float((out.detach() - out_p).abs().max())
+        e_g = max(rel_err(Qg.grad, dq_p), rel_err(Pg.grad, dp_p))
+        a_g = max(float((Qg.grad - dq_p).abs().max()),
+                  float((Pg.grad - dp_p).abs().max()))
+        o5, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, dtype)
+        e_m = float((M - M_p).abs().max())
+        same_k1 = bool(torch.equal(o5, cm.maxsim_cuda(Q, P, qm, pm, dtype)))
+        # the times take the tie-free data (a zero query row, below, hits
+        # every valid token: ~140 x 300 hits on one row's walk)
+        kargs[dtype] = tuple(x.clone() for x in (Q, P, qm, pm, w))
+        # exact ties: doc 1 holds its token 0 twice, query 0's first token
+        # sits on it; the last query's first token is zero (ties with all)
+        P[1, lp - 1] = P[1, 0]
+        pm[1, lp - 1] = True
+        Q[-1, 0] = 0.0
+        M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, dtype)[1]
+        dq, dp = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, w, dtype)
+        dq2, dp2 = ct.maxsim_cuda_bwd(Q, P, qm, pm, M, w, dtype)
+        M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, dtype)[1]
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, w, dtype)
+        e_t = max(rel_err(dq, dq_p), rel_err(dp, dp_p))
+        tied = bool(torch.equal(dp[1, 0], dp[1, lp - 1]))
+        twice = bool(torch.equal(dq, dq2) and torch.equal(dp, dp2))
+        log(f"phase 20 MaxSimFn at D = {d} ({dtype}): launches K5 wide "
+            f"{n_fwd}, K6 wide {n_bwd}; scores {e_out:.3e} (tol 1e-4), M "
+            f"{e_m:.3e} (tol 1e-4), dQ/dP {e_g:.3e} relative (tol "
+            f"{rel_tol:g}), {a_g:.3e} max abs, against the plain K5/K6 pair; "
+            f"K5 wide scores bit-equal to K1 wide: {same_k1}; on exact ties "
+            f"dQ/dP {e_t:.3e} relative, the duplicated token's copies equal: "
+            f"{tied}; two K6 calls bit-equal: {twice}")
+        check(n_fwd > 0 and n_bwd > 0 and e_out <= 1e-4 and e_m <= 1e-4
+              and e_g <= rel_tol and e_t <= rel_tol and same_k1 and tied
+              and twice, f"MaxSimFn at D = {d} ({dtype})")
+        check(float(Pg.grad[7].abs().max()) == 0.0,
+              f"the empty doc gets no gradient at D = {d} ({dtype})")
+        errs[dtype] = (max(e_out, e_m), a_g, max(e_g, e_t), n_fwd, n_bwd)
+    return errs, kargs
+
+
+def wide_train_times(ct, cm, train_kargs, errs, d, smi):
+    """Phase 20's wide K5 and K6 times in both modes, at MaxSimFn's
+    shape, beside their bounds (K6: the recompute plus one page row per
+    (query row, doc) into dQ and one query row into dP)."""
+    kernels = []
+    for dtype, peak in ((torch.bfloat16, "bf16"), (torch.float32, "tf32")):
+        Q, P, qm, pm, w = train_kargs[dtype]
+        nq, lq = Q.shape[:2]
+        nd, lp = pm.shape
+        M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, dtype)[1]
+        e_fwd, a_g, rel, n_fwd, n_bwd = errs[dtype]
+        ops = 2.0 * d * float(qm.sum()) * float(pm.sum())
+        rows_docs = float(qm.sum()) * float(pm.any(dim=1).sum())
+        sfx = "_f32" if dtype == torch.float32 else ""
+        fwd = (Q, P, qm, pm)
+        bwd = (Q, P, qm, pm, M, w)
+        for kname, kern, plain, kargs, nbytes, n_ops, src, repl, n_l, err in (
+                (f"maxsim_fwd_train{sfx}_wide",
+                 lambda *a: ct.maxsim_cuda_fwd_train(*a, dtype),
+                 lambda *a: ct.maxsim_fwd_train_plain(*a, dtype), fwd,
+                 tensor_bytes(*fwd) + (nq + nq * lq) * nd * 4, ops,
+                 "maxsim_f32.cu" if sfx else "maxsim_bf16.cu",
+                 "evdr_tpu/ops/pallas_maxsim_bwd.py:84", n_fwd, e_fwd),
+                (f"maxsim_bwd{sfx}_wide",
+                 lambda *a: ct.maxsim_cuda_bwd(*a, dtype),
+                 lambda *a: ct.maxsim_bwd_plain(*a, dtype), bwd,
+                 tensor_bytes(*bwd) + (nq * lq + nd * lp) * d * 4,
+                 ops + 4.0 * d * rows_docs, "maxsim_train.cu",
+                 "evdr_tpu/ops/pallas_maxsim_bwd.py:168", n_bwd, a_g)):
+            ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
+            plain_ms, _, _ = cuda_ms(lambda: plain(*kargs), 3)
+            bms, by = bound(nbytes, n_ops, peak)
+            log(f"phase 20 time {kname}: {ms:.3f} ms median of 7 (spread "
+                f"{lo:.3f}-{hi:.3f}) at {nq}x{lq} queries x {nd}x{lp} "
+                f"pages, D = {d}; bound {bms:.3f} ms by {by} ({peak} peak; "
+                f"{bms / ms:.1%}); plain {plain_ms:.3f} ms (median of 3); "
+                f"library: none; {n_l} launches; {smi}")
+            entry = {"name": kname, "route": "cuda",
+                     "source": "evdr_tpu_torch/csrc/" + src, "replaces": repl,
+                     "launches": n_l, "max_abs_err": err,
+                     "tol": 1e-4 if "fwd" in kname else None, "ms": ms,
+                     "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "d": d}
+            if "bwd" in kname:
+                entry.update(rel_err=rel,
+                             rel_tol=1e-4 if sfx else 1e-3)
+            kernels.append(entry)
+    return kernels
+
+
+# ------------------------------------------------- pruned search (phase 21)
+
+
+def untied_agreement(vals_e, idx_e, idx_p, gap):
+    """Whether the pruned ``idx_p`` (nq, k) equals the exact top-(k + 1)
+    ``idx_e`` at every rank of the first k whose exact score stands more
+    than ``gap`` from both neighbours' (untied); returns (agree, ranks
+    compared)."""
+    v = np.asarray(vals_e, np.float64)
+    k = idx_p.shape[1]
+    step = v[:, :-1] - v[:, 1:]               # rank r to rank r + 1
+    above = np.concatenate([np.full((v.shape[0], 1), np.inf), step], 1)
+    untied = (above[:, :k] > gap) & (step[:, :k] > gap)
+    return (bool((idx_e[:, :k][untied] == idx_p[untied]).all()),
+            int(untied.sum()))
+
+
+def stored_tokens(ix, docs, d):
+    """The f32 tokens of index ``ix``'s docs ``docs`` as the rerank scores
+    them: dequantized int8 / int4, or PQ decoded from the f32 books."""
+    from evdr_tpu_torch.ops.cuda_maxsim import unpack_int4_torch
+    from evdr_tpu_torch.ops.pruned import _decode_pq
+
+    T = ix.P[docs]
+    if ix.books is not None:
+        return _decode_pq(T, ix.books, d, "take")
+    if T.dtype == torch.uint8:
+        T = unpack_int4_torch(T, ix.pmask.shape[1])
+    T = T.float()
+    return T if ix.scales is None else T * ix.scales[docs][..., None]
+
+
+def rerank_exact_err(ix, Q, qm, vals, idx):
+    """Largest gap between the pruned rerank's scores and plain exact f32
+    MaxSim (ops/maxsim.maxsim_torch, -1e4 fill) of the returned docs over
+    the stored index, query by query."""
+    from evdr_tpu_torch.ops.maxsim import maxsim_torch
+
+    err = 0.0
+    for q in range(Q.shape[0]):
+        docs = torch.as_tensor(idx[q], device=Q.device)
+        s = maxsim_torch(Q[q:q + 1], stored_tokens(ix, docs, Q.shape[-1]),
+                         qm[q:q + 1], ix.pmask[docs])[0]
+        err = max(err, float((s.cpu() - torch.as_tensor(vals[q])).abs().max()))
+    return err
+
+
+def exact_f32_top(ix, Q, qm, k):
+    """Exact top-k (values, indices) over the stored index in f32, the
+    semantics the rerank applies to its candidates."""
+    from evdr_tpu_torch.ops.maxsim import maxsim_torch
+    from evdr_tpu_torch.parallel.topk import _select_topk
+
+    docs = torch.arange(ix.n_docs, device=Q.device)
+    sc = maxsim_torch(Q, stored_tokens(ix, docs, Q.shape[-1]), qm,
+                      ix.pmask[:ix.n_docs])
+    v, i = _select_topk(sc, k)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def pruned_engine(label, kw, P, pm, Q, qm, smi):
+    """One engine of phase 21 over the 50,000 pages: its build (the
+    summary's own seconds measured apart), exact search, then at each
+    candidate count the pruned search's q/s, recall@1 and @10 against the
+    exact search, stage 1 (the summary scored by the serving kernels at Lp
+    = PRUNE_K) and stage 2 (the exact rerank) timed apart by CUDA events,
+    stage 1's launches by shape and its bound; the gates. Returns the
+    report and stage 1's launches (a Counter by wrapper, function and
+    shape)."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops import cuda_maxsim as cm
+    from evdr_tpu_torch.ops import pruned
+    from evdr_tpu_torch.parallel.topk import _select_topk
+
+    t0 = time.perf_counter()
+    eng = RetrievalEngine(prune_centroids=PRUNE_K, normalize=False,
+                          **kw).build(P, pm)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ix, sx = eng.index, eng.summary
+    n = eng.n_docs
+    check(sx is not None and sx.n_docs == n and sx.P.shape[1] in (
+        PRUNE_K, -(-PRUNE_K // 2)), f"{label}: summary index")
+    eng.search_dense(Q, qm, k=K)
+    t0 = time.perf_counter()
+    ve, ie = eng.search_dense(Q, qm, k=K)
+    exact_qps = Q.shape[0] / (time.perf_counter() - t0)
+    peak = "int8" if eng.impl.endswith("_q8") else "bf16"
+    s_ops = 2.0 * D * float(qm.sum()) * float(sx.pmask.sum())
+    s_bytes = tensor_bytes(Q, qm, sx.P, sx.pmask) + Q.shape[0] * sx.n_pad * 4
+    if sx.scales is not None:
+        s_bytes += tensor_bytes(sx.scales)
+    s_bound, s_by = bound(s_bytes, s_ops, peak)
+    s1_ms, s1_lo, s1_hi = cuda_ms(lambda: pruned.candidate_scores(
+        Q, qm, sx.P, sx.pmask, eng.impl, sx.scales), 7)
+    sc = pruned.candidate_scores(Q, qm, sx.P, sx.pmask, eng.impl, sx.scales)
+    report = {"engine": label, "build_s": t_build,
+              "summary_dtype": str(sx.P.dtype).replace("torch.", ""),
+              "exact_qps": exact_qps, "stage1_ms": s1_ms,
+              "stage1_spread": [s1_lo, s1_hi], "stage1_bound_ms": s_bound,
+              "stage1_bound_by": s_by, "stage1_share": s_bound / s1_ms,
+              "by_candidates": {}}
+    stage1 = Counter()
+    for nc in PRUNE_CANDS:
+        cm.reset_launch_counts()
+        eng.search_dense(Q, qm, k=K, n_candidates=nc)
+        torch.cuda.synchronize()
+        shapes = sorted(k_ + (v_,) for k_, v_ in cm.launch_shapes.items())
+        stage1.update(cm.launch_shapes)
+        t0 = time.perf_counter()
+        vals, idx = eng.search_dense(Q, qm, k=K, n_candidates=nc)
+        qps = Q.shape[0] / (time.perf_counter() - t0)
+        cand = _select_topk(sc, nc)[1]
+        chunk_q = pruned.rerank_chunk_q(nc, LP, D, ix.books, "take")
+        s2_ms, s2_lo, s2_hi = cuda_ms(lambda: pruned.rerank_candidates(
+            Q, qm, ix.P, ix.pmask, cand, K, scales=ix.scales,
+            chunk_q=chunk_q, books=ix.books, pq_decode="take"), 3)
+        r1 = pruned.pruned_recall(ie[:, :1], idx[:, :1])
+        r10 = pruned.pruned_recall(ie, idx)
+        err = rerank_exact_err(ix, Q, qm, vals, idx)
+        report["by_candidates"][nc] = {
+            "qps": qps, "recall_at_1": r1, "recall_at_10": r10,
+            "stage2_ms": s2_ms, "stage2_spread": [s2_lo, s2_hi],
+            "rerank_vs_exact_f32": err, "stage1_launches": shapes}
+        log(f"phase 21 {label}, {nc} candidates ({nc / n:.0%}): {qps:.1f} "
+            f"q/s (exact search {exact_qps:.1f}); recall@1 {r1:.4f}, "
+            f"recall@10 {r10:.4f} against exact search; stage 1 "
+            f"{s1_ms:.3f} ms (spread {s1_lo:.3f}-{s1_hi:.3f}; bound "
+            f"{s_bound:.3f} ms by {s_by}, {s_bound / s1_ms:.1%}), stage 2 "
+            f"{s2_ms:.3f} ms (spread {s2_lo:.3f}-{s2_hi:.3f}); the rerank's "
+            f"scores against plain exact f32 MaxSim of the returned docs: "
+            f"{err:.3e} (tol 1e-3); stage 1 launches by shape {shapes}; "
+            f"{smi}")
+        check(int(idx.max()) < n and idx.shape == (Q.shape[0], K),
+              f"{label}: no pruned index >= n_docs")
+        check(err <= 1e-3, f"{label}: rerank scores are exact MaxSim")
+        check(all(s_[4] == sx.n_pad and s_[5] == sx.P.shape[1] * (
+            2 if sx.P.dtype == torch.uint8 else 1) for s_ in shapes)
+              and shapes, f"{label}: stage 1 ran the kernels on the summary")
+    log(f"phase 21 {label}: build {t_build:.1f} s (summaries "
+        f"{report['summary_dtype']}, {tensor_bytes(sx.P) / 1e6:.1f} MB)")
+    del eng
+    torch.cuda.empty_cache()
+    return report, stage1
+
+
+def pruned_full_cover(label, kw, P, pm, Q, qm):
+    """The full-cover gate on PRUNE_FULL_DOCS pages: at n_candidates =
+    n_docs the pruned top-K equals exact f32 MaxSim's over the stored index
+    at every rank untied by more than 1e-3 (both f32; summation order
+    alone), and the engine's own exact search (the kernels' numerics) at
+    every rank untied by more than 5e-2. Returns the engine."""
+    from evdr_tpu_torch import RetrievalEngine
+
+    eng = RetrievalEngine(prune_centroids=PRUNE_K, normalize=False,
+                          **kw).build(P, pm)
+    n = eng.n_docs
+    vals, idx = eng.search_dense(Q, qm, k=K, n_candidates=n)
+    vf, if_ = exact_f32_top(eng.index, Q, qm, K + 1)
+    ve, ie = eng.search_dense(Q, qm, k=K + 1)
+    ok_f, n_f = untied_agreement(vf, if_, idx, 1e-3)
+    ok_e, n_e = untied_agreement(ve, ie, idx, 5e-2)
+    err = float(np.abs(vals - vf[:, :K]).max())
+    log(f"phase 21 {label} at full cover ({n} pages, {Q.shape[0]} "
+        f"queries): top-{K} equal to exact f32 MaxSim at {n_f} untied ranks: "
+        f"{ok_f} (scores {err:.3e}); to the engine's exact search at {n_e} "
+        f"ranks untied by 5e-2: {ok_e}")
+    check(ok_f and ok_e and n_f > 0 and err <= 1e-3,
+          f"{label}: pruned top-{K} at full cover is the exact top-{K}")
+    return eng
+
+
+def pruned_entry_points(eng, Q, qm, work):
+    """A pruned PQ index through the files and CLIs: its codes and books
+    written as a packed npz, loaded by RetrievalEngine.from_npz with
+    prune_centroids (summaries from the decoded codes) and by
+    tools/search.main with --prune_centroids / --n_candidates (rank 1
+    equal to search_dense); tools/serve_http over the loaded engine
+    reports pruned on /healthz and answers n_candidates requests."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.data.packing import preprocess_queries
+    from evdr_tpu_torch.tools import search
+    from evdr_tpu_torch.tools.serve_http import make_server
+
+    ix = eng.index
+    n, nq, nc = eng.n_docs, min(64, Q.shape[0]), 200
+    path = work / "pruned.pq.npz"
+    np.savez(path, P_pq_codes=ix.P[:n].cpu().numpy(),
+             P_pq_books=ix.books.cpu().numpy(),
+             pmask=ix.pmask[:n].cpu().numpy(),
+             doc_normalized=np.asarray(True),
+             docid=np.asarray([f"page-{i}" for i in range(n)]),
+             Q_norm=Q[:nq].cpu().numpy(), qmask=qm[:nq].cpu().numpy(),
+             qid=np.asarray([f"q{i}" for i in range(nq)]))
+    t0 = time.perf_counter()
+    eng2 = RetrievalEngine.from_npz(path, dtype="pq",
+                                    prune_centroids=PRUNE_K)
+    t_load = time.perf_counter() - t0
+    check(eng2.summary is not None and eng2.summary.P.dtype ==
+          torch.bfloat16 and eng2.n_docs == n, "from_npz: pq + summaries")
+    _, idx = eng2.search_dense(Q[:nq], qm[:nq], k=K, n_candidates=nc)
+    direct = [r[0] for r in eng2.ids_for(idx)]
+    run = work / "run.pruned.json"
+    search.main(["--index", str(path), "--queries", str(path), "--dtype",
+                 "pq", "--prune_centroids", str(PRUNE_K), "--n_candidates",
+                 str(nc), "--k", str(K), "--format", "json", "--out",
+                 str(run)])
+    ranked = json.loads(run.read_text())
+    cli = [next(iter(ranked[f"q{i}"])) for i in range(nq)]
+    check(cli == direct, "pruned search CLI rank 1 equals search_dense")
+    srv = make_server(eng2, port=0, default_candidates=nc)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        qs = [q[m].cpu().numpy() for q, m in zip(Q[:4], qm[:4])]
+        body = json.dumps({"queries": [q.tolist() for q in qs], "k": K,
+                           "n_candidates": nc}).encode()
+        req = urllib.request.Request(url + "/search", data=body, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            reply = json.loads(r.read())
+        qobj = np.empty(4, dtype=object)
+        qobj[:] = qs
+        Qh, qmh = preprocess_queries(qobj, None, length_multiple=8)
+        _, idx_h = eng2.search_dense(Qh, qmh, k=K, n_candidates=nc)
+        top1 = [r[0] for r in reply["docids"]] == [
+            r[0] for r in eng2.ids_for(idx_h)]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    log(f"phase 21 entry points: packed pq npz of {n} pages through "
+        f"from_npz(prune_centroids={PRUNE_K}) {t_load:.1f} s (summaries "
+        f"from the decoded codes); search CLI --n_candidates {nc} rank 1 "
+        f"equal to search_dense: {cli == direct}; serve_http /healthz "
+        f"{health}, /search top-1 equal: {top1}")
+    check(health["pruned"] is True and top1, "serve_http over a pruned engine")
+
+
+def pruned_phase(gen, smi, root):
+    """Phase 21: pruned two-stage search. Float pages at phase 4's shape
+    (50,000 x 768, D = 128, random unit tokens ~10% masked) and planted
+    queries (256 x 32); engines with prune_centroids = PRUNE_K through
+    build: int8 (int8 summaries: stage 1 on K2), the same with
+    quantize_queries (K2's full mode), int8 with int4 summaries (K4), and
+    pq (bf16 summaries: K1, the PLAID combination); each at 1% and 5%
+    candidates (pruned_engine). The full-cover gate on the first
+    PRUNE_FULL_DOCS pages for int8 and pq, and the pq index's files and
+    CLIs. Random unit pages have no clusters for the summaries to find:
+    the recall is reported, not gated."""
+    from evdr_tpu_torch.ops import pruned
+
+    t0 = time.perf_counter()
+    P, pm = make_pages(PRUNE_DOCS, gen)
+    pm[123] = False                   # a doc with no valid token
+    Q, qm, _ = planted_queries(lambda t: P[t], PRUNE_DOCS, gen)
+    t1 = time.perf_counter()
+    S, sm = pruned.build_summary_tokens(P, pm, PRUNE_K)
+    torch.cuda.synchronize()
+    t_sum = time.perf_counter() - t1
+    log(f"phase 21 data: {PRUNE_DOCS} pages x {LP} x {D}, {Q.shape[0]} "
+        f"planted queries x {Q.shape[1]}; summary build (k-means, "
+        f"{PRUNE_K} centres a page, 5 Lloyd steps) {t_sum:.2f} s, "
+        f"{int(sm.sum())} occupied centres")
+    del S, sm
+    reports, stage1 = [], {}
+    for label, kw in (("int8", dict(dtype="int8")),
+                      ("int8+quantize_queries",
+                       dict(dtype="int8", quantize_queries=True)),
+                      ("int8, int4 summaries",
+                       dict(dtype="int8", summary_dtype="int4")),
+                      ("pq", dict(dtype="pq"))):
+        rep, shapes = pruned_engine(label, kw, P, pm, Q, qm, smi)
+        rep["summary_build_s"] = t_sum
+        reports.append(rep)
+        for (w, f, nq_, lq_, nd_, lp_), n_l in sorted(shapes.items()):
+            stage1.setdefault((w, f), []).append(
+                {"nq": nq_, "lq": lq_, "nd": nd_, "lp": lp_,
+                 "launches": n_l})
+    nf, nq = PRUNE_FULL_DOCS, 64
+    Pf, pmf = P[:nf].clone(), pm[:nf].clone()
+    del P, pm
+    torch.cuda.empty_cache()
+    pruned_full_cover("int8", dict(dtype="int8"), Pf, pmf, Q[:nq], qm[:nq])
+    eng_pq = pruned_full_cover("pq", dict(dtype="pq"), Pf, pmf, Q[:nq],
+                               qm[:nq])
+    work = root / "build" / "chip_smoke_pruned"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        pruned_entry_points(eng_pq, Q, qm, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return reports, stage1
+
+
 # ------------------------------------------------- training, the rest (18)
 
 
@@ -1957,11 +2647,35 @@ def main(argv=None) -> int:
 
     # 19. every query length and width
     shapes_phase(cm, gen)
-    log(f"phases 1-19: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 20. every token width: the wide functions
+    kernels += wide_phase(cm, ct, gen, smi)
+    torch.cuda.empty_cache()
+
+    # 21. pruned two-stage search; stage 1's launches at Lp = PRUNE_K join
+    # the entries of the kernels it ran
+    reports, stage1 = pruned_phase(gen, smi, Path(root))
+    log("phase 21 report: " + json.dumps(reports))
+    by_name = {"maxsim_cuda": "maxsim_bf16", "maxsim_cuda_int8":
+               "maxsim_int8", "maxsim_cuda_int8full": "maxsim_int8full",
+               "maxsim_cuda_int4": "maxsim_int4"}
+    for (wrapper, func), shapes in stage1.items():
+        entry = next(k for k in kernels if k["name"] == by_name[wrapper])
+        entry.setdefault("pruned_stage1_launches", []).extend(
+            dict(x, func=func) for x in shapes)
+    check(set(stage1) == {("maxsim_cuda", "evdr_maxsim_bf16"),
+                          ("maxsim_cuda_int8", "evdr_maxsim_int8"),
+                          ("maxsim_cuda_int8full", "evdr_maxsim_int8full"),
+                          ("maxsim_cuda_int4", "evdr_maxsim_int4")},
+          f"stage 1 ran K1, K2 (both modes) and K4 at Lp {PRUNE_K}: "
+          f"{sorted(stage1)}")
+    log(f"phases 1-21: {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
-    check(len(kernels) == 15 and all(k["launches"] > 0 for k in kernels),
-          f"15 kernels, each launched on its path: "
+    n_k = 15 + 16
+    check(len(kernels) == n_k and all(k["launches"] > 0 for k in kernels),
+          f"{n_k} kernels, each launched on its path: "
           f"{[(k['name'], k['launches']) for k in kernels]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -96,6 +96,7 @@
 // evdr_bf16_config reports the configuration a call at width d runs (K1,
 // or K5 where `train`).
 #include "hopper.cuh"
+#include "maxsim_wide.cuh"
 
 namespace evdr {
 namespace {
@@ -430,4 +431,28 @@ extern "C" int evdr_bf16_config(int d, int train, void* out) {
   o[5] = (int)L.total;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &o[0], kern, kBfThreads, L.total);
+}
+
+// The wide K1 and K5 (D above 256, where the operand tiles leave shared
+// memory): maxsim_wide.cuh's D-chunked loop on mma.sync (m16n8k16 bf16,
+// f32 sums), so the wide K5's scores are the wide K1's bit for bit and the
+// wide K6 (maxsim_train.cu) recomputes its similarities exactly. C
+// interfaces as evdr_maxsim_bf16 / evdr_maxsim_fwd_train.
+extern "C" int evdr_maxsim_bf16_wide(const void* q, const void* qw,
+                                     const void* p, const void* pmask,
+                                     void* out, int nq, int lq, int nd,
+                                     int lp, int d, void* stream) {
+  return evdr::launch_wide<evdr::kBf16, false, false, evdr::kNoBooks>(
+      q, qw, p, nullptr, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
+}
+
+extern "C" int evdr_maxsim_fwd_train_wide(const void* q, const void* qw,
+                                          const void* p, const void* pmask,
+                                          void* out, void* m, int nq, int lq,
+                                          int nd, int lp, int d,
+                                          void* stream) {
+  return evdr::launch_wide<evdr::kBf16, false, true, evdr::kNoBooks>(
+      q, qw, p, nullptr, pmask, out, m, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
 }

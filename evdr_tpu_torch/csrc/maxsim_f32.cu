@@ -50,6 +50,7 @@
 // launch. evdr_f32_occupancy reports the tile configuration a call at width
 // d runs (K1, or K5 where `train`) and its CTAs per SM.
 #include "maxsim_tile.cuh"
+#include "maxsim_wide.cuh"
 
 namespace evdr {
 namespace {
@@ -350,4 +351,27 @@ extern "C" int evdr_f32_occupancy(int d, int train, void* out) {
   o[2] = cfg.cols;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &o[0], cfg.kern, kThreads, cfg.smem);
+}
+
+// The wide K1 and K5 in float32 mode (D above 192): maxsim_wide.cuh's
+// D-chunked loop, 3xTF32 products (maxsim_tile.cuh's mma(..., float)) in
+// 64-column chunks; the wide K5's scores are the wide K1's bit for bit.
+// C interfaces as evdr_maxsim_f32 / evdr_maxsim_fwd_train_f32.
+extern "C" int evdr_maxsim_f32_wide(const void* q, const void* qw,
+                                    const void* p, const void* pmask,
+                                    void* out, int nq, int lq, int nd, int lp,
+                                    int d, void* stream) {
+  return evdr::launch_wide<evdr::kF32, false, false, evdr::kNoBooks>(
+      q, qw, p, nullptr, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
+}
+
+extern "C" int evdr_maxsim_fwd_train_f32_wide(const void* q, const void* qw,
+                                              const void* p,
+                                              const void* pmask, void* out,
+                                              void* m, int nq, int lq, int nd,
+                                              int lp, int d, void* stream) {
+  return evdr::launch_wide<evdr::kF32, false, true, evdr::kNoBooks>(
+      q, qw, p, nullptr, pmask, out, m, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
 }

@@ -41,6 +41,7 @@
 // ceil(lp / 2), d) uint8, scales (nd, lp) f32, pmask (nd, lp) bool as
 // bytes, out (nq, nd) f32. Returns cudaGetLastError() after the launch.
 #include "maxsim_tile.cuh"
+#include "maxsim_wide.cuh"
 
 extern "C" int evdr_maxsim_int4full(const void* q, const void* qw,
                                     const void* p, const void* scales,
@@ -57,4 +58,26 @@ extern "C" int evdr_maxsim_int4(const void* q, const void* qw, const void* p,
                                 int d, void* stream) {
   return evdr::launch<evdr::kInt4Bf16, false, evdr::CfgWide>(
       q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
+}
+
+// K4's wide path (D above 256): maxsim_wide.cuh's D-chunked loop in
+// the same two modes, each packed chunk unpacked in shared memory. C interfaces as above.
+extern "C" int evdr_maxsim_int4full_wide(const void* q, const void* qw,
+                                         const void* p, const void* scales,
+                                         const void* pmask, void* out, int nq,
+                                         int lq, int nd, int lp, int d,
+                                         void* stream) {
+  return evdr::launch_wide<evdr::kInt4Int8, false, false, evdr::kNoBooks>(
+      q, qw, p, scales, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
+}
+
+extern "C" int evdr_maxsim_int4_wide(const void* q, const void* qw,
+                                     const void* p, const void* scales,
+                                     const void* pmask, void* out, int nq,
+                                     int lq, int nd, int lp, int d,
+                                     void* stream) {
+  return evdr::launch_wide<evdr::kInt4Bf16, false, false, evdr::kNoBooks>(
+      q, qw, p, scales, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
 }

@@ -25,6 +25,7 @@
 // C interface: as evdr_maxsim_int8full / evdr_maxsim_int8 (maxsim_int8.cu).
 // Returns cudaGetLastError() after the launch.
 #include "maxsim_tile.cuh"
+#include "maxsim_wide.cuh"
 
 extern "C" int evdr_maxsim_int8full_defer(const void* q, const void* qw,
                                           const void* p, const void* scales,
@@ -42,4 +43,27 @@ extern "C" int evdr_maxsim_int8_defer(const void* q, const void* qw,
                                       void* stream) {
   return evdr::launch<evdr::kInt8Bf16, true, evdr::CfgWide>(
       q, qw, p, scales, pmask, out, nq, lq, nd, lp, d, stream);
+}
+
+// K2b's wide path (D above 256): the wide loop with the deferred doc
+// epilogue, K2's wide scores bit for bit. C interfaces as above.
+extern "C" int evdr_maxsim_int8full_defer_wide(const void* q, const void* qw,
+                                               const void* p,
+                                               const void* scales,
+                                               const void* pmask, void* out,
+                                               int nq, int lq, int nd, int lp,
+                                               int d, void* stream) {
+  return evdr::launch_wide<evdr::kInt8Int8, true, false, evdr::kNoBooks>(
+      q, qw, p, scales, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
+}
+
+extern "C" int evdr_maxsim_int8_defer_wide(const void* q, const void* qw,
+                                           const void* p, const void* scales,
+                                           const void* pmask, void* out, int nq,
+                                           int lq, int nd, int lp, int d,
+                                           void* stream) {
+  return evdr::launch_wide<evdr::kInt8Bf16, true, false, evdr::kNoBooks>(
+      q, qw, p, scales, pmask, out, nullptr, nullptr, nq, lq, nd, lp, d, 0,
+      stream);
 }

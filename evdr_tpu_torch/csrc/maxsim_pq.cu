@@ -71,6 +71,7 @@
 // cudaGetLastError(). evdr_pq_occupancy reports a mode's CTAs per SM and
 // the clusters of C CTAs the card can hold at once.
 #include "maxsim_tile.cuh"
+#include "maxsim_wide.cuh"
 
 namespace evdr {
 namespace {
@@ -585,4 +586,48 @@ extern "C" int evdr_pq_occupancy(int mode, int d, int m, int cluster,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaOccupancyMaxActiveClusters(&o[1], kern, &cfg);
+}
+
+// K3's wide path (D above 256): maxsim_wide.cuh's D-chunked loop, each
+// chunk of a page tile decoded from the tile's codes by every CTA (no
+// cluster: `cluster` must be 1): compact books (w a multiple of 4) copy
+// each 4-column group from the subspace it falls in, into a bf16 tile (pq)
+// or an exact int8 tile (pqfull); full-width books (pq_sum) sum the group
+// over M in int32 and round it to bf16. C interfaces as above.
+template <int MODE, int BOOKS>
+int launch_pq_wide(const void* q, const void* qw, const void* codes,
+                   const void* books, const void* pmask, void* out, int nq,
+                   int lq, int nd, int lp, int d, int m, int cluster,
+                   void* stream) {
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  return evdr::launch_wide<MODE, false, false, BOOKS>(
+      q, qw, codes, nullptr, pmask, out, nullptr, books, nq, lq, nd, lp, d,
+      m, stream);
+}
+
+extern "C" int evdr_maxsim_pq_wide(const void* q, const void* qw,
+                                   const void* codes, const void* books,
+                                   const void* pmask, void* out, int nq,
+                                   int lq, int nd, int lp, int d, int m,
+                                   int cluster, void* stream) {
+  return launch_pq_wide<evdr::kBf16, evdr::kCompactBooks>(
+      q, qw, codes, books, pmask, out, nq, lq, nd, lp, d, m, cluster, stream);
+}
+
+extern "C" int evdr_maxsim_pqfull_wide(const void* q, const void* qw,
+                                       const void* codes, const void* books,
+                                       const void* pmask, void* out, int nq,
+                                       int lq, int nd, int lp, int d, int m,
+                                       int cluster, void* stream) {
+  return launch_pq_wide<evdr::kInt8Int8, evdr::kCompactBooks>(
+      q, qw, codes, books, pmask, out, nq, lq, nd, lp, d, m, cluster, stream);
+}
+
+extern "C" int evdr_maxsim_pq_sum_wide(const void* q, const void* qw,
+                                       const void* codes, const void* books,
+                                       const void* pmask, void* out, int nq,
+                                       int lq, int nd, int lp, int d, int m,
+                                       int cluster, void* stream) {
+  return launch_pq_wide<evdr::kBf16, evdr::kFullBooks>(
+      q, qw, codes, books, pmask, out, nq, lq, nd, lp, d, m, cluster, stream);
 }

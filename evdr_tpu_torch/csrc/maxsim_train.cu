@@ -68,8 +68,9 @@
 // a time, rings of 4 stages, no cluster, and earlier designs) are in
 // PERF.md. Shared memory: bf16 D = 128 181,888 bytes (8 stages), D = 256
 // 214,656 (4); float32 D = 128 219,776 (4), D = 192 217,728 (2): one CTA
-// of 256 threads per SM. K6 takes D a multiple of 16 up to 256 (float32:
-// 192), as K5.
+// of 256 threads per SM. This K6 takes D a multiple of 16 up to 256
+// (float32: 192), as the fast K5; a wider D runs the wide K6 (below) on the
+// wide K5's M.
 //
 // C interfaces (ctypes; every pointer and the stream is a void*):
 // evdr_maxsim_bwd[_f32](q, qw, p, pmask, m, g f32 (nq, nd) already
@@ -83,6 +84,7 @@
 // Each launch returns its error (a refused cluster launch included), minus
 // the CUresult of a refused tensor-map encode, else cudaGetLastError().
 #include "hopper.cuh"
+#include "maxsim_wide.cuh"
 
 namespace evdr {
 namespace {
@@ -901,6 +903,309 @@ template <int MODE> int bwd_config(int d, int cluster, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(&out[1], kern, &cfg);
 }
 
+// ------------------------------------------------------------ wide K6
+
+// Above kBwdMaxD the wide K5 (maxsim_wide.cuh: the D-chunked mma.sync loop,
+// in both modes) leaves M, and the wide K6 meets it in three passes, each
+// walking D in chunks:
+// 1. hits: a CTA recomputes a 128-row x 64-token tile of one doc with
+//    tile_mma_acc over kWideUnits-unit chunks of D (the wide K5's products
+//    and k order, so sim == M holds exactly where it held), and writes the
+//    tile's hits as whole words: a row's 32 columns of a column warp
+//    (rowbits, (nq * lq, nd, tiles, 2)) and a token's 32 rows of a row
+//    warp (colbits, (nd * lp, words of 32 rows)). No atomics.
+// 2. dQ: a warp a row and chunk of 256 columns of D (8 a lane) sums
+//    e * P[token] over the row's hits, docs and tiles ascending, tokens
+//    ascending within a tile; the row's mask words are read 32 at a time
+//    and handed round the warp.
+// 3. dP: a warp a token and chunk of D sums e * Q[row] over the token's
+//    hits, rows ascending.
+// e is W rounded to the compute dtype, as in the fast kernel. Every output
+// element has one thread and a fixed order: two calls give the same bits.
+// The masks take 8 bytes a (row, doc, 64 tokens) and a bit a (row, token).
+
+struct WideHitSmem {
+  size_t a, b, colscale, mrow, total;
+  __host__ __device__ WideHitSmem() {
+    const size_t row = (size_t)(kWideUnits + 1) * 16;
+    a = 0;
+    b = align128(row * kRows);
+    colscale = align128(b + row * kCols);
+    mrow = colscale + kCols * sizeof(float);
+    total = align128(mrow + kRows * sizeof(float));
+  }
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+bwd_wide_hits(const unsigned char* __restrict__ q,
+              const float* __restrict__ qw,
+              const unsigned char* __restrict__ p,
+              const uint8_t* __restrict__ pmask, const float* __restrict__ m,
+              const float* __restrict__ g, uint32_t* __restrict__ rowbits,
+              uint32_t* __restrict__ colbits, int nrows, int lq, int nd,
+              int lp, int d) {
+  using T = typename Traits<MODE>::TQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WideHitSmem lay;
+  constexpr size_t stride = (size_t)(kWideUnits + 1) * 16;
+  unsigned char* As = smem + lay.a;
+  unsigned char* Bs = smem + lay.b;
+  float* colscale = reinterpret_cast<float*>(smem + lay.colscale);
+  float* mrow = reinterpret_cast<float*>(smem + lay.mrow);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4;
+  const int gq = lane / 4, t = lane % 4;
+  const int dd = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int nr = min(kRows, nrows - r0);
+  const int units = mma_units<MODE>(d);
+  const int nch = (units + kWideUnits - 1) / kWideUnits;
+  const int g_units = d * (int)sizeof(T) / 16;
+  const int n_tiles = (lp + kCols - 1) / kCols;
+  const int n_rw = (nrows + 31) / 32;
+  // a row's M where W != 0, else NaN (no hit)
+  for (int r = tid; r < kRows; r += kThreads) {
+    float mv = __int_as_float(0x7fffffff);
+    if (r < nr &&
+        qw[r0 + r] * g[(size_t)((r0 + r) / lq) * nd + dd] != 0.f)
+      mv = m[(size_t)(r0 + r) * nd + dd];
+    mrow[r] = mv;
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int l0 = tile * kCols;
+    const int ntok = min(kCols, lp - l0);
+    const size_t tok0 = (size_t)dd * lp + l0;
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      const int u0 = c * kWideUnits;
+      const int cu = min(kWideUnits, units - u0);
+      __syncthreads();  // the last chunk's products (and hits) are done
+      if (c == 0 && tid < kCols)
+        colscale[tid] = tid < ntok && pmask[tok0 + tid] ? 1.f : -1.f;
+      stage_chunk<kRows>(As, kWideUnits, q + (size_t)r0 * g_units * 16, nr,
+                         g_units, u0, cu, tid);
+      stage_chunk<kCols>(Bs, kWideUnits, p + tok0 * g_units * 16, ntok,
+                         g_units, u0, cu, tid);
+      cp_async_commit();
+      cp_async_wait0();
+      __syncthreads();
+      tile_mma_acc<MODE>(acc, As, Bs, cu, stride, lane, wm, wn);
+    }
+    // hits into whole words, as the fast float32 kernel gathers them
+    uint32_t rw[2][2] = {{0u, 0u}, {0u, 0u}};
+    uint32_t cw[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+    const float* cs = colscale + wn * 32 + 2 * t;
+    const float* mr = mrow + wm * 32 + gq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mv = mr[i * 16 + h * 8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const uint32_t hit =
+                masked(acc[i][j][2 * h + b], cs[j * 8 + b]) == mv;
+            rw[i][h] |= hit << (j * 8 + 2 * t + b);
+            cw[j][b] |= hit << (i * 16 + h * 8 + gq);
+          }
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 1);
+        rw[i][h] |= __shfl_xor_sync(0xffffffffu, rw[i][h], 2);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 4);
+        cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 8);
+        cw[j][b] |= __shfl_xor_sync(0xffffffffu, cw[j][b], 16);
+      }
+    const int nv = min(max(ntok - wn * 32, 0), 32);
+    const uint32_t vm = nv == 32 ? 0xffffffffu : (1u << nv) - 1;
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + i * 16 + h * 8 + gq;
+          if (r < nr)
+            rowbits[(((size_t)(r0 + r) * nd + dd) * n_tiles + tile) * 2 +
+                    wn] = rw[i][h] & vm;
+        }
+    }
+    const int word = r0 / 32 + wm;
+    if (gq == 0 && word < n_rw) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int col = wn * 32 + j * 8 + 2 * t + b;
+          if (col < ntok)
+            colbits[(tok0 + col) * n_rw + word] = cw[j][b];
+        }
+    }
+  }
+}
+
+// e: W rounded to the compute dtype (bf16 mode), as the fast kernel's erow
+template <int MODE> __device__ inline float wide_e(float w) {
+  if constexpr (MODE != kF32) w = __bfloat162float(__float2bfloat16_rn(w));
+  return w;
+}
+
+constexpr int kWidePer = 8;  // columns a lane holds in the dQ / dP walks
+
+// dQ: a warp a row and chunk of 32 * kWidePer columns of D (4 rows a
+// CTA, the chunk blockIdx.y; lane: columns c0 + 32 k + lane); the row's
+// mask words, 32 at a time (one a lane), in order: docs, tiles and halves
+// ascending, tokens ascending within a word, e * P[token] added for each
+// hit.
+template <int MODE>
+__global__ void __launch_bounds__(kRows)
+bwd_wide_dq(const typename Traits<MODE>::TQ* __restrict__ p,
+            const float* __restrict__ qw, const float* __restrict__ g,
+            const uint32_t* __restrict__ rowbits, float* __restrict__ dq,
+            int nrows, int lq, int nd, int lp, int d) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kRows / 32) + threadIdx.x / 32;
+  if (row >= nrows) return;
+  const int n_w = ((lp + kCols - 1) / kCols) * 2;  // words a doc
+  const size_t n_row = (size_t)nd * n_w;
+  const uint32_t* rb = rowbits + (size_t)row * n_row;
+  const float wq = qw[row];
+  const float* gr = g + (size_t)(row / lq) * nd;
+  const int c0 = blockIdx.y * 32 * kWidePer;
+  {
+    float acc[kWidePer];
+#pragma unroll
+    for (int k = 0; k < kWidePer; ++k) acc[k] = 0.f;
+    for (size_t x0 = 0; x0 < n_row; x0 += 32) {
+      const uint32_t mine = x0 + lane < n_row ? rb[x0 + lane] : 0u;
+      for (uint32_t any = __ballot_sync(0xffffffffu, mine != 0u); any;
+           any &= any - 1) {
+        const int l = __ffs(any) - 1;
+        const size_t x = x0 + l;
+        const int dd = (int)(x / n_w);
+        const float e = wide_e<MODE>(wq * gr[dd]);
+        for (uint32_t bits = __shfl_sync(0xffffffffu, mine, l); bits;
+             bits &= bits - 1) {
+          const int tok = (int)(x % n_w) * 32 + __ffs(bits) - 1;
+          const auto* src = p + ((size_t)dd * lp + tok) * d + c0 + lane;
+#pragma unroll
+          for (int k = 0; k < kWidePer; ++k)
+            if (c0 + 32 * k + lane < d)
+              acc[k] = fmaf(e, (float)src[32 * k], acc[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWidePer; ++k)
+      if (c0 + 32 * k + lane < d)
+        dq[(size_t)row * d + c0 + 32 * k + lane] = acc[k];
+  }
+}
+
+// dP: a warp a token and chunk of D (4 tokens a CTA), as dQ; the token's
+// mask words, 32 at a time, rows ascending, e * Q[row] added for each
+// hit.
+template <int MODE>
+__global__ void __launch_bounds__(kRows)
+bwd_wide_dp(const typename Traits<MODE>::TQ* __restrict__ q,
+            const float* __restrict__ qw, const float* __restrict__ g,
+            const uint32_t* __restrict__ colbits, float* __restrict__ dp,
+            int nrows, int lq, int nd, int lp, int d) {
+  const int lane = threadIdx.x % 32;
+  const size_t tok = (size_t)blockIdx.x * (kRows / 32) + threadIdx.x / 32;
+  if (tok >= (size_t)nd * lp) return;
+  const int dd = (int)(tok / lp);
+  const int n_rw = (nrows + 31) / 32;
+  const uint32_t* cb = colbits + tok * n_rw;
+  const int c0 = blockIdx.y * 32 * kWidePer;
+  {
+    float acc[kWidePer];
+#pragma unroll
+    for (int k = 0; k < kWidePer; ++k) acc[k] = 0.f;
+    for (int x0 = 0; x0 < n_rw; x0 += 32) {
+      const uint32_t mine = x0 + lane < n_rw ? cb[x0 + lane] : 0u;
+      for (uint32_t any = __ballot_sync(0xffffffffu, mine != 0u); any;
+           any &= any - 1) {
+        const int l = __ffs(any) - 1;
+        for (uint32_t bits = __shfl_sync(0xffffffffu, mine, l); bits;
+             bits &= bits - 1) {
+          const int r = (x0 + l) * 32 + __ffs(bits) - 1;
+          const float e =
+              wide_e<MODE>(qw[r] * g[(size_t)(r / lq) * nd + dd]);
+          const auto* src = q + (size_t)r * d + c0 + lane;
+#pragma unroll
+          for (int k = 0; k < kWidePer; ++k)
+            if (c0 + 32 * k + lane < d)
+              acc[k] = fmaf(e, (float)src[32 * k], acc[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWidePer; ++k)
+      if (c0 + 32 * k + lane < d)
+        dp[tok * d + c0 + 32 * k + lane] = acc[k];
+  }
+}
+
+template <int MODE>
+int launch_bwd_wide(const void* q, const void* qw, const void* p,
+                    const void* pmask, const void* m, const void* g,
+                    void* rowbits, void* colbits, void* dq, void* dp, int nq,
+                    int lq, int nd, int lp, int d, void* stream) {
+  const long long nrows = (long long)nq * lq;
+  if (nq < 1 || nd < 1 || lp < 1 || lq < 1 || d < 16 || d % 16 != 0 ||
+      (nrows + kRows - 1) / kRows > kMaxGridY ||
+      (long long)nd * lp >= (1LL << 31) || nrows >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  using T = typename Traits<MODE>::TQ;
+  const WideHitSmem lay;
+  auto* hits = bwd_wide_hits<MODE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      hits, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  hits<<<dim3(nd, (unsigned)((nrows + kRows - 1) / kRows)), kThreads,
+         lay.total, st>>>(
+      static_cast<const unsigned char*>(q), static_cast<const float*>(qw),
+      static_cast<const unsigned char*>(p),
+      static_cast<const uint8_t*>(pmask), static_cast<const float*>(m),
+      static_cast<const float*>(g), static_cast<uint32_t*>(rowbits),
+      static_cast<uint32_t*>(colbits), (int)nrows, lq, nd, lp, d);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  constexpr int kWarps = kRows / 32;  // rows (dQ) or tokens (dP) a CTA
+  const unsigned nch = (unsigned)((d + 32 * kWidePer - 1) / (32 * kWidePer));
+  bwd_wide_dq<MODE><<<dim3((unsigned)((nrows + kWarps - 1) / kWarps), nch),
+                      kRows, 0, st>>>(
+      static_cast<const T*>(p), static_cast<const float*>(qw),
+      static_cast<const float*>(g), static_cast<const uint32_t*>(rowbits),
+      static_cast<float*>(dq), (int)nrows, lq, nd, lp, d);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long ntok = (long long)nd * lp;
+  bwd_wide_dp<MODE><<<dim3((unsigned)((ntok + kWarps - 1) / kWarps), nch),
+                      kRows, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const float*>(qw),
+      static_cast<const float*>(g), static_cast<const uint32_t*>(colbits),
+      static_cast<float*>(dp), (int)nrows, lq, nd, lp, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace evdr
 
@@ -927,4 +1232,30 @@ extern "C" int evdr_bwd_config(int f32, int d, int cluster, void* out) {
   int* o = static_cast<int*>(out);
   return f32 ? evdr::bwd_config<evdr::kF32>(d, cluster, o)
              : evdr::bwd_config<evdr::kBf16>(d, cluster, o);
+}
+
+// The wide K6 (D above 256, float32 above 192): q (nq, lq, d), p (nd, lp,
+// d) in the mode's type, qw, pmask, m and g as evdr_maxsim_bwd, rowbits
+// uint32 (nq * lq, nd, ceil(lp / 64), 2), colbits uint32 (nd * lp,
+// ceil(nq * lq / 32)), dq f32 (nq * lq, d), dp f32 (nd, lp, d).
+extern "C" int evdr_maxsim_bwd_wide(const void* q, const void* qw,
+                                    const void* p, const void* pmask,
+                                    const void* m, const void* g,
+                                    void* rowbits, void* colbits, void* dq,
+                                    void* dp, int nq, int lq, int nd, int lp,
+                                    int d, void* stream) {
+  return evdr::launch_bwd_wide<evdr::kBf16>(q, qw, p, pmask, m, g, rowbits,
+                                            colbits, dq, dp, nq, lq, nd, lp,
+                                            d, stream);
+}
+
+extern "C" int evdr_maxsim_bwd_f32_wide(const void* q, const void* qw,
+                                        const void* p, const void* pmask,
+                                        const void* m, const void* g,
+                                        void* rowbits, void* colbits,
+                                        void* dq, void* dp, int nq, int lq,
+                                        int nd, int lp, int d, void* stream) {
+  return evdr::launch_bwd_wide<evdr::kF32>(q, qw, p, pmask, m, g, rowbits,
+                                           colbits, dq, dp, nq, lq, nd, lp,
+                                           d, stream);
 }

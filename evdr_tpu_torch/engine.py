@@ -13,7 +13,9 @@ kernel is replaced by its plain PyTorch version (``impl`` reports which).
 Storage dtypes: float32, bfloat16, int8, int4 (token-pair packed nibbles +
 per-token scales) and pq (product-quantized codes + codebooks, optionally
 OPQ-rotated). A float32 engine scores through the bf16 kernel, like the TPU
-engine's Pallas path.
+engine's Pallas path. ``prune_centroids > 0`` also builds a per-page
+summary index for two-stage pruned search (``search_dense(...,
+n_candidates=C)``, ``ops/pruned.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
 from evdr_tpu_torch.parallel.topk import sharded_maxsim, sharded_topk
 
 DTYPES = (None, "float32", "bfloat16", "int8", "int4", "pq")
+SUMMARY_DTYPES = (None, "bfloat16", "float32", "int8", "int4")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,7 +53,8 @@ class RetrievalEngine:
     def __init__(self, dtype: Optional[str] = "bfloat16", impl: str = "auto",
                  normalize: bool = True, prune_centroids: int = 0,
                  quantize_queries: bool = False, pq_m: int = 16,
-                 pq_opq: bool = False, device=None):
+                 pq_opq: bool = False, summary_dtype: Optional[str] = None,
+                 device=None):
         """``dtype='int8'`` stores the index quantized (ops/quantize.py,
         half the bytes of bf16); adding ``quantize_queries=True`` also
         quantizes queries on the device so scoring runs int8 x int8
@@ -68,19 +72,30 @@ class RetrievalEngine:
 
         ``impl`` is 'auto' or the name it resolves to: 'cuda' on a GPU,
         'plain' (the kernels' plain versions) on the CPU, with '_q8' for
-        quantized queries."""
+        quantized queries.
+
+        ``prune_centroids > 0`` also builds a summary index of that many
+        per-page k-means centres (``build``, and ``from_npz`` of a PQ
+        file): ``search_dense(..., n_candidates=C)`` then scores the
+        summaries first (stage 1, the serving kernels at Lp =
+        prune_centroids) and reranks only C candidate pages per query
+        exactly (stage 2). ``summary_dtype`` is the summaries' storage
+        tier: default the engine's dtype (bfloat16 for PQ engines: stage
+        1 has no books); 'int8' / 'int4' score stage 1 through the
+        quantized kernels."""
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
-        if prune_centroids:
-            raise NotImplementedError(
-                "pruned search (prune_centroids>0) is not ported to "
-                "evdr_tpu_torch yet (ROADMAP.md queue 1, 'Pruned two-stage "
-                "search')")
+        if summary_dtype not in SUMMARY_DTYPES:
+            raise ValueError(
+                f"summary_dtype={summary_dtype!r} unsupported: the summary "
+                "stage scores dense tokens (bfloat16/float32/int8/int4)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.normalize = normalize
         self.pq_m = pq_m
         self.pq_opq = pq_opq
+        self.prune_centroids = prune_centroids
+        self.summary_dtype = summary_dtype
         base = "cuda" if self.device.type == "cuda" else "plain"
         if impl not in ("auto", base):
             raise ValueError(f"impl={impl!r} on {self.device}: use 'auto' "
@@ -89,6 +104,18 @@ class RetrievalEngine:
               and not (dtype == "pq" and pq_opq))
         self.impl = base + ("_q8" if q8 else "")
         self.index: Optional[ShardedIndex] = None
+        self.summary: Optional[ShardedIndex] = None
+
+    def _sdtype(self) -> str:
+        """Storage tier of the pruning summary index: ``summary_dtype``,
+        else the engine dtype (bfloat16 for PQ: stage 1 has no books)."""
+        if self.summary_dtype is not None:
+            return self.summary_dtype
+        return "bfloat16" if self.dtype == "pq" else self.dtype
+
+    def _build_summary(self, S, smask) -> None:
+        self.summary = pad_index_dim(build_sharded_index(
+            S, smask, self.device, dtype=self._sdtype()))
 
     # ------------------------------------------------------------------ build
     def build(self, P, pmask, docids: Optional[Sequence[str]] = None,
@@ -113,10 +140,17 @@ class RetrievalEngine:
 
             codes, books = build_pq_index(P, pmask, m=self.pq_m,
                                           opq=self.pq_opq, device=self.device)
-            return self.build_from_pq(codes, books, pmask, docids=docids,
-                                      expanded=self.pq_opq)
-        self.index = pad_index_dim(build_sharded_index(
-            P, pmask, self.device, dtype=self.dtype, docids=_ids(docids)))
+            self.build_from_pq(codes, books, pmask, docids=docids,
+                               expanded=self.pq_opq)
+        else:
+            self.index = pad_index_dim(build_sharded_index(
+                P, pmask, self.device, dtype=self.dtype,
+                docids=_ids(docids)))
+        if self.prune_centroids > 0:
+            from evdr_tpu_torch.ops.pruned import build_summary_tokens
+
+            self._build_summary(*build_summary_tokens(
+                P, pmask, self.prune_centroids, device=self.device))
         return self
 
     def build_from_codes(self, codes, scales, pmask,
@@ -210,15 +244,29 @@ class RetrievalEngine:
             normalized = bool(payload.get("doc_normalized", False))
             docids = payload.get("docid")
             if eng.dtype == "pq" and "P_pq_codes" in payload:
-                return eng.build_from_pq(
+                expanded = bool(payload.get("P_pq_expanded", False))
+                eng.build_from_pq(
                     payload["P_pq_codes"], payload["P_pq_books"],
-                    payload["pmask"], docids=docids,
-                    expanded=bool(payload.get("P_pq_expanded", False)))
-            if eng.dtype == "int8" and "P_codes" in payload and normalized:
+                    payload["pmask"], docids=docids, expanded=expanded)
+                if eng.prune_centroids > 0:
+                    # the float tokens are gone: summaries of the decoded
+                    # reconstructions (what the PQ rerank scores), decoded
+                    # chunk by chunk
+                    from evdr_tpu_torch.ops.pruned import (
+                        build_summary_tokens_from_pq)
+
+                    eng._build_summary(*build_summary_tokens_from_pq(
+                        payload["P_pq_codes"], payload["P_pq_books"],
+                        payload["pmask"], eng.prune_centroids,
+                        expanded=expanded, device=eng.device))
+                return eng
+            # a pruned engine needs the float tokens for its summaries
+            codes_ok = normalized and eng.prune_centroids == 0
+            if eng.dtype == "int8" and "P_codes" in payload and codes_ok:
                 return eng.build_from_codes(
                     payload["P_codes"], payload["P_scale"], payload["pmask"],
                     docids=docids)
-            if eng.dtype == "int4" and "P_codes4" in payload and normalized:
+            if eng.dtype == "int4" and "P_codes4" in payload and codes_ok:
                 return eng.build_from_codes4(
                     payload["P_codes4"], payload["P_scale"],
                     payload["pmask"], docids=docids)
@@ -265,12 +313,30 @@ class RetrievalEngine:
                      n_candidates: Optional[int] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """(nq, Lq, D) normalized queries + mask -> (scores, doc indices),
-        both (nq, min(k, n_docs)) numpy arrays."""
-        if n_candidates:
+        both (nq, min(k, n_docs)) numpy arrays. With ``n_candidates`` (on
+        an engine built with ``prune_centroids > 0``): two-stage pruned
+        search, (nq, min(k, n_candidates, n_docs))."""
+        if n_candidates and self.summary is None:
             raise ValueError(
-                "n_candidates requires a pruning summary index, which the "
-                "torch port does not build yet")
+                "n_candidates requires a pruning summary index: construct "
+                "the engine with prune_centroids>0 and build() from float "
+                "embeddings (build_from_codes has no summary)")
         Qd, qmd = self._queries(Q, qmask)
+        if n_candidates:
+            from evdr_tpu_torch.ops.pruned import pruned_topk_fused
+
+            # PQ candidates decode by a gather of book rows: the same f32
+            # tokens as the reference's one-hot products (its form for a
+            # TPU, which has no gather unit), in one pass
+            Q_true = as_tensor(Q, self.device, torch.float32)
+            vals, idx = pruned_topk_fused(
+                Qd, qmd, self.index.P, self.index.pmask, self.summary.P,
+                self.summary.pmask, k=k,
+                n_cand=min(int(n_candidates), self.n_docs), impl=self.impl,
+                scales=self.index.scales, sscales=self.summary.scales,
+                books=self.index.books, pq_decode="take",
+                Qs=pad_queries(Q_true, self.summary))
+            return vals.cpu().numpy(), idx.cpu().numpy()
         vals, idx = sharded_topk(Qd, qmd, self.index, k=k, impl=self.impl)
         k_out = min(k, self.n_docs)
         return vals[:, :k_out].cpu().numpy(), idx[:, :k_out].cpu().numpy()
@@ -281,11 +347,13 @@ class RetrievalEngine:
         return [[str(ids[int(j)]) if ids is not None else str(int(j))
                  for j in row] for row in np.asarray(idx)]
 
-    def search(self, queries, query_attnmask=None, k: int = 10
+    def search(self, queries, query_attnmask=None, k: int = 10,
+               n_candidates: Optional[int] = None
                ) -> Tuple[List[List[str]], np.ndarray]:
         """Ragged query token arrays -> (per-query docid lists, scores)."""
         Q, qmask = preprocess_queries(queries, query_attnmask)
-        vals, idx = self.search_dense(Q, qmask, k=k)
+        vals, idx = self.search_dense(Q, qmask, k=k,
+                                      n_candidates=n_candidates)
         return self.ids_for(idx), vals
 
     def score_all(self, Q, qmask) -> np.ndarray:

@@ -37,34 +37,49 @@ LIBRARIES = {
         "evdr_maxsim_bf16": [_P] * 5 + [_I] * 5 + [_P],
         "evdr_maxsim_fwd_train": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_bf16_config": [_I, _I, _P],
+        "evdr_maxsim_bf16_wide": [_P] * 5 + [_I] * 5 + [_P],
+        "evdr_maxsim_fwd_train_wide": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_int8": {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8full_wide": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8_wide": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_int8_defer": {
         "evdr_maxsim_int8full_defer": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8_defer": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8full_defer_wide": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8_defer_wide": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_f32": {
         "evdr_maxsim_f32": [_P] * 5 + [_I] * 5 + [_P],
         "evdr_maxsim_fwd_train_f32": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_f32_occupancy": [_I, _I, _P],
+        "evdr_maxsim_f32_wide": [_P] * 5 + [_I] * 5 + [_P],
+        "evdr_maxsim_fwd_train_f32_wide": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_int4": {
         "evdr_maxsim_int4full": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int4": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int4full_wide": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int4_wide": [_P] * 6 + [_I] * 5 + [_P],
     },
     "maxsim_pq": {
         "evdr_maxsim_pq": [_P] * 6 + [_I] * 7 + [_P],
         "evdr_maxsim_pqfull": [_P] * 6 + [_I] * 7 + [_P],
         "evdr_maxsim_pq_sum": [_P] * 6 + [_I] * 7 + [_P],
         "evdr_pq_occupancy": [_I] * 4 + [_P],
+        "evdr_maxsim_pq_wide": [_P] * 6 + [_I] * 7 + [_P],
+        "evdr_maxsim_pqfull_wide": [_P] * 6 + [_I] * 7 + [_P],
+        "evdr_maxsim_pq_sum_wide": [_P] * 6 + [_I] * 7 + [_P],
     },
     "maxsim_train": {
         "evdr_maxsim_bwd": [_P] * 8 + [_I] * 7 + [_P],
         "evdr_maxsim_bwd_f32": [_P] * 8 + [_I] * 7 + [_P],
         "evdr_bwd_config": [_I] * 3 + [_P],
+        "evdr_maxsim_bwd_wide": [_P] * 10 + [_I] * 5 + [_P],
+        "evdr_maxsim_bwd_f32_wide": [_P] * 10 + [_I] * 5 + [_P],
     },
 }
 

@@ -35,16 +35,21 @@ CTA's query-token rows) and D a multiple of ``D_GRANULE``. A wrapper scores
 a longer query in slices of at most that many tokens and adds their
 partial scores (``split_queries``; a tolerance against one pass, since
 only the order of f32 additions changes), and zero-pads a narrower D
-(exact). D above ``MAX_D`` (float32 modes: ``F32_MAX_D``) is refused: a max
-over tokens does not split over D. The engine pads its stored index once,
-at build (``parallel/sharded_index.pad_index_dim``), so the per-call pad
-touches only the queries.
+(exact). Every D is served: up to ``MAX_D`` (float32 modes: ``F32_MAX_D``)
+by the fast kernels, which hold the operand tiles whole in shared memory,
+and above it by each library's wide function (``<func>_wide``,
+``csrc/maxsim_wide.cuh``), which sums each page tile's similarities over D
+in chunks before the max (a max over tokens does not split over D, a sum
+over D does). The engine pads its stored index once, at build
+(``parallel/sharded_index.pad_index_dim``), so the per-call pad touches
+only the queries.
 
 Routing: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it returns its plain version. There is no other fallback.
 Each wrapper counts its launches in a plain integer attribute
 (``maxsim_cuda.launches`` ...), raised by one exactly where it launches,
-and by kernel function and shape in ``launch_shapes``.
+and by kernel function and shape in ``launch_shapes``, whose function name
+tells a wide launch from a fast one (``func_launches``).
 
 The plain versions reproduce the kernels' numerics: bf16 casts of the
 inputs, f32 sums, the -1e30 fill of an invalid doc token, the rule that a
@@ -86,18 +91,45 @@ ROW_CAP = {"maxsim_bf16": 2 * KERNEL_ROWS, "maxsim_int8": 2 * KERNEL_ROWS,
 F32_TALL_MAX_D = 144
 
 
+# The wide functions (maxsim_wide.cuh) stand on CfgWide's 256-row tiles in
+# every library; the wide K6 takes any number of query tokens at once.
+WIDE_ROWS = 2 * KERNEL_ROWS
+# The kernels take D a multiple of D_GRANULE; a narrower D is zero-padded
+# up to it, which adds nothing to any product. The fast kernels hold their
+# operand tiles whole in shared memory up to MAX_D (float32 modes:
+# F32_MAX_D); a wider D goes to the library's wide function.
+D_GRANULE = 16
+MAX_D = 256
+# K1/K5/K6 float32: the f32 query block and two page tiles in shared memory
+F32_MAX_D = 192
+
+
+def is_wide(func: str, d: int) -> bool:
+    """Whether kernel function ``func`` (its fast name) runs kernel width
+    ``d`` on its wide function: above F32_MAX_D for the float32 modes
+    (``*f32*``), above MAX_D for the others."""
+    return d > (F32_MAX_D if "f32" in func else MAX_D)
+
+
+def kernel_func(func: str, d: int) -> str:
+    """The function a launch of ``func`` at kernel width ``d`` calls:
+    ``func`` itself, or ``func + '_wide'`` above its fast bound."""
+    return func + "_wide" if is_wide(func, d) else func
+
+
 def row_cap(lib: str, d: int) -> int:
     """The most query tokens one launch of library ``lib`` takes at kernel
-    width ``d``."""
+    width ``d`` (K6, ``maxsim_train``: its fast kernel's; the wide K6 takes
+    any number)."""
+    if lib == "maxsim_train":
+        return ROW_CAP[lib]
+    if d > (F32_MAX_D if lib == "maxsim_f32" else MAX_D):
+        return WIDE_ROWS
     if lib == "maxsim_f32":
         return 2 * KERNEL_ROWS if d <= F32_TALL_MAX_D else KERNEL_ROWS
     return ROW_CAP[lib]
-# The kernels take D a multiple of D_GRANULE; a narrower D is zero-padded
-# up to it, which adds nothing to any product. Above MAX_D the operand
-# tiles leave shared memory, and a max over tokens does not split over D,
-# so wider tokens are refused.
-D_GRANULE = 16
-MAX_D = 256
+
+
 # K3's largest cluster: 8 (the portable size) where the decode sums
 # full-width book rows from L2, 2 where it concatenates compact rows from
 # shared memory (measured, PERF.md)
@@ -362,14 +394,11 @@ def _check_shapes(Q, P, qmask, pmask, scales=None, p_shape=None):
         raise ValueError("empty MaxSim input")
 
 
-def kernel_dim(d: int, granule: int = D_GRANULE, max_d: int = MAX_D,
-               who: str = "the MaxSim kernels") -> int:
+def kernel_dim(d: int, granule: int = D_GRANULE) -> int:
     """The width a kernel runs token dim ``d`` at: ``d`` rounded up to
-    ``granule`` (the pad lanes are zero). Raises above ``max_d``."""
-    if not 1 <= d <= max_d:
-        raise ValueError(f"{who}: D must lie in [1, {max_d}] (the operand "
-                         f"tiles live in shared memory, and a max over "
-                         f"tokens does not split over D), got {d}")
+    ``granule`` (the pad lanes are zero)."""
+    if d < 1:
+        raise ValueError(f"MaxSim tokens need D >= 1, got {d}")
     return -(-d // granule) * granule
 
 
@@ -423,12 +452,14 @@ def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
     """Launch ``func`` of ``lib`` on (nq, Lq, D) queries ``q`` in the
     kernel's type with post-max weights ``qw`` against ``P`` (whose last
     axis is D, zero-padded up to the kernel's granule here where it is
-    not), once per slice of at most ``row_cap(lib, D)`` query tokens; each
-    launch counts on ``wrapper``."""
+    not), once per slice of at most ``row_cap(lib, D)`` query tokens, on
+    its wide function above the fast bound; each launch counts on
+    ``wrapper``."""
     nq, _, d = q.shape
     nd, lp = pmask.shape
     dk = kernel_dim(d)
     q, P = pad_dim(q, dk), pad_dim(P, dk)
+    func = kernel_func(func, dk)
 
     def one(qs, qws):
         qs, qws = qs.contiguous(), qws.contiguous()
@@ -460,10 +491,6 @@ def maxsim_cuda(Q, P, qmask, pmask, compute_dtype=torch.bfloat16):
                    P.to(torch.bfloat16), None, pmask)
 
 
-# K1/K5 float32: the f32 query block and two page tiles in shared memory
-F32_MAX_D = 192
-
-
 def maxsim_cuda_f32(Q, P, qmask, pmask):
     """K1 in float32 mode (split-TF32 products, f32 sums): (nq, Lq, D)
     queries against a float32 or bf16 (upcast exactly) (nd, Lp, D) index
@@ -473,7 +500,6 @@ def maxsim_cuda_f32(Q, P, qmask, pmask):
     _check_shapes(Q, P, qmask, pmask)
     if P.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 index, got {P.dtype}")
-    kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K1's float32 mode")
     return _launch(maxsim_cuda_f32, "maxsim_f32", "evdr_maxsim_f32",
                    Q.float(), qmask.float(), P.float().contiguous(), None,
                    pmask)
@@ -635,6 +661,12 @@ def _count(wrapper, func, nq, lq, nd, lp):
     launch_shapes[(wrapper.__name__, func, nq, lq, nd, lp)] += 1
 
 
+def func_launches(func: str) -> int:
+    """Launches of kernel function ``func`` (e.g. a ``*_wide`` one) since
+    the counts were last set to 0."""
+    return sum(n for k, n in launch_shapes.items() if k[1] == func)
+
+
 def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     """K3's host side, then the launch: books quantized to int8 with one
     global scale (folded into ``qw``), padded to 256 rows. Compact books
@@ -643,8 +675,9 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     (expanded OPQ books, or compact ones embedded block-diagonally) to the
     kernel that sums full-width rows read through L2. ``Qk`` is int8 for
     the int8 x int8 loop, which needs compact books (an exact int8 tile);
-    otherwise int8 queries score cast up to bf16 (exact). Returns (scores,
-    the kernel function launched)."""
+    otherwise int8 queries score cast up to bf16 (exact). Above MAX_D the
+    same three routes run on their wide functions, without clusters.
+    Returns (scores, the kernel function launched)."""
     if codes.dim() != 3 or books.dim() != 3:
         raise ValueError("codes and books must be 3-D")
     nq, lq, d = Qk.shape
@@ -668,10 +701,12 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
             Qk = Qk.to(torch.bfloat16)
     out = torch.empty((nq, nd), dtype=torch.float32, device=codes.device)
     Qk = Qk.contiguous()
+    wide = is_wide(func, d)
+    func = kernel_func(func, d)
+    cluster = 1 if wide else pq_cluster(nq, lq, in_smem)
     call_kernel("maxsim_pq", func, (Qk, (qw * s).contiguous(), codes, kb,
                                     pmask, out),
-                nq, lq, nd, lp, d, m, pq_cluster(nq, lq, in_smem),
-                aligned=(Qk, codes, kb))
+                nq, lq, nd, lp, d, m, cluster, aligned=(Qk, codes, kb))
     return out, func
 
 
@@ -708,13 +743,12 @@ def pq_kernel_operands(Q, books):
     if m * w != d:
         return Q, books
     wk = pq_width(m, w)
-    kernel_dim(m * wk)
     return pad_pq_queries(Q, m, w, wk), pad_dim(books, wk)
 
 
 def _pq_launches(wrapper, Qk, qw, codes, pmask, books, int8_queries):
     """K3's launches: the operands at the kernels' width, then one launch
-    per slice of at most ROW_CAP['maxsim_pq'] query tokens."""
+    per slice of at most ``row_cap('maxsim_pq', D)`` query tokens."""
     Qk, books = pq_kernel_operands(Qk, books)
 
     def one(qs, qws):
@@ -723,7 +757,7 @@ def _pq_launches(wrapper, Qk, qw, codes, pmask, books, int8_queries):
         _count(wrapper, func, qs.shape[0], qs.shape[1], *pmask.shape)
         return out
 
-    return split_queries(one, Qk, qw, ROW_CAP["maxsim_pq"])
+    return split_queries(one, Qk, qw, row_cap("maxsim_pq", Qk.shape[-1]))
 
 
 def maxsim_cuda_pq(Q, codes, qmask, pmask, books):

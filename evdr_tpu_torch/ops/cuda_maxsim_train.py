@@ -25,6 +25,11 @@ Counterpart of ``maxsim_pallas``'s ``custom_vjp``
   float32 kernel with the M store, ``csrc/maxsim_f32.cu``) and
   ``maxsim_cuda_bwd_f32`` (E kept in f32, exact f32 products of the hits),
   each with its own launch count.
+- Every D: above K1's fast bound (256; float32 192) K5 and K6 run their
+  wide functions (``*_wide``): K5 the D-chunked loop of
+  ``csrc/maxsim_wide.cuh`` with the M store (the wide K1's scores bit for
+  bit), K6 a recompute with the same products in D chunks, then dQ and dP
+  walked over D in chunks of 256 columns (``csrc/maxsim_train.cu``).
 - ``MaxSimFn``: forward K5 when Q or P needs a gradient, else K1 (with
   ``compute_dtype`` float32 K1's float32 mode); backward K6; the gradients
   come back in Q's and P's dtypes (``pallas_maxsim.py:635``).
@@ -40,10 +45,10 @@ import ctypes
 import torch
 
 from evdr_tpu_torch.ops import _cuda_build
-from evdr_tpu_torch.ops.cuda_maxsim import (F32_MAX_D, MAX_D, ROW_CAP,
-                                            _check_shapes, _count, _on_cuda,
-                                            _plain_core, call_kernel,
-                                            kernel_dim, mask_sentinel,
+from evdr_tpu_torch.ops.cuda_maxsim import (ROW_CAP, _check_shapes, _count,
+                                            _on_cuda, _plain_core,
+                                            call_kernel, is_wide, kernel_dim,
+                                            kernel_func, mask_sentinel,
                                             maxsim_cuda, pad_dim, plain_sims,
                                             row_cap, split_queries)
 
@@ -99,11 +104,12 @@ def _fwd_train(wrapper, lib, func, dtype, Q, P, qmask, pmask):
     """K5's host side, K1's slicing (so its scores stay K1's bit for bit):
     D zero-padded to the granule, one launch per slice of at most
     ``row_cap(lib, D)`` query tokens, each with its own rows of M; the
-    slices' scores add up."""
+    slices' scores add up. Above K1's fast bound, the wide function."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd, lp, _ = P.shape
     dk = kernel_dim(d)
+    func = kernel_func(func, dk)
     q = pad_dim(Q.to(dtype), dk)
     p = pad_dim(P.to(dtype), dk).contiguous()
     Ms = []
@@ -141,7 +147,6 @@ def maxsim_cuda_fwd_train_f32(Q, P, qmask, pmask):
     bit) and M from the same similarities."""
     if not _on_cuda(Q, P, qmask, pmask):
         return maxsim_fwd_train_plain(Q, P, qmask, pmask, torch.float32)
-    kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K5's float32 mode")
     return _fwd_train(maxsim_cuda_fwd_train_f32, "maxsim_f32",
                       "evdr_maxsim_fwd_train_f32", torch.float32, Q, P, qmask,
                       pmask)
@@ -201,19 +206,21 @@ def bwd_config(dtype, d: int, cluster: int) -> dict:
 
 def _bwd(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
     """K6's host side for either mode: checks; D zero-padded to the granule
-    (the pad columns of dQ and dP dropped at the end); queries longer than
-    _ROWS tokens in slices, each with its rows of M, their dQ slices
-    concatenated and their dP summed; then :func:`_bwd_launch`."""
-    if dtype == torch.float32:
-        dk = kernel_dim(Q.shape[-1], max_d=F32_MAX_D, who="K6's float32 mode")
-    else:
-        dk = kernel_dim(Q.shape[-1], max_d=MAX_D, who="K6")
+    (the pad columns of dQ and dP dropped at the end); above K5's fast
+    bound :func:`_bwd_wide`; else queries longer than _ROWS tokens in
+    slices, each with its rows of M, their dQ slices concatenated and their
+    dP summed; then :func:`_bwd_launch`."""
     _check_shapes(Q, P, qmask, pmask)
     nq, lq, d = Q.shape
     nd = P.shape[0]
+    dk = kernel_dim(d)
     if tuple(M.shape) != (nq * lq, nd) or tuple(g.shape) != (nq, nd):
         raise ValueError("M or g does not match Q / P")
     Qk, Pk = pad_dim(Q, dk), pad_dim(P, dk).contiguous()
+    if is_wide(func, dk):
+        dQ, dP = _bwd_wide(wrapper, func + "_wide", dtype, Qk, Pk, qmask,
+                           pmask, M, g)
+        return dQ[..., :d], dP[..., :d]
     M3 = M.view(nq, lq, nd)
     dQs, dP = [], None
     for s in range(0, lq, _ROWS):
@@ -271,6 +278,32 @@ def _bwd_launch(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
     dQ = dq_part.sum(dim=0) if n_slices > 1 else dq_part[0]
     dP = dp.sum(dim=0) if n_groups > 1 else dp[0]
     return dQ.view(nq, lq, d), dP
+
+
+def _bwd_wide(wrapper, func, dtype, Q, P, qmask, pmask, M, g):
+    """The wide K6, one launch for every query token at once: its hit
+    masks (rowbits, colbits: every word written by the kernel), then dQ
+    and dP, each element summed by one thread in a fixed order."""
+    nq, lq, d = Q.shape
+    nd, lp, _ = P.shape
+    nrows = nq * lq
+    q = Q.to(dtype).contiguous()
+    p = P.to(dtype).contiguous()
+    has = pmask.any(dim=-1).float()
+    g2 = (g.float() * has[None, :]).contiguous()
+    dev = Q.device
+    rowbits = torch.empty((nrows, nd, -(-lp // 64), 2), dtype=torch.int32,
+                          device=dev)
+    colbits = torch.empty((nd * lp, -(-nrows // 32)), dtype=torch.int32,
+                          device=dev)
+    dq = torch.empty((nrows, d), dtype=torch.float32, device=dev)
+    dp = torch.empty((nd, lp, d), dtype=torch.float32, device=dev)
+    call_kernel("maxsim_train", func,
+                (q, qmask.float().contiguous(), p, pmask,
+                 M.float().contiguous(), g2, rowbits, colbits, dq, dp),
+                nq, lq, nd, lp, d, aligned=(q, p))
+    _count(wrapper, func, nq, lq, nd, lp)
+    return dq.view(nq, lq, d), dp
 
 
 class MaxSimFn(torch.autograd.Function):

@@ -9,6 +9,7 @@ TREC run file or JSON — the offline equivalent of
     python -m evdr_tpu_torch.tools.search --index dump_all.npz \
         --queries q.npz --k 10 --out run.trec [--format trec|json] \
         [--dtype bfloat16|int8|int4|pq [--quantize_queries]] [--device cpu]
+        [--prune_centroids 4 --n_candidates 512 [--summary_dtype int8]]
 
 Runs on the GPU unless ``--device cpu`` is given, and fails when there is
 none. Prints one JSON summary line (n_queries, n_docs, per-query latency ms)
@@ -62,26 +63,32 @@ def write_trec_run(fh, qkeys, docids, scores, tag: str = "evdr_tpu") -> None:
 
 def run_search(index_path, queries_path, k: int = 10, dtype: str = "bfloat16",
                impl: str = "auto", quantize_queries: bool = False,
-               device=None):
-    """Returns (qkeys, per-query docid lists, scores (nq, k), summary dict)."""
+               device=None, prune_centroids: int = 0, n_candidates: int = 0,
+               summary_dtype=None):
+    """Returns (qkeys, per-query docid lists, scores (nq, k), summary dict).
+    ``prune_centroids`` with ``n_candidates``: two-stage pruned search."""
     import torch
 
     from evdr_tpu_torch.engine import RetrievalEngine
 
     eng = RetrievalEngine.from_npz(index_path, dtype=dtype, impl=impl,
                                    quantize_queries=quantize_queries,
+                                   prune_centroids=prune_centroids,
+                                   summary_dtype=summary_dtype,
                                    device=device)
     Q, qmask, qkeys = _load_queries(queries_path)
     kk = min(k, eng.n_docs)
+    nc = n_candidates or None
     # warm-up: the first call builds and loads the kernels
-    eng.search_dense(np.roll(Q, 1, axis=0), qmask, k=kk)
+    eng.search_dense(np.roll(Q, 1, axis=0), qmask, k=kk, n_candidates=nc)
     t0 = time.perf_counter()
-    vals, idx = eng.search_dense(Q, qmask, k=kk)  # returns host arrays
+    vals, idx = eng.search_dense(Q, qmask, k=kk, n_candidates=nc)
     latency_ms = (time.perf_counter() - t0) * 1000.0 / max(1, Q.shape[0])
     summary = {"n_queries": int(Q.shape[0]), "n_docs": int(eng.n_docs),
                "k": int(vals.shape[1]),
                "latency_ms_per_query": round(latency_ms, 4), "dtype": dtype,
-               "impl": eng.impl, "device": str(eng.device)}
+               "impl": eng.impl, "device": str(eng.device),
+               "pruned": bool(n_candidates and prune_centroids)}
     if eng.device.type == "cuda":
         summary["device_name"] = torch.cuda.get_device_name(eng.device)
     return qkeys, eng.ids_for(idx), np.asarray(vals), summary
@@ -98,6 +105,12 @@ def main(argv=None) -> None:
                    choices=("float32", "bfloat16", "int8", "int4", "pq"),
                    default="bfloat16")
     p.add_argument("--impl", default="auto")
+    p.add_argument("--prune_centroids", type=int, default=0)
+    p.add_argument("--summary_dtype", default=None,
+                   choices=("bfloat16", "int8", "int4"),
+                   help="storage tier of the stage-1 pruning summaries "
+                        "(default: engine dtype; bf16 for pq)")
+    p.add_argument("--n_candidates", type=int, default=0)
     p.add_argument("--quantize_queries", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain path")
@@ -106,7 +119,9 @@ def main(argv=None) -> None:
 
     qkeys, ids, vals, summary = run_search(
         a.index, a.queries, k=a.k, dtype=a.dtype, impl=a.impl,
-        quantize_queries=a.quantize_queries, device=a.device)
+        quantize_queries=a.quantize_queries, device=a.device,
+        prune_centroids=a.prune_centroids, n_candidates=a.n_candidates,
+        summary_dtype=a.summary_dtype)
 
     fh = sys.stdout if a.out == "-" else open(a.out, "w")
     try:

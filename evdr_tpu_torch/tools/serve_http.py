@@ -10,6 +10,7 @@ many small ones.
 
     python -m evdr_tpu_torch.tools.serve_http --index features/dump_all.npz \
         --port 8080 [--dtype int8|int4|pq [--quantize_queries]] [--device cpu]
+        [--prune_centroids 4 --n_candidates 512 [--summary_dtype int8]]
 
 API:
 - ``GET /healthz`` -> ``{"status": "ok", "n_docs": N, "impl": ..., ...}``
@@ -17,7 +18,8 @@ API:
 - ``POST /search`` with JSON body
   ``{"queries": [[[...dim floats...] per token] per query],
      "attnmask": [[bool per token] per query]   (optional),
-     "k": 10                                    (optional)}``
+     "k": 10                                    (optional),
+     "n_candidates": 512                        (optional, pruned engines)}``
   -> ``{"docids": [[...] per query], "scores": [[...] per query],
         "latency_ms_per_query": ...}``
 - ``POST /add``, ``/delete``, ``/save`` answer 501 while the engine lacks
@@ -345,7 +347,8 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8080,
             self._reply(200, {
                 "status": "ok", "n_docs": engine.n_docs,
                 "dtype": engine.dtype, "impl": engine.impl,
-                "device": str(engine.device), "pruned": False,
+                "device": str(engine.device),
+                "pruned": engine.summary is not None,
             })
 
         def _read_json(self):
@@ -536,6 +539,12 @@ def main(argv=None) -> None:
                    choices=("float32", "bfloat16", "int8", "int4", "pq"),
                    default="bfloat16")
     p.add_argument("--impl", default="auto")
+    p.add_argument("--prune_centroids", type=int, default=0)
+    p.add_argument("--summary_dtype", default=None,
+                   choices=("bfloat16", "int8", "int4"),
+                   help="storage tier of the stage-1 pruning summaries "
+                        "(default: engine dtype; bf16 for pq)")
+    p.add_argument("--n_candidates", type=int, default=0)
     p.add_argument("--quantize_queries", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain path")
@@ -565,15 +574,18 @@ def main(argv=None) -> None:
     print(f"[serve] loading index {a.index}", flush=True)
     eng = RetrievalEngine.from_npz(
         a.index, dtype=a.dtype, impl=a.impl,
-        quantize_queries=a.quantize_queries, device=a.device)
+        quantize_queries=a.quantize_queries, device=a.device,
+        prune_centroids=a.prune_centroids, summary_dtype=a.summary_dtype)
     d = warm_query_dim(eng)
     for b in sorted({int(x) for x in a.warm.split(",") if x.strip()}):
         warm = np.zeros((b, a.length_multiple, d), np.float32)
         wm = np.zeros((b, a.length_multiple), bool)
         wm[:, 0] = True  # one valid token: exercises the real masked path
-        eng.search_dense(warm, wm, k=min(a.k, eng.n_docs))
+        eng.search_dense(warm, wm, k=min(a.k, eng.n_docs),
+                         n_candidates=a.n_candidates or None)
         print(f"[serve] warmed batch bucket {b}", flush=True)
     srv = make_server(eng, a.host, a.port, default_k=a.k,
+                      default_candidates=a.n_candidates,
                       max_body_mb=a.max_body_mb,
                       length_multiple=a.length_multiple,
                       batch_wait_ms=a.batch_wait_ms, max_batch=a.max_batch)

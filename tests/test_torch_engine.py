@@ -236,10 +236,10 @@ def test_build_sharded_index_quantizes_tensors_like_arrays():
 
 
 def test_unported_options_raise(tmp_path):
-    # pruned search and mmap loads wait for their ROADMAP items; unknown
-    # dtypes and impls are refused
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RetrievalEngine(prune_centroids=4, device="cpu")
+    # mmap loads wait for their ROADMAP item; unknown dtypes, impls and
+    # summary tiers (PQ summaries: stage 1 has no books) are refused
+    with pytest.raises(ValueError, match="summary_dtype"):
+        RetrievalEngine(prune_centroids=4, summary_dtype="pq", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RetrievalEngine.from_npz(tmp_path / "x.npz", mmap=True,
                                  device="cpu")

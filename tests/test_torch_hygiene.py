@@ -36,11 +36,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'evdr_tpu'))\n"
-        "print(len(mods), bad)\n")
+        "new = [m for m in ('evdr_tpu_torch.ops.batched_kmeans',\n"
+        "                   'evdr_tpu_torch.ops.pruned') if m in mods]\n"
+        "print(len(mods), len(new), bad)\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
-    n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 36 and bad.strip() == "[]", r.stdout
+    n, n_new, bad = r.stdout.split(" ", 2)
+    assert int(n) >= 38 and int(n_new) == 2 and bad.strip() == "[]", r.stdout
     # chip_smoke.py too, as a script
     r = _run("import runpy, sys\n"
              "sys.argv = ['chip_smoke.py']\n"
@@ -610,13 +612,16 @@ def test_f32_kernel_matches_plain_version_and_k5_on_the_card(lp, d, lq):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,d", [(129, 40), (200, 72), (129, 72),
-                                  (200, 40), (200, 128)])
+                                  (200, 40), (200, 128), (129, 264),
+                                  (200, 320), (40, 512)])
 def test_every_wrapper_serves_any_lq_and_d_on_the_card(lq, d):
     """Queries longer than a kernel's query-token rows (sliced, one launch
-    a slice, the partial scores added) and D off the kernels' granule
-    (zero-padded): every forward wrapper (K1 bf16 and float32, K2, K2b, K3
-    with compact and expanded books, K4) against its plain version on the
-    card, and MaxSimFn (K5, then K6 per slice) in bf16 and float32 against
+    a slice, the partial scores added), D off the kernels' granule
+    (zero-padded) and D above the fast kernels' bound (264, 320, 512: the
+    wide functions, float32 from 208): every forward wrapper (K1 bf16 and
+    float32, K2, K2b, K3 with compact and expanded books, K4) against its
+    plain version on the card, and MaxSimFn (K5, then K6 per slice; the
+    wide K6 in one launch) in bf16 and float32 against
     the plain K5/K6 pair, on tie-free data, with a doc that has no valid
     token. Summation order alone differs: scores within 1e-5 relative and
     1e-4 (sums of <= 200 unit-bounded terms); K6's dQ and dP within 1e-3
@@ -699,13 +704,15 @@ def test_every_wrapper_serves_any_lq_and_d_on_the_card(lq, d):
     (12, 32, 37, 70, 32, 1),    # 3 blocks: a cluster of 4, one padding CTA
     (32, 32, 300, 154, 96, 1),  # 8 blocks: one full cluster
     (36, 32, 23, 65, 192, 1),   # 9 blocks: two chunks, 8 + a cluster of one
-    (20, 7, 17, 63, 256, 1),    # Lq 7 (126 rows a block), 2 blocks; bf16
+    (20, 7, 17, 63, 256, 1),    # Lq 7, 2 blocks; float32: the wide K6
     (16, 32, 20, 70, 64, 32),   # a zero query: more hits than a pull lists
+    (10, 32, 24, 154, 320, 1),  # D 320: the wide K5 and K6 in both modes
 ])
 def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
         nq, lq, nd, lp, d, zeros, cd):
-    """K6 in both modes against its plain version: D 32 to 256 (256 in
-    bf16 only: float32 stops at 192, as K5), 1, 2, 3, 4, 8 and 9 query
+    """K6 in both modes against its plain version: D 32 to 320 (above 256,
+    float32 above 192, the wide K6 on the wide K5's M, one launch for every
+    query token), 1, 2, 3, 4, 8 and 9 query
     blocks, Lp off a multiple of 64, a doc with no valid token, qmask-0
     rows, and exact ties planted after the data is made tie-free (a page
     token duplicated inside its doc; the first ``zeros`` tokens of the last
@@ -718,9 +725,9 @@ def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cd = getattr(torch, cd)
-    if cd == torch.float32 and d > cuda_maxsim.F32_MAX_D:
-        pytest.skip("float32 mode stops at F32_MAX_D, as K5's")
     ct = cuda_maxsim_train
+    wide = d > (cuda_maxsim.F32_MAX_D if cd == torch.float32
+                else cuda_maxsim.MAX_D)
     torch.set_float32_matmul_precision("highest")
     rng = np.random.default_rng(nq + lq + d)
     dev = "cuda"
@@ -753,7 +760,7 @@ def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
     torch.cuda.synchronize()
     n_qb = -(-nq // (128 // lq))
     assert (cuda_maxsim.launch_counts()[name]
-            == n0 + 2 * -(-n_qb // ct.MAX_QB_BLOCKS))
+            == n0 + 2 * (1 if wide else -(-n_qb // ct.MAX_QB_BLOCKS)))
     assert torch.equal(dq, dq2) and torch.equal(dp, dp2)
     dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, cd)
     rel = 1e-4 if cd == torch.float32 else 1e-3
@@ -777,8 +784,9 @@ def test_k6_sparse_cluster_kernel_matches_plain_version_on_the_card(
     (36, 32, 60, 154, 96),    # 9 K6 query blocks: two chunks
     (5, 200, 30, 77, 64),     # odd Lp; Lq 200: one K5 launch, two K6 slices
     (12, 20, 40, 137, 192),   # D 192: float32's narrow tile, K6 at 2 stages
-    (6, 16, 25, 154, 256),    # D 256 (bf16 only)
+    (6, 16, 25, 154, 256),    # D 256 (float32: the wide loop)
     (3, 7, 9, 1, 32),         # Lp 1: a doc ends every tile
+    (9, 32, 20, 137, 320),    # D 320: the wide K5 and K6 in both modes
 ])
 def test_k5_is_k1_with_an_m_store_and_k6_follows_it_on_the_card(
         nq, lq, nd, lp, d, cd):
@@ -789,15 +797,15 @@ def test_k5_is_k1_with_an_m_store_and_k6_follows_it_on_the_card(
     pair within 1e-3 (bf16) and 1e-4 (float32) relative, Frobenius, with
     exact ties planted after the data is made tie-free (a page token
     duplicated in its doc, a zero query token with qmask 1), at the mf5
-    student's Lp 137 and 154, odd Lp 77, Lp 1, D 32 to 256 (float32 to
-    192) and 1 to 9 query blocks; two calls of K6 give the same bits. K5
-    bf16 runs 64-token tiles, the width K6 recomputes."""
+    student's Lp 137 and 154, odd Lp 77, Lp 1, D 32 to 320 (above 256,
+    float32 above 192: the wide K5, K1's wide loop with the M store, and
+    the wide K6) and 1 to 9 query blocks; two calls of K6 give the same
+    bits. K5 bf16 runs 64-token tiles, the width K6 recomputes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cd = getattr(torch, cd)
-    if cd == torch.float32 and d > cuda_maxsim.F32_MAX_D:
-        pytest.skip("float32 mode stops at F32_MAX_D")
     cm, ct = cuda_maxsim, cuda_maxsim_train
+    wide = d > (cm.F32_MAX_D if cd == torch.float32 else cm.MAX_D)
     torch.set_float32_matmul_precision("highest")
     rng = np.random.default_rng(nq + lq + lp + d)
     dev = "cuda"
@@ -843,9 +851,74 @@ def test_k5_is_k1_with_an_m_store_and_k6_follows_it_on_the_card(
     if lp > 1:
         assert torch.equal(dp[1, 0], dp[1, lp - 1])
     assert float(dp[nd // 2].abs().max()) == 0.0
-    if cd == torch.bfloat16:
+    if wide:
+        assert cm.launch_shapes[(fwd, ("evdr_maxsim_fwd_train_f32_wide"
+                                       if cd == torch.float32 else
+                                       "evdr_maxsim_fwd_train_wide"),
+                                 nq, lq, nd, lp)] > 0
+    elif cd == torch.bfloat16:
         cfg = cm.bf16_config(cm.kernel_dim(d), train=True)
         assert (cfg["rows"], cfg["tile_tokens"]) == (256, 64)
     else:
         rows = cm.f32_occupancy(cm.kernel_dim(d), train=True)[1]
         assert rows == cm.row_cap(lib, cm.kernel_dim(d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,q8,sdtype,func", [
+    ("int8", False, None, "evdr_maxsim_int8"),
+    ("int8", True, None, "evdr_maxsim_int8full"),
+    ("int8", False, "int4", "evdr_maxsim_int4"),
+    ("bfloat16", False, None, "evdr_maxsim_bf16"),
+    ("pq", False, None, "evdr_maxsim_bf16")])
+def test_pruned_engine_equals_exact_search_at_full_cover_on_the_card(
+        dtype, q8, sdtype, func):
+    """A pruned engine on the card: stage 1 scores the summary index (4
+    centres a page) through the serving kernel of its tier at Lp 4, stage
+    2 reranks in f32. At n_candidates = n_docs the top-10 equals exact f32
+    MaxSim over the stored index (dequantized, or PQ decoded from its f32
+    books) at every rank untied by more than 1e-3 (summation order alone),
+    the returned scores equal it (1e-3), and no index reaches n_docs, a
+    doc with no valid token included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.maxsim import maxsim_torch
+    from evdr_tpu_torch.ops.pruned import _decode_pq
+    from evdr_tpu_torch.parallel.topk import _select_topk
+
+    torch.set_float32_matmul_precision("highest")
+    cm = cuda_maxsim
+    rng = np.random.default_rng(len(func) + q8)
+    nd, lp, d, nq, lq, k = 300, 70, 128, 12, 16, 10
+    P = rng.normal(size=(nd, lp, d)).astype(np.float32)
+    pm = rng.random((nd, lp)) > 0.1
+    pm[5] = False
+    Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((nq, lq), bool)
+    eng = RetrievalEngine(dtype=dtype, quantize_queries=q8, pq_m=16,
+                          prune_centroids=4, summary_dtype=sdtype).build(
+        P, pm)
+    cm.reset_launch_counts()
+    vals, idx = eng.search_dense(Q, qm, k=k, n_candidates=nd)
+    assert cm.func_launches(func) == 1
+    assert all(s[5] == 4 for s in cm.launch_shapes)
+    assert idx.max() < nd and 5 not in idx[:, :-1]
+    ix = eng.index
+    T = ix.P[:nd]
+    if ix.books is not None:
+        T = _decode_pq(T, ix.books, d, "take")
+    elif T.dtype == torch.uint8:
+        T = cm.unpack_int4_torch(T, lp)
+    T = T.float()
+    if ix.scales is not None:
+        T = T * ix.scales[:nd][..., None]
+    Qd = torch.from_numpy(Q).cuda()
+    sc = maxsim_torch(Qd, T, torch.from_numpy(qm).cuda(), ix.pmask[:nd])
+    sc[:, 5] = -torch.inf  # the rerank ranks an empty doc last
+    ve, ie = (x.cpu().numpy() for x in _select_topk(sc, k + 1))
+    np.testing.assert_allclose(vals[:, :9], ve[:, :9], rtol=0, atol=1e-3)
+    step = ve[:, :-1] - ve[:, 1:]
+    above = np.concatenate([np.full((nq, 1), np.inf), step], axis=1)
+    untied = (above[:, :k] > 1e-3) & (step[:, :k] > 1e-3)
+    assert untied.sum() > nq and (ie[:, :k][untied] == idx[untied]).all()

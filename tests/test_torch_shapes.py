@@ -2,7 +2,8 @@
 torch port, on the CPU.
 
 The kernels take at most a CTA's query-token rows per launch
-(``cuda_maxsim.row_cap``) and D a multiple of 16 up to a bound.
+(``cuda_maxsim.row_cap``) and D a multiple of 16; above the fast kernels'
+bound a wrapper launches its library's wide function.
 The wrappers score longer queries in slices whose partial scores add up
 (``split_queries``) and zero-pad D; the engine pads its stored index once,
 at build, and the queries per call. Here:
@@ -17,7 +18,9 @@ at build, and the queries per call. Here:
   K1's row caps (Lq 200 and 300), its M reassembled from the slices;
 - engines of every tier built at D 40 and 72 against the JAX engine
   (``impl='xla'``) on the same index, with ``dim`` the true D;
-- the bounds that padding cannot lift, each with its message.
+- every D above the fast kernels' bound (256; float32 192): each wrapper
+  routed to its wide function, the plain versions there against the JAX
+  kernels, and engines of every tier at D 320 against the JAX engine.
 
 Tolerances: a split changes only the order of f32 additions over query
 tokens, so against one pass of the same plain version it holds to 1e-6
@@ -130,24 +133,32 @@ def test_split_queries_within_the_cap_runs_once_on_the_inputs():
 
 def _kernel_stand_in(seen):
     """A stand-in for ``call_kernel``: checks that the launch is one the
-    kernel takes (query tokens within its library's cap, D on its granule,
-    16-byte aligned operands), then writes what the kernel computes from
-    the operands it was handed, by the plain versions' arithmetic. K5's M
-    and K6's recompute take one query token at a time, so that each
-    similarity is the same bits whatever slice of the query a launch holds,
-    as the kernels' products are (K5 slices at K1's row cap, K6 at its
-    own)."""
+    kernel takes (query tokens within its library's cap, D on its granule
+    and, for a fast kernel, within its bound; a wide function's own checks:
+    at most 256 query tokens but for K6, K3 without clusters and compact
+    books of a 4-byte multiple; 16-byte aligned operands), then writes what
+    the kernel computes from the operands it was handed, by the plain
+    versions' arithmetic. K5's M and K6's recompute take one query token at
+    a time, so that each similarity is the same bits whatever slice of the
+    query a launch holds, as the kernels' products are (K5 slices at K1's
+    row cap, the fast K6 at its own, the wide K6 takes every token)."""
 
     def run(lib, func, ops, *args, aligned=()):
         seen.append((lib, func) + tuple(args))
         assert all(t.is_contiguous() for t in ops if t is not None)
         nq, lq, nd, lp, d = args[:5]
-        f32 = func.endswith("_f32")
+        wide = func.endswith("_wide")
+        fast = func[:-len("_wide")] if wide else func
+        f32 = fast.endswith("_f32")
         comp = torch.float32 if f32 else torch.bfloat16
+        assert d >= cm.D_GRANULE and d % cm.D_GRANULE == 0
+        if not wide:
+            assert d <= (cm.F32_MAX_D if "f32" in fast else cm.MAX_D), func
         if func.startswith("evdr_maxsim_fwd_train"):
-            # K5: K1's kernel with the M store, in K1's library
+            # K5: K1's kernel (or its wide loop) with the M store, in K1's
+            # library
             assert lib == ("maxsim_f32" if f32 else "maxsim_bf16")
-            assert lq <= cm.row_cap(lib, d) and d % cm.D_GRANULE == 0
+            assert lq <= cm.row_cap(lib, d)
             q, qw, p, pmask, out, M = ops
             out.copy_(cm._plain_core(q.float(), qw, p, comp,
                                      cm.mask_sentinel(pmask)))
@@ -156,12 +167,30 @@ def _kernel_stand_in(seen):
                                comp, cm.mask_sentinel(pmask), want_m=True)[1]
                 for t in range(lq)], dim=1))
             return
+        if lib == "maxsim_train" and wide:
+            # the wide K6: every query token at once, its hit masks, then
+            # dQ (nq * lq, d) and dP (nd, lp, d) whole
+            q, qw, p, pmask, M, g2, rowbits, colbits, dq_out, dp_out = ops
+            assert -(-nq * lq // cm.KERNEL_ROWS) <= 65535
+            assert rowbits.shape == (nq * lq, nd, -(-lp // 64), 2)
+            assert colbits.shape == (nd * lp, -(-nq * lq // 32))
+            assert dq_out.shape == (nq * lq, d) and dp_out.shape == (nd, lp,
+                                                                    d)
+            dp_out.zero_()
+            M3 = M.view(nq, lq, nd)
+            dq3 = dq_out.view(nq, lq, d)
+            for t in range(lq):
+                dq, dp = ct.maxsim_bwd_plain(
+                    q[:, t:t + 1].float(), p.float(), qw[:, t:t + 1] > 0,
+                    pmask, M3[:, t], g2, comp)
+                dq3[:, t] = dq[:, 0]
+                dp_out += dp
+            return
         if lib == "maxsim_train":
-            assert lq <= cm.ROW_CAP[lib] and d % cm.D_GRANULE == 0
+            assert lq <= cm.ROW_CAP[lib]
             # K6: the bound of K5's mode, a cluster of 1-8 CTAs, one dQ
             # partial a doc slice and one dP a cluster of query blocks
             db, cluster = args[5:7]
-            assert d <= (cm.F32_MAX_D if f32 else cm.MAX_D)
             assert cluster in (1, 2, 4, 8)
             q, qw, p, pmask, M, g2, dq_part, dp_out = ops
             n_qb = -(-nq // (cm.ROW_CAP[lib] // lq))
@@ -178,16 +207,16 @@ def _kernel_stand_in(seen):
                 dp_out[0] += dp
             return
         assert lq <= cm.row_cap(lib, d), (lib, lq)
-        assert d % cm.D_GRANULE == 0 and d <= cm.MAX_D
         if lib == "maxsim_pq":
             q, qw, codes, kb, pmask, out = ops
             m = codes.shape[-1]
-            if func == "evdr_maxsim_pq_sum":
+            assert args[6] == 1 or not wide  # no cluster on the wide path
+            if fast == "evdr_maxsim_pq_sum":
                 full = kb.to(torch.int32)
             else:
                 assert kb.shape[-1] % 4 == 0 and m * kb.shape[-1] == d
                 full = cm.pq_full_books(kb, True, d)
-            tile = torch.float32 if func == "evdr_maxsim_pqfull" \
+            tile = torch.float32 if fast == "evdr_maxsim_pqfull" \
                 else torch.bfloat16
             out.copy_(cm._plain_core(
                 q.float(), qw, codes,
@@ -445,73 +474,236 @@ def test_engine_serves_long_queries_on_a_narrow_index_through_the_kernels(
     np.testing.assert_array_equal(idx[:, 0], 3 * np.arange(10) + 1)
 
 
-# ------------------------------------------------- bounds padding cannot lift
+# ------------------------------------------ every width: the wide functions
+
+# (D, float32 D) above the fast kernels' bounds (256; float32 192)
+WIDE = [(264, 200), (320, 256), (512, 320)]
 
 
-def test_widths_that_padding_cannot_lift_raise_with_their_bound(on_card):
-    """D above 256 (every kernel) and above 192 (K1, K5 and K6 in float32
-    mode): the operand tiles live in shared memory and a max over tokens
-    does not split over D, so each is refused with its bound; no launch is
-    made. K6 takes every D that K5 takes: 136 and 192 launch in both
-    modes."""
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("d,d32", WIDE)
+def test_wide_widths_route_to_the_wide_functions(on_card, d, d32):
+    """Above the fast kernels' bound every wrapper launches its library's
+    wide function (``<func>_wide``, csrc/maxsim_wide.cuh) on 256-row tiles:
+    Lq 300 in two launches (256 + 44 tokens), each counted on its wrapper
+    and under the wide function's name in launch_shapes, no ValueError; the
+    scores add up to the plain version's (1e-6 relative: summation order
+    alone). K3's compact books run the wide compact kernel where their
+    stored width is a multiple of 4 bytes (D 320, 512), else the
+    full-width one (D 264: 33 -> 34). MaxSimFn: K5 slices as K1 and its
+    scores equal K1's bit for bit; the wide K6 takes all 300 tokens in one
+    launch; dQ and dP equal the plain pair's (1e-5)."""
+    lq = 300
+    rng = np.random.default_rng(d)
+    cases = []
+    for dd in (d, d32):
+        Q, P, qm, pm = _t(*_case(dd, nq=2, lq=lq, nd=5, lp=9, d=dd))
+        cases += [c for c in _wrapper_cases(Q, P, qm, pm, rng)
+                  if (c[0] is cm.maxsim_cuda_f32) == (dd == d32)]
+    assert len(cases) == 12
+    for wrapper, plain, args in cases:
+        n0, k0 = wrapper.launches, len(on_card)
+        got = wrapper(*args)
+        calls = on_card[k0:]
+        assert all(c[1].endswith("_wide") for c in calls), calls
+        assert [c[3] for c in calls] == [256, 44], wrapper.__name__
+        assert wrapper.launches - n0 == 2
+        assert cm.func_launches(calls[0][1]) >= 2
+        if wrapper in (cm.maxsim_cuda_pq, cm.maxsim_cuda_pqfull) \
+                and args[-1].shape[0] == 8:
+            assert calls[0][1] == ("evdr_maxsim_pq_sum_wide" if d == 264
+                                   else wrapper.__name__.replace(
+                                       "maxsim_cuda", "evdr_maxsim") + "_wide")
+        torch.testing.assert_close(got, plain(*args), rtol=1e-6, atol=1e-5,
+                                   msg=wrapper.__name__)
+        assert got[:, 2].abs().max().item() == 0.0
+    for cd, dd in ((torch.bfloat16, d), (torch.float32, d32)):
+        Q, P, qm, pm = _t(*_case(dd + 1, nq=2, lq=lq, nd=5, lp=9, d=dd))
+        g = torch.from_numpy(rng.normal(size=(2, 5)).astype(np.float32))
+        k0 = len(on_card)
+        Qg, Pg = Q.clone().requires_grad_(True), P.clone().requires_grad_(True)
+        out = ct.MaxSimFn.apply(Qg, Pg, qm, pm, cd)
+        out.backward(g)
+        suffix = "_f32" if cd == torch.float32 else ""
+        assert [(c[1], c[3]) for c in on_card[k0:]] == [
+            (f"evdr_maxsim_fwd_train{suffix}_wide", 256),
+            (f"evdr_maxsim_fwd_train{suffix}_wide", 44),
+            (f"evdr_maxsim_bwd{suffix}_wide", lq)]
+        assert torch.equal(out.detach(), cm.maxsim_cuda(Q, P, qm, pm, cd))
+        out_p, M_p = ct.maxsim_fwd_train_plain(Q, P, qm, pm, cd)
+        dq_p, dp_p = ct.maxsim_bwd_plain(Q, P, qm, pm, M_p, g, cd)
+        torch.testing.assert_close(out.detach(), out_p, rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(Qg.grad, dq_p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(Pg.grad, dp_p, rtol=1e-5, atol=1e-5)
 
-    def case(d):
-        return _t(*_case(1, nq=2, lq=4, nd=3, lp=5, d=d))
 
-    Q, P, qm, pm = case(264)
-    codes, sc = quantize_tokens_int8(P, pm)
-    packed, sc4 = quantize_tokens_int4(P, pm)
-    pq_codes = torch.from_numpy(rng.integers(0, 8, (3, 5, 8), np.uint8))
-    for call in (lambda: cm.maxsim_cuda(Q, P, qm, pm),
-                 lambda: cm.maxsim_cuda_int8(Q, codes, sc, qm, pm),
-                 lambda: cm.maxsim_cuda_int8full(Q, codes, sc, qm, pm,
-                                                 deferred=True),
-                 lambda: cm.maxsim_cuda_int4full(Q, packed, sc4, qm, pm),
-                 lambda: cm.maxsim_cuda_pq(Q, pq_codes, qm, pm,
-                                           _books(rng, 8, 8, 33))):
-        with pytest.raises(ValueError,
-                           match=r"D must lie in \[1, 256\].*got 264"):
-            call()
-    Q, P, qm, pm = case(200)
-    for call, who in (
-            (lambda: cm.maxsim_cuda_f32(Q, P, qm, pm), "K1's float32 mode"),
-            (lambda: ct.maxsim_cuda_fwd_train(Q, P, qm, pm, torch.float32),
-             "K5's float32 mode")):
-        with pytest.raises(ValueError,
-                           match=rf"{who}: D must lie in \[1, 192\]"):
-            call()
-    M = torch.zeros(2 * 4, 3)
+@pytest.mark.parametrize("d,f32_wide,wide", [
+    (120, False, False), (136, False, False), (192, False, False),
+    (208, True, False), (256, True, False), (272, True, True)])
+def test_fast_kernels_keep_every_width_up_to_their_bound(on_card, d,
+                                                         f32_wide, wide):
+    """The switch between the two instantiations is the fast kernels'
+    bound, by D at the kernel width: K2 and K5/K6 bf16 stay fast up to 256,
+    the float32 modes (K1, K5, K6) up to 192; the float32 modes take their
+    wide functions from 208 (the next width of 16), every mode from 272.
+    K6 runs 120 at 128 wide, as K5."""
+    Q, P, qm, pm = _t(*_case(1, nq=2, lq=4, nd=3, lp=5, d=d))
     g = torch.ones(2, 3)
-    with pytest.raises(ValueError,
-                       match=r"K6's float32 mode: D must lie in \[1, 192\]"
-                             r".*200"):
-        ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, torch.float32)
-    Q, P, qm, pm = case(264)
-    with pytest.raises(ValueError, match=r"K6: D must lie in \[1, 256\].*264"):
-        ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g)
-    assert on_card == []
-    assert all(w.launches == 0 for w in cm.all_wrappers())
-    # at the bounds themselves the wrappers launch, and K6 at every width
-    # K5 takes: 136 and 192 in both modes (and 256 in bf16)
-    Q, P, qm, pm = case(192)
+    codes, sc = quantize_tokens_int8(P, pm)
+    cm.maxsim_cuda_int8(Q, codes, sc, qm, pm)
     cm.maxsim_cuda_f32(Q, P, qm, pm)
-    for d, modes in ((136, (torch.bfloat16, torch.float32)),
-                     (192, (torch.bfloat16, torch.float32)),
-                     (256, (torch.bfloat16,))):
-        Q, P, qm, pm = case(d)
-        for cd in modes:
-            out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, cd)
-            ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
-            assert on_card[-1][6] == -(-d // cm.D_GRANULE) * cm.D_GRANULE
-    assert [c[1] for c in on_card] == ["evdr_maxsim_f32"] + [
-        "evdr_maxsim_fwd_train", "evdr_maxsim_bwd",
-        "evdr_maxsim_fwd_train_f32", "evdr_maxsim_bwd_f32"] * 2 + [
-        "evdr_maxsim_fwd_train", "evdr_maxsim_bwd"]
-    Q, P, qm, pm = case(120)
-    out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm)
-    ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g)
-    assert on_card[-1][6] == 128  # K6 at 120 runs 128 wide
+    for cd in (torch.bfloat16, torch.float32):
+        out, M = ct.maxsim_cuda_fwd_train(Q, P, qm, pm, cd)
+        ct.maxsim_cuda_bwd(Q, P, qm, pm, M, g, cd)
+    assert all(c[6] == -(-d // 16) * 16 for c in on_card)
+    w, w32 = ("_wide" if wide else ""), ("_wide" if f32_wide else "")
+    assert [c[1] for c in on_card] == [
+        "evdr_maxsim_int8" + w, "evdr_maxsim_f32" + w32,
+        "evdr_maxsim_fwd_train" + w, "evdr_maxsim_bwd" + w,
+        "evdr_maxsim_fwd_train_f32" + w32, "evdr_maxsim_bwd_f32" + w32]
+
+
+def _jax_vjp(Q, P, qm, pm, g, jdtype):
+    out, vjp = jax.vjp(
+        lambda q, p: maxsim_pallas(q, p, jnp.asarray(qm), jnp.asarray(pm),
+                                   jdtype, True),
+        jnp.asarray(Q), jnp.asarray(P))
+    dq, dp = vjp(jnp.asarray(g))
+    return np.asarray(out), np.asarray(dq), np.asarray(dp)
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+WIDE_KERNELS = ["k1", "k1_f32", "k2", "k2full", "k2b", "k2bfull", "k4",
+                "k4full", "k3_compact", "k3full_compact", "k3_expanded",
+                "k3full_expanded", "k5_k6", "k5_k6_f32"]
+
+
+@pytest.mark.parametrize("kernel", WIDE_KERNELS)
+@pytest.mark.parametrize("d,d32", WIDE)
+def test_plain_versions_at_wide_d_match_the_jax_kernels(kernel, d, d32):
+    """The plain version each wide kernel is held against on the card, at
+    D above the fast bound, against the JAX package's Pallas kernel in
+    interpret mode (which pads D to a multiple of 128 and takes any D),
+    with the tolerance of the same function's test at D <= 256: K1, K2,
+    K2b (deferred=True on both sides), K4 and K3 in f32 compute 1e-5 (the
+    bf16 K1 and K5/K6 on bf16 inputs with f32 sums 1e-5), the exact
+    integer products of int8full/int4full and of pqfull on compact books
+    1e-6 (K2's int8full 1e-5), K3 on expanded books 1e-5; K5's M against
+    each row's max of the compute-dtype similarities (float64, 1e-5
+    relative), K6's dQ and dP through jax.vjp of maxsim_pallas."""
+    from evdr_tpu.ops.int4 import quantize_tokens_int4 as j_int4
+    from evdr_tpu.ops.pallas_maxsim import (maxsim_pallas_int4,
+                                            maxsim_pallas_int4full,
+                                            maxsim_pallas_int8,
+                                            maxsim_pallas_int8full,
+                                            maxsim_pallas_pq,
+                                            maxsim_pallas_pqfull)
+    from evdr_tpu.ops.quantize import quantize_tokens_int8 as j_int8
+
+    dd = d32 if kernel.endswith("_f32") else d
+    Q, P, qm, pm = _case(dd, nq=2, lq=6, nd=5, lp=9, d=dd)
+    rng = np.random.default_rng(dd)
+    f32 = dict(compute_dtype=jnp.float32, interpret=True)
+    if kernel in ("k1", "k1_f32"):
+        cd, jd = ((torch.float32, jnp.float32) if kernel == "k1_f32"
+                  else (torch.bfloat16, jnp.bfloat16))
+        want = np.asarray(maxsim_pallas(*_j(Q, P, qm, pm), jd, True))
+        got = cm.maxsim_plain(*_t(Q, P, qm, pm), compute=cd).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        return
+    if kernel.startswith("k2"):
+        codes, sc = j_int8(P, pm)
+        args = _j(Q, codes, sc, qm, pm)
+        deferred = kernel.startswith("k2b")
+        if kernel.endswith("full"):
+            want = maxsim_pallas_int8full(*args, interpret=True,
+                                          deferred=deferred)
+            got = cm.maxsim_int8full_plain(*_t(Q, codes, sc, qm, pm))
+        else:
+            want = maxsim_pallas_int8(*args, deferred=deferred, **f32)
+            got = cm.maxsim_int8_plain(*_t(Q, codes, sc, qm, pm),
+                                       compute=torch.float32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+        return
+    if kernel.startswith("k4"):
+        packed, sc = j_int4(P, pm)
+        args = _j(Q, packed, sc, qm, pm)
+        if kernel == "k4full":
+            want = maxsim_pallas_int4full(*args, interpret=True)
+            got = cm.maxsim_int4full_plain(*_t(Q, packed, sc, qm, pm))
+            tol = 1e-6
+        else:
+            want = maxsim_pallas_int4(*args, **f32)
+            got = cm.maxsim_int4_plain(*_t(Q, packed, sc, qm, pm),
+                                       compute=torch.float32)
+            tol = 1e-5
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=tol)
+        return
+    if kernel.startswith("k3"):
+        m = 8
+        expanded = kernel.endswith("expanded")
+        books = (_unit(rng.normal(size=(m, 64, dd))) * 0.3 if expanded
+                 else _unit(rng.normal(size=(m, 64, dd // m))) * 0.5
+                 ).astype(np.float32)
+        codes = rng.integers(0, 64, (5, 9, m), dtype=np.uint8)
+        args = (Q, codes, qm, pm, books)
+        if kernel.startswith("k3full"):
+            want = maxsim_pallas_pqfull(*_j(*args), **f32)
+            got = cm.maxsim_pqfull_plain(*_t(*args), compute=torch.float32)
+            tol = 1e-5 if expanded else 1e-6
+        else:
+            want = maxsim_pallas_pq(*_j(*args), **f32)
+            got = cm.maxsim_pq_plain(*_t(*args), compute=torch.float32)
+            tol = 1e-5
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=tol)
+        return
+    cd, jd = ((torch.float32, jnp.float32) if kernel.endswith("_f32")
+              else (torch.bfloat16, jnp.bfloat16))
+    g = rng.normal(size=(2, 5)).astype(np.float32)
+    want_out, want_dq, want_dp = _jax_vjp(Q, P, qm, pm, g, jd)
+    Qt, Pt, qmt, pmt, gt = _t(Q, P, qm, pm, g)
+    out, M = ct.maxsim_fwd_train_plain(Qt, Pt, qmt, pmt, cd)
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=1e-5, atol=1e-5)
+    sim = np.einsum("qtd,cmd->qtcm", Qt.to(cd).double().numpy(),
+                    Pt.to(cd).double().numpy())
+    sim = np.where(pm[None, None], sim, -1e30).max(axis=-1)
+    np.testing.assert_allclose(M.numpy(), sim.reshape(-1, P.shape[0]),
+                               rtol=1e-5, atol=1e-6)
+    dq, dp = ct.maxsim_bwd_plain(Qt, Pt, qmt, pmt, M, gt, cd)
+    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dp.numpy(), want_dp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,q8,pq_opq,tol", [
+    ("bfloat16", False, False, 2e-2), ("int8", False, False, 2e-2),
+    ("int8", True, False, 3e-2), ("int4", False, False, 2e-2),
+    ("int4", True, False, 3e-2), ("pq", False, False, 5e-2),
+    ("pq", True, False, 5e-2), ("pq", False, True, 5e-2)])
+def test_engines_at_d320_score_as_the_jax_engine(on_card, dtype, q8, pq_opq,
+                                                 tol):
+    """An index of D = 320 on every tier, built by both packages, scored
+    through the wrappers' host sides as on the card (every launch a wide
+    function) against the JAX engine (impl='xla', f32) on the same index,
+    with the tolerances of the D 40 / 72 test (bf16 queries 2e-2, int8
+    queries 3e-2, int8 PQ books 5e-2 over 5 query tokens); top-1 equal."""
+    Q, P, qm, pm = _corpus(320, 320)
+    kw = dict(pq_m=16, pq_opq=pq_opq) if dtype == "pq" else {}
+    jeng = JaxEngine(mesh=make_mesh(1), dtype=dtype, impl="xla",
+                     **kw).build(P, pm)
+    eng = RetrievalEngine(dtype=dtype, quantize_queries=q8, device="cpu",
+                          **kw).build(P, pm)
+    assert eng.dim == jeng.dim == 320
+    ref = np.asarray(jeng.score_all(Q, qm))
+    got = eng.score_all(Q, qm)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    _, idx = eng.search_dense(Q, qm, k=3)
+    np.testing.assert_array_equal(idx[:, 0], 3 * np.arange(10) + 1)
+    assert on_card and all(c[1].endswith("_wide") for c in on_card)
 
 
 def test_http_group_with_a_long_query_answers_every_request(on_card):
