@@ -126,7 +126,28 @@ line each:
     index >= n_docs, and at n_candidates = n_docs (the first 2,000 pages,
     int8 and pq) the top-10 equal to exact MaxSim's at every untied rank;
     a pruned PQ npz through from_npz, tools/search.main and
-    tools/serve_http (/healthz reports pruned).
+    tools/serve_http (/healthz reports pruned);
+22. incremental serving at the serving shape: int8 engines over 49,000
+    pages with and without quantize_queries (K2's two modes), bf16 over
+    10,000 (K1), int4 (K4) and pq at M = 16 (K3) over 49,000; each takes
+    1,000 float pages through add in four calls (Lp 768, 768, 701, 701; 50
+    of them upserting main docids) and 500 deletes (250 main, 250 tail),
+    then serves 256 planted queries (half on live docs, a quarter on
+    deleted ones, a quarter on the upserted pages) through the merged
+    main + tail search. Gates: no deleted doc returned, recall@1 1.0 on
+    the live targets, top-10 ids equal at every untied rank and scores
+    within 1e-5 of a fresh engine built from the live corpus (pq: of the
+    plain version on main + tail); compact() and save_npz -> from_npz
+    (mmap=True, and eager for bf16) leave the top-10 as it was. A pruned
+    int8 engine (prune_centroids=4, 2,000 pages) takes the same
+    mutations: no deleted doc at 512 candidates or at all of them, where
+    it must equal its exact merged search; after its compact,
+    tools/serve_http with --save_dir answers /add, /delete, /search and
+    /save (the file reloads equal), and scripts/torch_measure_rss.py
+    loads a 25,000-page int8 file eagerly and memory-mapped. Times: q/s before add and with the tail and
+    tombstones, the first search after the adds (the lazy tail build),
+    delete, compact, save and both loads, the tail kernel's share of the
+    merged search.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
@@ -143,7 +164,9 @@ K5/K6 and K2b have no trainer or engine path, in the JAX package either
 ``deferred``): their launches come from their entry points' calls in
 phases 16, 17 and 20, with the counts set to 0 just before each. Phase
 21's stage 1 launches (K1, K2, K4 at Lp 4) join the entries of K1 bf16,
-K2 and K4 as ``pruned_stage1_launches``.
+K2 and K4 as ``pruned_stage1_launches``, and phase 22's merged main +
+tail searches (counts set to 0 just before each) those of K1 bf16, K2,
+K4 and K3 (compact books) as ``incremental_launches``.
 """
 
 from __future__ import annotations
@@ -202,6 +225,18 @@ PLAIN_WIDE_DOCS = 1_000
 # candidates; the full-cover gate and the files on the first 2,000 pages
 PRUNE_DOCS, PRUNE_K, PRUNE_CANDS = 50_000, 4, (512, 2_500)
 PRUNE_FULL_DOCS = 2_000
+# incremental serving (phase 22): main indexes of 49,000 pages (bf16
+# 10,000), 1,000 pages added in four calls (the last two of 701 tokens),
+# 50 of them upserting main docids, 250 main and 250 tail docs deleted;
+# the pruned engine on 2,000 pages; the host-memory tool on 25,000 int8
+# pages (~2.5 GB); the save -> eager from_npz round trip on the bf16
+# engine (the others: mmap only; the eager loader dequantizes or decodes a
+# 49,000-page file into 19 GB of host f32, the slowest step phase 22
+# would have)
+INC_DOCS, INC_BF16_DOCS, INC_ADD_LP = 49_000, 10_000, (LP, LP, 701, 701)
+INC_ADD, INC_UPSERT, INC_DELETE = 1_000, 50, 250
+INC_PRUNE_DOCS, INC_PRUNE_CANDS, RSS_DOCS = 2_000, 512, 25_000
+INC_EAGER = ("bfloat16",)
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -2320,6 +2355,625 @@ def pruned_phase(gen, smi, root):
     return reports, stage1
 
 
+# ------------------------------------------- incremental serving (phase 22)
+
+
+def inc_plan(n_main):
+    """Phase 22's mutations on a main index of ``n_main`` rows: docids,
+    the added pages' ids (part 3's first INC_UPSERT upsert main docids),
+    the deleted docids (INC_DELETE main rows that are not upserted, and
+    INC_DELETE added pages that do not upsert), the dead global rows (main
+    rows first, then the added pages), the live rows and their ids in that
+    order, and the planted targets: NQ/4 live main docs, NQ/4 live added
+    pages, NQ/4 deleted docs (half main, half added) and the rest on the
+    upserted pages."""
+    per = INC_ADD // len(INC_ADD_LP)
+    ups_pos = list(range(2 * per, 2 * per + INC_UPSERT))
+    ups_main = [(7919 * j + 101) % n_main for j in range(INC_UPSERT)]
+    main_ids = [f"m{i}" for i in range(n_main)]
+    add_ids = [f"a{p}" for p in range(INC_ADD)]
+    for p, u in zip(ups_pos, ups_main):
+        add_ids[p] = main_ids[u]
+    del_main, j = [], 0
+    while len(del_main) < INC_DELETE:
+        i = (104729 * j + 13) % n_main
+        j += 1
+        if i not in ups_main and i not in del_main:
+            del_main.append(i)
+    del_pos = [p for p in range(1, INC_ADD) if p not in ups_pos][::3][
+        :INC_DELETE]
+    dead = set(ups_main) | set(del_main) | {n_main + p for p in del_pos}
+    live = [i for i in range(n_main + INC_ADD) if i not in dead]
+
+    def gid(i):
+        return main_ids[i] if i < n_main else add_ids[i - n_main]
+
+    live_main = [i for i in live if i < n_main]
+    live_add = [i for i in live if i >= n_main and i - n_main not in ups_pos]
+    q4 = NQ // 4
+    targets = ([live_main[(7919 * q + 3) % len(live_main)]
+                for q in range(q4)]
+               + [live_add[(7919 * q + 5) % len(live_add)] for q in range(q4)]
+               + [del_main[q % INC_DELETE] for q in range(q4 // 2)]
+               + [n_main + del_pos[q % INC_DELETE]
+                  for q in range(q4 - q4 // 2)]
+               + [n_main + ups_pos[q % INC_UPSERT]
+                  for q in range(NQ - 3 * q4)])
+    live_q = np.r_[0:2 * q4, 3 * q4:NQ]
+    return {"n_main": n_main, "per": per, "main_ids": main_ids,
+            "add_ids": add_ids, "deleted": [gid(i) for i in del_main]
+            + [add_ids[p] for p in del_pos], "dead": dead, "live": live,
+            "live_ids": [gid(i) for i in live], "targets": targets,
+            "target_ids": [gid(t) for t in targets], "live_q": live_q}
+
+
+def added_pages(gen):
+    """The INC_ADD pages phase 22 adds: unit float tokens, ~10% masked, in
+    parts of INC_ADD_LP tokens. Returns the parts as host arrays (what
+    add() takes) and all of them padded to LP on the device."""
+    per = INC_ADD // len(INC_ADD_LP)
+    Pt = torch.zeros((INC_ADD, LP, D), dtype=torch.float32, device=DEVICE)
+    pmt = torch.zeros((INC_ADD, LP), dtype=torch.bool, device=DEVICE)
+    parts = []
+    for j, lp in enumerate(INC_ADD_LP):
+        x = unit(torch.randn((per, lp, D), device=DEVICE, generator=gen))
+        m = torch.rand((per, lp), device=DEVICE, generator=gen) > 0.1
+        Pt[j * per:(j + 1) * per, :lp] = x
+        pmt[j * per:(j + 1) * per, :lp] = m
+        parts.append((x.cpu().numpy(), m.cpu().numpy()))
+    return parts, Pt, pmt
+
+
+def plant(tokens, mask, gen):
+    """Planted queries on given docs: each copies LQ of its doc's valid
+    tokens, plus noise of norm ~0.5, ~15% of query tokens masked."""
+    nq = tokens.shape[0]
+    pos = torch.multinomial(mask.float() + 1e-6, LQ, replacement=True,
+                            generator=gen)
+    base = tokens[torch.arange(nq, device=DEVICE)[:, None], pos]
+    noise = torch.randn(base.shape, device=DEVICE, generator=gen) * (
+        0.5 / D ** 0.5)
+    qm = torch.rand((nq, LQ), device=DEVICE, generator=gen) > 0.15
+    qm[:, 0] = True
+    return unit(base + noise), qm
+
+
+def inc_queries(plan, main_tokens, main_pmask, Pt, pmt, gen):
+    """Phase 22's planted queries: main targets from ``main_tokens`` (the
+    stored tokens, dequantized or decoded), added ones from the pages."""
+    t = torch.as_tensor(plan["targets"], device=DEVICE)
+    is_main = t < plan["n_main"]
+    tm, ta = t[is_main], t[~is_main] - plan["n_main"]
+    tok = torch.empty((t.shape[0], LP, D), device=DEVICE)
+    msk = torch.empty((t.shape[0], LP), dtype=torch.bool, device=DEVICE)
+    tok[is_main], msk[is_main] = main_tokens(tm), main_pmask[tm]
+    tok[~is_main], msk[~is_main] = Pt[ta], pmt[ta]
+    return plant(tok, msk, gen)
+
+
+def qps(eng, Q, qm, **kw):
+    """search_dense queries/s of one timed call after a warm one."""
+    eng.search_dense(Q, qm, k=K, **kw)
+    t0 = time.perf_counter()
+    eng.search_dense(Q, qm, k=K, **kw)
+    return Q.shape[0] / (time.perf_counter() - t0)
+
+
+def mutate(eng, plan, parts):
+    """The adds (four calls), the first search (the lazy tail build) and
+    the deletes, each timed on the host clock; returns the times."""
+    t0 = time.perf_counter()
+    for j, (x, m) in enumerate(parts):
+        eng.add(x, m, docids=plan["add_ids"][j * plan["per"]:
+                                             (j + 1) * plan["per"]])
+    t_add = time.perf_counter() - t0
+    check(eng.tail is None and eng.n_docs == plan["n_main"] + INC_ADD
+          - INC_UPSERT, "adds are pending until the next search")
+    q = torch.zeros((1, 8, D), device=DEVICE)
+    q[:, :, 0] = 1.0
+    t0 = time.perf_counter()
+    eng.search_dense(q, torch.ones((1, 8), dtype=torch.bool, device=DEVICE),
+                     k=K)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_del = eng.delete(plan["deleted"])
+    t_del = time.perf_counter() - t0
+    check(n_del == 2 * INC_DELETE and eng.n_docs == len(plan["live"]),
+          f"deleted {n_del}, n_docs {eng.n_docs}")
+    check(eng.tail.n_docs == INC_ADD and eng.tail.n_pad % 64 == 0
+          and eng.tail.pmask.shape[1] == LP, "tail: rows and Lp unified")
+    return {"add_ms": t_add * 1e3, "first_search_s": t_first,
+            "delete_ms": t_del * 1e3}
+
+
+def top_agree(ref_vals, ref_ids, ids, vals, gap, tol):
+    """Whether ``ids``/``vals`` (nq, K) equal the reference's top-(K + 1)
+    ids at every rank of the first K untied by more than ``gap`` and its
+    scores within ``tol``; returns (agree, untied ranks, bit-equal)."""
+    v = np.asarray(ref_vals, np.float64)
+    step = v[:, :-1] - v[:, 1:]
+    above = np.concatenate([np.full((v.shape[0], 1), np.inf), step], 1)
+    untied = (above[:, :K] > gap) & (step[:, :K] > gap)
+    same = np.asarray([a[:K] for a in ref_ids]) == np.asarray(ids)
+    err = float(np.abs(np.asarray(ref_vals)[:, :K] - vals).max())
+    bit = bool(same.all()) and bool(
+        (np.asarray(ref_vals)[:, :K] == vals).all())
+    return bool(same[untied].all()) and err <= tol, int(untied.sum()), bit
+
+
+def inc_gates(label, eng, plan, vals, idx, gate_recall=True):
+    """No deleted doc returned (by row and by id) and, with
+    ``gate_recall``, recall@1 of the live targets 1.0. Returns the ids and
+    recall@1."""
+    ids = eng.ids_for(idx)
+    dead_rows = np.fromiter(plan["dead"], np.int64)
+    check(not np.isin(idx, dead_rows).any(), f"{label}: a deleted row "
+          "was returned")
+    deleted = set(plan["deleted"])
+    check(not deleted & {x for row in ids for x in row},
+          f"{label}: a deleted docid was returned")
+    lq = plan["live_q"]
+    r1 = float(np.mean([ids[q][0] == plan["target_ids"][q] for q in lq]))
+    check(r1 == 1.0 or not gate_recall,
+          f"{label}: recall@1 on the live targets {r1}")
+    return ids, r1
+
+
+def merged_tail_share(eng, Q, qm):
+    """CUDA-event medians of the merged top-k and of its tail scoring
+    alone, on the engine's own operands: (merged ms, tail ms)."""
+    from evdr_tpu_torch.parallel.topk import (_local_scores,
+                                              _single_device_merged_topk)
+
+    Qd, qmd = eng._queries(Q, qm)
+    ix, tl = eng.index, eng.tail
+    alive = eng._alive_mask()
+    m_ms, _, _ = cuda_ms(lambda: _single_device_merged_topk(
+        Qd, qmd, ix.P, ix.pmask, tl.P, tl.pmask, alive, K, eng.impl,
+        ix.n_docs, tl.n_docs, scales_m=ix.scales, scales_t=tl.scales,
+        books=ix.books), 7)
+    t_ms, _, _ = cuda_ms(lambda: _local_scores(
+        Qd, qmd, tl.P, tl.pmask, eng.impl, tl.scales, ix.books), 7)
+    return m_ms, t_ms
+
+
+def inc_engine(label, eng, plan, parts, Q, qm):
+    """One engine of phase 22: q/s before the adds, the mutations, then
+    the merged search with the counts set to 0 just before it (its
+    launches by shape), its q/s, the gates, the tail's share. Returns
+    (report, vals, idx, launches)."""
+    from evdr_tpu_torch.ops import cuda_maxsim as cm
+
+    rep = {"engine": label, "qps_before_add": qps(eng, Q, qm)}
+    rep.update(mutate(eng, plan, parts))
+    cm.reset_launch_counts()
+    vals, idx = eng.search_dense(Q, qm, k=K)
+    torch.cuda.synchronize()
+    launches = [{"func": f, "nq": nq_, "lq": lq_, "nd": nd_, "lp": lp_,
+                 "launches": n} for (w, f, nq_, lq_, nd_, lp_), n in
+                sorted(cm.launch_shapes.items())]
+    check(vals.shape == (Q.shape[0], K) and np.isfinite(vals).all(),
+          f"{label}: merged output shape, finite")
+    check(sorted(x["nd"] for x in launches) == sorted(
+        [eng.index.n_pad, eng.tail.n_pad]), f"{label}: one launch on the "
+        f"main index and one on the tail: {launches}")
+    _, rep["recall_at_1_live"] = inc_gates(label, eng, plan, vals, idx)
+    rep["qps_with_tail"] = qps(eng, Q, qm)
+    m_ms, t_ms = merged_tail_share(eng, Q, qm)
+    rep.update(merged_ms=m_ms, tail_ms=t_ms, tail_share=t_ms / m_ms)
+    return rep, vals, idx, launches
+
+
+def fresh_gate(label, rep, eng, fresh, plan, Q, qm, vals, idx):
+    """The merged top-K against a fresh engine built from the live corpus
+    in the same order: ids equal at every rank untied by more than 1e-6,
+    scores within 1e-5 (bit-equal is logged)."""
+    fv, fi = fresh.search_dense(Q, qm, k=K + 1)
+    ok, n_untied, bit = top_agree(fv, fresh.ids_for(fi), eng.ids_for(idx),
+                                  vals, 1e-6, 1e-5)
+    rep.update(fresh_untied_ranks=n_untied, fresh_bit_equal=bit)
+    check(ok and n_untied > 0, f"{label}: merged top-{K} equals a fresh "
+          "engine's")
+
+
+def compact_and_save(label, eng, Q, qm, vals, idx, work, eager):
+    """compact() (timed) keeps the top-K; save_npz (timed), then
+    from_npz(mmap=True) and, with ``eager``, from_npz() (each timed) give
+    the same top-K as the compacted engine."""
+    from evdr_tpu_torch import RetrievalEngine
+
+    ids0 = eng.ids_for(idx)
+    rep = {}
+    t0 = time.perf_counter()
+    eng.compact()
+    torch.cuda.synchronize()
+    rep["compact_s"] = time.perf_counter() - t0
+    check(eng.tail is None and not eng._tombstones
+          and eng.index.n_docs == eng.n_docs, f"{label}: compacted")
+    v1, i1 = eng.search_dense(Q, qm, k=K + 1)
+    ok, n_untied, bit = top_agree(v1, eng.ids_for(i1), ids0, vals, 1e-6,
+                                  1e-5)
+    rep["compact_bit_equal"] = bit
+    check(ok and n_untied > 0, f"{label}: compact keeps the results")
+    path = work / f"{label.replace('+', '_')}.npz"
+    t0 = time.perf_counter()
+    eng.save_npz(path)
+    rep["save_s"] = time.perf_counter() - t0
+    rep["file_gb"] = path.stat().st_size / 1e9
+    kw = dict(dtype=eng.dtype, pq_m=eng.pq_m,
+              quantize_queries=eng.impl.endswith("_q8"))
+    for mmap in (True, False) if eager else (True,):
+        t0 = time.perf_counter()
+        e2 = RetrievalEngine.from_npz(path, mmap=mmap, **kw)
+        torch.cuda.synchronize()
+        rep["load_mmap_s" if mmap else "load_eager_s"] = (
+            time.perf_counter() - t0)
+        v2, i2 = e2.search_dense(Q, qm, k=K)
+        same = e2.ids_for(i2) == eng.ids_for(i1[:, :K]) and bool(
+            (v2 == v1[:, :K]).all())
+        check(same and e2.n_docs == eng.n_docs, f"{label}: from_npz("
+              f"mmap={mmap}) of the saved file gives the same top-{K}")
+        del e2
+    path.unlink()
+    return rep
+
+
+def inc_int8(gen, plan, parts, Pt, pmt, work):
+    """Phase 22's int8 engines (K2 full and K2) over INC_DOCS pages built
+    from codes, sharing one index; each takes the mutations."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    codes, scales, pm = make_int8_pages(INC_DOCS, gen, quantize_tokens_int8)
+    eq = RetrievalEngine(dtype="int8", quantize_queries=True,
+                         normalize=False).build_from_codes(
+        codes, scales, pm, docids=plan["main_ids"])
+    del codes, scales
+    ix = eq.index
+    ei = RetrievalEngine.from_index(ix.P, ix.pmask, ix.n_docs,
+                                    scales=ix.scales, docids=ix.docids,
+                                    dtype="int8", normalize=False)
+    Q, qm = inc_queries(plan, lambda t: ix.P[t].float()
+                        * ix.scales[t][..., None], ix.pmask, Pt, pmt, gen)
+    out = {}
+    for label, eng in (("int8+quantize_queries", eq), ("int8", ei)):
+        out[label] = inc_engine(label, eng, plan, parts, Q, qm)
+    keep = torch.as_tensor([i for i in plan["live"] if i < INC_DOCS],
+                           device=DEVICE)
+    keep_t = torch.as_tensor([i - INC_DOCS for i in plan["live"]
+                              if i >= INC_DOCS], device=DEVICE)
+    tc, ts = quantize_tokens_int8(Pt, pmt)
+    check(torch.equal(tc[:INC_ADD], ei.tail.P[:INC_ADD]),
+          "int8 tail codes: those of the added pages")
+    fq = RetrievalEngine(dtype="int8", quantize_queries=True,
+                         normalize=False).build_from_codes(
+        torch.cat([ix.P[keep], tc[keep_t]]),
+        torch.cat([ix.scales[keep], ts[keep_t]]),
+        torch.cat([ix.pmask[keep], pmt[keep_t]]), docids=plan["live_ids"])
+    fi = RetrievalEngine.from_index(
+        fq.index.P, fq.index.pmask, fq.index.n_docs, scales=fq.index.scales,
+        docids=fq.index.docids, dtype="int8", normalize=False)
+    del tc, ts
+    for label, eng, fresh in (("int8+quantize_queries", eq, fq),
+                              ("int8", ei, fi)):
+        rep, vals, idx, _ = out[label]
+        fresh_gate(label, rep, eng, fresh, plan, Q, qm, vals, idx)
+    del fq, fi
+    torch.cuda.empty_cache()
+    rep, vals, idx, _ = out["int8"]
+    rep.update(compact_and_save("int8", ei, Q, qm, vals, idx, work,
+                                "int8" in INC_EAGER))
+    del eq, ei, ix
+    torch.cuda.empty_cache()
+    return out
+
+
+def inc_bf16_int4(cm, gen, plan_bf, plan, parts, Pt, pmt, work):
+    """Phase 22's bf16 engine (K1, INC_BF16_DOCS pages through build) and
+    int4 engine (K4, INC_DOCS pages from packed codes), each against a
+    fresh build of its live corpus."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+
+    out = {}
+    Pf, pmf = make_pages(INC_BF16_DOCS, gen)
+    eb = RetrievalEngine(dtype="bfloat16", normalize=False).build(
+        Pf, pmf, docids=plan_bf["main_ids"])
+    del Pf
+    bx = eb.index
+    Q, qm = inc_queries(plan_bf, lambda t: bx.P[t].float(), bx.pmask, Pt,
+                        pmt, gen)
+    rep, vals, idx, launches = inc_engine("bfloat16", eb, plan_bf, parts,
+                                          Q, qm)
+    n = INC_BF16_DOCS
+    keep = torch.as_tensor([i for i in plan_bf["live"] if i < n],
+                           device=DEVICE)
+    keep_t = torch.as_tensor([i - n for i in plan_bf["live"] if i >= n],
+                             device=DEVICE)
+    fresh = RetrievalEngine(dtype="bfloat16", normalize=False).build(
+        torch.cat([bx.P[keep].float(), Pt[keep_t]]),
+        torch.cat([bx.pmask[keep], pmt[keep_t]]), docids=plan_bf["live_ids"])
+    fresh_gate("bfloat16", rep, eb, fresh, plan_bf, Q, qm, vals, idx)
+    del fresh
+    rep.update(compact_and_save("bfloat16", eb, Q, qm, vals, idx, work,
+                                "bfloat16" in INC_EAGER))
+    out["bfloat16"] = (rep, vals, idx, launches)
+    del eb, bx
+    torch.cuda.empty_cache()
+
+    packed, sc, pm4 = make_int8_pages(INC_DOCS, gen, quantize_tokens_int4,
+                                      rows=(LP + 1) // 2, dtype=torch.uint8)
+    e4 = RetrievalEngine(dtype="int4", normalize=False).build_from_codes4(
+        packed, sc, pm4, docids=plan["main_ids"])
+    del packed, sc
+    ix = e4.index
+    Q, qm = inc_queries(plan, lambda t: cm.unpack_int4_torch(
+        ix.P[t], LP).float() * ix.scales[t][..., None], ix.pmask, Pt, pmt,
+        gen)
+    rep, vals, idx, launches = inc_engine("int4", e4, plan, parts, Q, qm)
+    keep = torch.as_tensor([i for i in plan["live"] if i < INC_DOCS],
+                           device=DEVICE)
+    keep_t = torch.as_tensor([i - INC_DOCS for i in plan["live"]
+                              if i >= INC_DOCS], device=DEVICE)
+    tc, ts = quantize_tokens_int4(Pt, pmt)
+    fresh = RetrievalEngine(dtype="int4", normalize=False).build_from_codes4(
+        torch.cat([ix.P[keep], tc[keep_t]]),
+        torch.cat([ix.scales[keep], ts[keep_t]]),
+        torch.cat([ix.pmask[keep], pmt[keep_t]]), docids=plan["live_ids"])
+    del tc, ts
+    fresh_gate("int4", rep, e4, fresh, plan, Q, qm, vals, idx)
+    del fresh
+    rep.update(compact_and_save("int4", e4, Q, qm, vals, idx, work,
+                                "int4" in INC_EAGER))
+    out["int4"] = (rep, vals, idx, launches)
+    del e4, ix
+    torch.cuda.empty_cache()
+    return out
+
+
+def inc_pq(cm, gen, seed, plan, parts, Pt, pmt, work):
+    """Phase 22's pq engine (K3, compact books, M = PQ_M) over INC_DOCS
+    pages: books from a token sample, codes encoded on the device; the
+    merged top-K held to the plain version on the stored main and tail
+    codes (64 queries): ids at every rank untied by more than 2e-2,
+    scores within 2e-2 (the tolerance of phase 13)."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.pq import encode_pq_device, train_pq
+    from evdr_tpu_torch.parallel.topk import _select_topk
+
+    Pc, pmc = make_pages(min(1_000, INC_DOCS), gen)
+    books = train_pq(Pc, pmc, m=PQ_M, sample=PQ_SAMPLE, seed=seed)
+    codes = torch.empty((INC_DOCS, LP, PQ_M), dtype=torch.uint8,
+                        device=DEVICE)
+    pmq = torch.empty((INC_DOCS, LP), dtype=torch.bool, device=DEVICE)
+    for i in range(0, INC_DOCS, 1_000):
+        if i:
+            Pc, pmc = make_pages(min(1_000, INC_DOCS - i), gen)
+        codes[i:i + Pc.shape[0]] = encode_pq_device(Pc, books, pmc)
+        pmq[i:i + Pc.shape[0]] = pmc
+    del Pc, pmc
+    eng = RetrievalEngine(dtype="pq", normalize=False).build_from_pq(
+        codes, books, pmq, docids=plan["main_ids"])
+    del codes
+    ix = eng.index
+    Q, qm = inc_queries(plan, lambda t: pq_tokens(ix.P[t], ix.books),
+                        ix.pmask, Pt, pmt, gen)
+    rep, vals, idx, launches = inc_engine("pq", eng, plan, parts, Q, qm)
+    nq = 64
+    tl = eng.tail
+    sc = torch.cat([
+        cm.maxsim_pq_plain(Q[:nq], ix.P, qm[:nq], ix.pmask,
+                           ix.books)[:, :ix.n_docs],
+        cm.maxsim_pq_plain(Q[:nq], tl.P, qm[:nq], tl.pmask,
+                           tl.books)[:, :tl.n_docs]], dim=1)
+    sc = sc.masked_fill(~eng._alive_mask()[None, :], -torch.inf)
+    pv, pi = _select_topk(sc, K + 1)
+    ok, n_untied, _ = top_agree(pv.cpu().numpy(), eng.ids_for(pi.cpu()),
+                                eng.ids_for(idx[:nq]), vals[:nq], 2e-2,
+                                2e-2)
+    rep["plain_untied_ranks"] = n_untied
+    check(ok and n_untied > 0, "pq: merged top-K against the plain version "
+          "on main + tail")
+    rep.update(compact_and_save("pq", eng, Q, qm, vals, idx, work,
+                                "pq" in INC_EAGER))
+    del eng, ix, tl
+    torch.cuda.empty_cache()
+    return {"pq": (rep, vals, idx, launches)}
+
+
+def inc_pruned(gen, parts, Pt, pmt, work):
+    """Phase 22's pruned int8 engine (prune_centroids = PRUNE_K) on
+    INC_PRUNE_DOCS float pages, with the mutations: at INC_PRUNE_CANDS
+    candidates and at n_candidates = n_docs no deleted doc returned, and
+    at n_docs its top-K equals its exact merged search at every rank
+    untied by more than 5e-2 (stage 2 reranks main candidates in f32, the
+    tail is scored by the kernel); then compact rebuilds the summaries,
+    and the server takes over the compacted engine (http_incremental)."""
+    from evdr_tpu_torch import RetrievalEngine
+
+    plan = inc_plan(INC_PRUNE_DOCS)
+    P, pm = make_pages(INC_PRUNE_DOCS, gen)
+    eng = RetrievalEngine(dtype="int8", prune_centroids=PRUNE_K,
+                          normalize=False).build(P, pm,
+                                                 docids=plan["main_ids"])
+    Q, qm = inc_queries(plan, lambda t: P[t], pm, Pt, pmt, gen)
+    rep = {"engine": "int8 pruned", **mutate(eng, plan, parts)}
+    n = eng.n_docs
+    for nc in (INC_PRUNE_CANDS, n):
+        t0 = time.perf_counter()
+        vals, idx = eng.search_dense(Q, qm, k=K, n_candidates=nc)
+        rep[f"s_at_{nc}"] = time.perf_counter() - t0
+        check(idx.shape == (Q.shape[0], K), "pruned output shape")
+        # random pages have no clusters for the summaries to find: the
+        # recall at INC_PRUNE_CANDS is reported, at full cover gated
+        _, rep[f"recall_at_1_live_{nc}"] = inc_gates(
+            f"pruned at {nc}", eng, plan, vals, idx, gate_recall=nc == n)
+    ve, ie = eng.search_dense(Q, qm, k=K + 1)
+    ok, n_untied = untied_agreement(ve, ie, idx, 5e-2)
+    rep["full_cover_untied_ranks"] = n_untied
+    check(ok and n_untied > 0, "pruned at full cover equals the exact "
+          "merged search")
+    old = eng.summary
+    t0 = time.perf_counter()
+    eng.compact()
+    rep["compact_s"] = time.perf_counter() - t0
+    check(eng.summary is not old and eng.summary.n_docs == n,
+          "pruned compact rebuilt the summaries")
+    v2, i2 = eng.search_dense(Q, qm, k=K, n_candidates=n)
+    ids = eng.ids_for(i2)
+    r1 = float(np.mean([ids[q][0] == plan["target_ids"][q]
+                        for q in plan["live_q"]]))
+    rep["recall_at_1_live_after_compact"] = r1
+    check(r1 == 1.0 and not set(plan["deleted"]) & {
+        x for row in ids for x in row}, "pruned after compact")
+    http_incremental(eng, Q, qm, work)
+    return rep
+
+
+def http_incremental(eng, Q, qm, work):
+    """tools/serve_http with --save_dir over ``eng``: POST /add of a page
+    (a query on it finds it at rank 1), /delete of the top doc of a query
+    (gone from its results), /save (the file reloads with the same
+    top-K)."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.tools.serve_http import make_server
+
+    srv = make_server(eng, port=0, save_dir=str(work))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def post(path, obj):
+        req = urllib.request.Request(url + path, data=json.dumps(
+            obj).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        n0 = eng.n_docs
+        page = unit(torch.randn((64, D), device=DEVICE)).cpu().numpy()
+        added = post("/add", {"documents": [page.tolist()],
+                              "docids": ["http-page"]})
+        q = [page[:LQ].tolist()]
+        hit = post("/search", {"queries": q, "k": K})["docids"][0][0]
+        top = post("/search", {"queries": [Q[0][qm[0]].cpu().numpy(
+            ).tolist()], "k": K})["docids"][0]
+        deleted = post("/delete", {"docids": [top[0]]})
+        after = post("/search", {"queries": [Q[0][qm[0]].cpu().numpy(
+            ).tolist()], "k": K})["docids"][0]
+        saved = post("/save", {"path": "http.npz"})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    e2 = RetrievalEngine.from_npz(work / "http.npz", dtype=eng.dtype,
+                                  mmap=True)
+    v1, i1 = eng.search_dense(Q, qm, k=K)
+    v2, i2 = e2.search_dense(Q, qm, k=K)
+    same = e2.ids_for(i2) == eng.ids_for(i1) and bool((v1 == v2).all())
+    log(f"phase 22 serve_http --save_dir: /add {added}, /search of the "
+        f"added page rank 1 {hit!r}, /delete of {top[0]!r} {deleted}, gone "
+        f"from its results: {top[0] not in after}, /save {saved}; reloaded "
+        f"top-{K} equal: {same}")
+    check(added == {"added": 1, "n_docs": n0 + 1} and hit == "http-page"
+          and deleted == {"deleted": 1, "n_docs": n0}
+          and top[0] not in after and saved["n_docs"] == n0 and same,
+          "serve_http add/delete/search/save")
+    (work / "http.npz").unlink()
+    del e2
+
+
+def rss_tool(root):
+    """scripts/torch_measure_rss.py on RSS_DOCS int8 pages: eager and
+    memory-mapped loads, each in its own process on the card."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(root / "scripts" / "torch_measure_rss.py"),
+         "--n_docs", str(RSS_DOCS), "--lp", str(LP), "--dim", str(D),
+         "--device", DEVICE], cwd=str(root), capture_output=True,
+        text=True, timeout=600)
+    check(out.returncode == 0, f"torch_measure_rss.py failed: "
+          f"{out.stderr[-2000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    rep["wall_s"] = time.perf_counter() - t0
+    return rep
+
+
+def check_rss(rep):
+    """The mmap load streams: its peak anonymous RSS stays within a few
+    stream chunks of its baseline (a whole anonymous copy of the file
+    would exceed that many times over), measured on pages the tool could
+    tell from mapped file pages."""
+    from evdr_tpu_torch.parallel.sharded_index import STREAM_CHUNK_BYTES
+
+    e, m = rep["eager"], rep["mmap"]
+    bound = 4 * STREAM_CHUNK_BYTES / 1e6 + 256.0
+    check(bound < rep["file_mb"] / 4, f"RSS file too small for the mmap "
+          f"bound: {rep['file_mb']:.1f} MB against {bound:.1f} MB")
+    check(e["rss_source"] == m["rss_source"] and m["rss_source"] in (
+        "status", "smaps"), f"RSS source {m['rss_source']!r}")
+    check(m["peak_anon_above_baseline_mb"] < bound
+          and m["n_docs"] == e["n_docs"] == RSS_DOCS,
+          f"mmap load's anonymous peak "
+          f"+{m['peak_anon_above_baseline_mb']:.1f} MB under the "
+          f"{bound:.1f} MB bound (4 stream chunks + 256 MB)")
+
+
+def incremental_phase(cm, gen, seed, smi, root):
+    """Phase 22: incremental serving at the serving shape. Returns the
+    reports and the merged searches' launches by kernels-line entry."""
+    t0 = time.perf_counter()
+    work = root / "build" / "chip_smoke_incremental"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    plan = inc_plan(INC_DOCS)
+    parts, Pt, pmt = added_pages(gen)
+    try:
+        engines = inc_int8(gen, plan, parts, Pt, pmt, work)
+        engines.update(inc_bf16_int4(cm, gen, inc_plan(INC_BF16_DOCS), plan,
+                                     parts, Pt, pmt, work))
+        engines.update(inc_pq(cm, gen, seed, plan, parts, Pt, pmt, work))
+        pruned_rep = inc_pruned(gen, parts, Pt, pmt, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label, (rep, _, _, launches) in engines.items():
+        log(f"phase 22 {label}: search_dense {rep['qps_before_add']:.1f} q/s "
+            f"before add, {rep['qps_with_tail']:.1f} with the tail and "
+            f"tombstones; 4 adds {rep['add_ms']:.1f} ms, first search "
+            f"after them (the tail build) {rep['first_search_s']:.3f} s, "
+            f"delete of {2 * INC_DELETE} {rep['delete_ms']:.1f} ms; merged "
+            f"top-k {rep['merged_ms']:.3f} ms, of it the tail's scores "
+            f"{rep['tail_ms']:.3f} ms ({rep['tail_share']:.1%}); recall@1 "
+            f"on the live targets {rep['recall_at_1_live']:.4f}; launches "
+            f"{launches}; {smi}")
+        extra = {k: v for k, v in rep.items() if k.startswith(
+            ("fresh", "plain", "compact", "save", "load", "file"))}
+        log(f"phase 22 {label} gates and maintenance: {extra}")
+    log(f"phase 22 pruned: {pruned_rep}")
+    rss = rss_tool(root)
+    log(f"phase 22 host memory ({RSS_DOCS} int8 pages, "
+        f"{rss['file_mb']:.1f} MB file): eager peak RssAnon "
+        f"+{rss['eager']['peak_anon_above_baseline_mb']:.1f} MB, RssFile "
+        f"+{rss['eager']['peak_file_above_baseline_mb']:.1f} MB, ru_maxrss "
+        f"{rss['eager']['ru_maxrss_mb']:.1f} MB, load "
+        f"{rss['eager']['load_s']:.2f} s; mmap peak RssAnon "
+        f"+{rss['mmap']['peak_anon_above_baseline_mb']:.1f} MB, RssFile "
+        f"+{rss['mmap']['peak_file_above_baseline_mb']:.1f} MB, ru_maxrss "
+        f"{rss['mmap']['ru_maxrss_mb']:.1f} MB, load "
+        f"{rss['mmap']['load_s']:.2f} s (above each process's baseline "
+        f"with its CUDA context up; from /proc/self/"
+        f"{rss['mmap']['rss_source']}); {smi}")
+    check_rss(rss)
+    reports = [rep for rep, _, _, _ in engines.values()]
+    reports += [pruned_rep, {"rss": rss}]
+    by_entry = {"int8+quantize_queries": "maxsim_int8full",
+                "int8": "maxsim_int8", "bfloat16": "maxsim_bf16",
+                "int4": "maxsim_int4", "pq": "maxsim_pq"}
+    launches = {by_entry[k]: v[3] for k, v in engines.items()}
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return reports, launches
+
+
 # ------------------------------------------------- training, the rest (18)
 
 
@@ -2670,7 +3324,24 @@ def main(argv=None) -> int:
                           ("maxsim_cuda_int4", "evdr_maxsim_int4")},
           f"stage 1 ran K1, K2 (both modes) and K4 at Lp {PRUNE_K}: "
           f"{sorted(stage1)}")
-    log(f"phases 1-21: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 22. incremental serving; the merged searches' launches join the
+    # entries of the kernels they ran
+    reports, inc_launches = incremental_phase(cm, gen, args.seed, smi,
+                                              Path(root))
+    log("phase 22 report: " + json.dumps(reports))
+    for kname, shapes in inc_launches.items():
+        entry = next(k for k in kernels if k["name"] == kname)
+        entry["incremental_launches"] = shapes
+        check(sum(x["launches"] for x in shapes) >= 2,
+              f"{kname} ran on the merged main + tail path")
+    check(set(inc_launches) == {"maxsim_bf16", "maxsim_int8",
+                                "maxsim_int8full", "maxsim_int4",
+                                "maxsim_pq"},
+          f"phase 22 ran K1, K2 (both modes), K4 and K3: "
+          f"{sorted(inc_launches)}")
+    log(f"phases 1-22: {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     n_k = 15 + 16

@@ -65,7 +65,10 @@ def quantize_tokens_int4(P, pmask=None) -> Tuple:
 def _quantize_tokens_int4_torch(P: torch.Tensor, pmask=None):
     P = P.float()
     n, lp, d = P.shape
-    scale = P.abs().amax(dim=-1) / 7.0
+    # divide by a tensor: CUDA divides by a Python scalar as a product
+    # with its reciprocal, up to 1 ulp off the host quantizer's scales
+    amax = P.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 7.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.round(P / safe[..., None]).clamp_(-7, 7).to(torch.int8)
     keep = scale > 0

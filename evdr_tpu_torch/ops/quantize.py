@@ -41,7 +41,10 @@ def quantize_tokens_int8(P, pmask=None) -> Tuple:
 
 def _quantize_tokens_int8_torch(P: torch.Tensor, pmask=None):
     P = P.float()
-    scale = P.abs().amax(dim=-1) / 127.0
+    # divide by a tensor: CUDA divides by a Python scalar as a product
+    # with its reciprocal, up to 1 ulp off the host quantizer's scales
+    amax = P.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     codes = torch.round(P / safe[..., None]).clamp_(-127, 127).to(torch.int8)
     keep = scale > 0

@@ -4,6 +4,13 @@ Counterpart of ``evdr_tpu/parallel/sharded_index.py`` for one device: the
 doc axis is padded to a multiple of ``pad_docs_to`` (padded docs are fully
 masked, so they score 0, and the valid count is tracked so top-k drops
 them). Sharding the index over several GPUs is a later slice of the port.
+
+``streaming=True`` builds (``build_sharded_index``) copy a host array, such
+as a read-only ``np.memmap`` of a packed file, into device tensors
+allocated once at the padded size, a bounded chunk of rows at a time
+(int8 quantized chunk by chunk), so a GB-scale file never lands whole in
+anonymous host memory. ``as_tensor`` takes the same route for any
+read-only array.
 """
 
 from __future__ import annotations
@@ -50,17 +57,55 @@ class ShardedIndex:
         return int(self.P.shape[0])
 
 
+# rows a streamed copy moves at a time: about this many host bytes
+STREAM_CHUNK_BYTES = 64 << 20
+
+
+def _host_tensor(x: np.ndarray) -> torch.Tensor:
+    """A writable host array -> a CPU tensor sharing its memory (ml_dtypes
+    bf16 reinterpreted from its bits)."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _row_chunks(x):
+    """(start, end) row ranges of ``x`` of about STREAM_CHUNK_BYTES each."""
+    n = int(x.shape[0])
+    row = max(1, int(np.prod(x.shape[1:], dtype=np.int64)) * x.itemsize)
+    step = max(1, STREAM_CHUNK_BYTES // row)
+    return [(s, min(n, s + step)) for s in range(0, n, step)]
+
+
+def stream_rows(x, device, dtype=None, n_pad=None) -> torch.Tensor:
+    """Host array (e.g. a read-only ``np.memmap``) -> a new tensor of
+    ``n_pad`` rows (default: ``x``'s; the rest zero) on ``device``, filled
+    a bounded chunk of rows at a time: host memory holds one chunk, never
+    a copy of the whole array."""
+    n = int(x.shape[0])
+    n_pad = n if n_pad is None else int(n_pad)
+    if dtype is None:
+        dtype = _host_tensor(np.zeros((0,) + tuple(x.shape[1:]),
+                                      x.dtype)).dtype
+    out = torch.zeros((n_pad,) + tuple(x.shape[1:]), dtype=dtype,
+                      device=device)
+    for s, e in _row_chunks(x):
+        out[s:e].copy_(_host_tensor(np.array(x[s:e])))
+    return out
+
+
 def as_tensor(x, device, dtype=None) -> torch.Tensor:
     """numpy array or tensor -> tensor on ``device``; a tensor already there
-    with the right dtype is returned as is (no copy)."""
+    with the right dtype is returned as is (no copy). A read-only array (a
+    memory-mapped file, a view of a JAX array) is copied a chunk of rows at
+    a time (:func:`stream_rows`), not whole."""
     if not isinstance(x, torch.Tensor):
         x = np.ascontiguousarray(x)
-        if not x.flags.writeable:  # e.g. a view of a JAX array
-            x = x.copy()
-        if x.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
-            x = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
-        else:
-            x = torch.from_numpy(x)
+        if not x.flags.writeable:
+            if x.ndim == 0:
+                return as_tensor(x.copy(), device, dtype)
+            return stream_rows(x, device, dtype)
+        x = _host_tensor(x)
     return x.to(device=device, dtype=dtype)
 
 
@@ -73,8 +118,50 @@ def _pad_docs(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     return out
 
 
+def _stream_quantized_int8(P, pmask, device, n_pad: int):
+    """int8 codes + scales of host float tokens, quantized a bounded chunk
+    of rows at a time (per-token scales make the chunking exact) into
+    tensors allocated once at ``n_pad`` rows."""
+    n, lp, d = (int(s) for s in P.shape)
+    codes = torch.zeros((n_pad, lp, d), dtype=torch.int8, device=device)
+    scales = torch.zeros((n_pad, lp), dtype=torch.float32, device=device)
+    for s, e in _row_chunks(P):
+        c, sc = quantize_tokens_int8(np.asarray(P[s:e], np.float32),
+                                     np.asarray(pmask[s:e], bool))
+        codes[s:e].copy_(torch.from_numpy(c))
+        scales[s:e].copy_(torch.from_numpy(sc))
+    return codes, scales
+
+
+def _build_streamed(P, pmask, device, dtype, n_pad, scales, docids):
+    """``build_sharded_index(..., streaming=True)``: every array streams
+    from the host straight into its padded device tensor."""
+    n = int(P.shape[0])
+    if dtype == "int8" and scales is None:
+        P_d, scales_d = _stream_quantized_int8(P, pmask, device, n_pad)
+    elif dtype == "int4" and scales is None:
+        # quantize-on-stream is not implemented (as in the JAX package):
+        # pack the file (tools/convert_packed.py --dtype int4) instead
+        raise ValueError("streaming int4 builds need pre-packed codes "
+                         "+ scales (convert_packed --dtype int4)")
+    else:
+        if dtype in _QUANTIZERS:
+            code_dtype = _QUANTIZERS[dtype][1]
+        elif dtype is None and np.dtype(P.dtype) == np.uint8:
+            code_dtype = torch.uint8
+        else:
+            code_dtype = _FLOAT_DTYPES[dtype]
+        P_d = stream_rows(P, device, code_dtype, n_pad)
+        scales_d = (None if scales is None
+                    else stream_rows(scales, device, torch.float32, n_pad))
+    return ShardedIndex(P=P_d,
+                        pmask=stream_rows(pmask, device, torch.bool, n_pad),
+                        n_docs=n, docids=docids, scales=scales_d)
+
+
 def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
-                        scales=None, docids=None) -> ShardedIndex:
+                        scales=None, docids=None,
+                        streaming: bool = False) -> ShardedIndex:
     """Place an index on ``device``.
 
     ``dtype`` stores it narrower: 'bfloat16' casts (round to nearest even),
@@ -84,6 +171,11 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
     --normalize). ``P`` may be a numpy array or a tensor on any device;
     quantization runs where ``P`` lies. ``dtype=None`` keeps uint8 PQ codes
     as they are (``RetrievalEngine.build_from_pq`` adds the books).
+
+    ``streaming=True`` (host arrays, e.g. memory-mapped packed files)
+    allocates each device tensor once at the padded size and copies a
+    bounded chunk of rows at a time into it, quantizing int8 chunk by
+    chunk; an int4 build must then be given its packed codes + scales.
     """
     if dtype not in (None, "float32", "bfloat16", "int8", "int4"):
         raise ValueError(f"unsupported index dtype {dtype!r}")
@@ -91,6 +183,9 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
     n = int(P.shape[0])
     quantum = max(1, int(pad_docs_to))
     n_pad = ((n + quantum - 1) // quantum) * quantum
+    if streaming:
+        return _build_streamed(P, pmask, device, dtype, n_pad, scales,
+                               docids)
     if dtype in _QUANTIZERS:
         quantize, code_dtype = _QUANTIZERS[dtype]
         if scales is None:

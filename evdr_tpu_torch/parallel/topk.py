@@ -5,9 +5,11 @@ Counterpart of the single-device half of ``evdr_tpu/parallel/topk.py``:
 index (uint8 codes + scales) to K4, an int8 index to K2 and a float index
 to K1, in the reference's order; '*_q8' engines take each kernel's 'full'
 mode (queries quantized to int8 on the device). ``_single_device_topk``
-masks padding columns and selects top-k. The wrappers run their plain
-versions when the index lies on the CPU. Multi-GPU sharded top-k is a
-later slice.
+masks padding columns and selects top-k;
+``_single_device_merged_topk`` does the same over a main index and an
+incremental tail, with deleted docs masked by a device-side alive mask.
+The wrappers run their plain versions when the index lies on the CPU.
+Multi-GPU sharded top-k is a later slice.
 """
 
 from __future__ import annotations
@@ -61,6 +63,26 @@ def _single_device_topk(Q, qmask, P, pmask, k: int, impl: str, scales=None,
     if limit < nd:
         sc[:, limit:] = -torch.inf
     return _select_topk(sc, k)
+
+
+def _single_device_merged_topk(Q, qmask, P_m, pm_m, P_t, pm_t, alive, k: int,
+                               impl: str, n_main: int, n_tail: int,
+                               scales_m=None, scales_t=None, books=None):
+    """Incremental-serving top-k: score the main index and the tail index
+    (``P_t`` None: no tail), drop their padding columns, set every column
+    whose ``alive`` entry (a (n_main + n_tail) bool tensor on the device)
+    is False to -inf, and select top-k over the concatenation. The stable
+    sort keeps ``lax.top_k``'s order, so among equal scores a main doc
+    comes before a tail doc. ``books`` (a PQ index) serve both parts: the
+    tail is encoded against the main index's books."""
+    parts = [_local_scores(Q, qmask, P_m, pm_m, impl, scales_m,
+                           books)[:, :n_main]]
+    if P_t is not None:
+        parts.append(_local_scores(Q, qmask, P_t, pm_t, impl, scales_t,
+                                   books)[:, :n_tail])
+    sc = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    sc = sc.masked_fill(~alive[None, :], -torch.inf)
+    return _select_topk(sc, min(k, n_main + n_tail))
 
 
 def sharded_maxsim(Q, qmask, index: ShardedIndex, impl: str) -> torch.Tensor:

@@ -110,7 +110,38 @@ def convert_payload_to_packed(payload: dict, length_multiple: int = 1,
     return out
 
 
-def load_packed_payload(npz_path) -> dict:
+def _npz_member_memmap(npz_path, name: str) -> np.ndarray:
+    """Read-only np.memmap view of one STORED member of an (uncompressed)
+    npz. ``np.savez`` writes members with ZIP_STORED, so the raw .npy bytes
+    sit contiguously in the outer file: the zip local header and the npy
+    header give the data offset, and the data is mapped directly (pages
+    come from the OS cache, not from a copy in anonymous memory)."""
+    import zipfile
+
+    member = name if name.endswith(".npy") else name + ".npy"
+    with zipfile.ZipFile(str(npz_path)) as zf:
+        info = zf.getinfo(member)
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise ValueError(
+                f"{npz_path}:{member} is compressed; mmap needs np.savez "
+                "(uncompressed), not savez_compressed")
+        with zf.open(info) as m:
+            version = np.lib.format.read_magic(m)
+            if version == (1, 0):
+                shape, fortran, dtype = np.lib.format.read_array_header_1_0(m)
+            else:
+                shape, fortran, dtype = np.lib.format.read_array_header_2_0(m)
+            npy_header = m.tell()
+    with open(str(npz_path), "rb") as f:
+        f.seek(info.header_offset + 26)
+        nlen = int.from_bytes(f.read(2), "little")
+        elen = int.from_bytes(f.read(2), "little")
+    data_off = info.header_offset + 30 + nlen + elen + npy_header
+    return np.memmap(str(npz_path), dtype=dtype, mode="r", offset=data_off,
+                     shape=shape, order="F" if fortran else "C")
+
+
+def load_packed_payload(npz_path, mmap_docs: bool = False) -> dict:
     """Packed npz -> a payload-like dict with DENSE arrays.
 
     Returns keys: P_pad/pmask, Q_norm/qmask (dense, pre-normalized), plus the
@@ -119,25 +150,37 @@ def load_packed_payload(npz_path) -> dict:
     decoded to ``P_pad``, while the raw codes (``P_codes``, ``P_codes4`` and
     ``P_scale``, ``P_pq_codes`` and ``P_pq_books``) ride along for engines
     that consume codes directly.
+
+    ``mmap_docs=True`` returns the doc-axis arrays (``P_pad``, ``P_codes``,
+    ``P_codes4``, ``P_scale``, ``pmask``, ``P_pq_codes``) as read-only
+    np.memmap views and dequantizes or decodes nothing: an engine streams
+    them to the device (``build_sharded_index(streaming=True)``). A
+    bf16-stored file still materializes its upcast ``P_pad``.
     """
+    mmap_keys = ({"P_pad", "P_codes", "P_codes4", "P_scale", "pmask",
+                  "P_pq_codes"} if mmap_docs else set())
     out = {}
     with np.load(str(npz_path)) as z:  # no allow_pickle needed
         for k in z.files:
             if not k.endswith("_json"):
-                out[k] = z[k]
+                out[k] = (_npz_member_memmap(npz_path, k) if k in mmap_keys
+                          else z[k])
         decoded_json = {k: str(z[k]) for k in z.files if k.endswith("_json")}
     if "P_pad" in out and out["P_pad"].dtype != np.float32:
         out["P_pad"] = out["P_pad"].astype(np.float32)
     if "P_pad_bf16" in out:
         out["P_pad"] = bf16_bits_to_float32(out.pop("P_pad_bf16"))
-    if "P_codes" in out and "P_pad" not in out:
-        out["P_pad"] = dequantize_int8(out["P_codes"], out["P_scale"])
-    if "P_codes4" in out and "P_pad" not in out:
-        out["P_pad"] = dequantize_int4(out["P_codes4"], out["P_scale"])
-    if "P_pq_codes" in out and "P_pad" not in out:
-        out["P_pad"] = decode_pq(out["P_pq_codes"], out["P_pq_books"],
-                                 expanded=bool(out.get("P_pq_expanded",
-                                                       False)))
+    if not mmap_docs:
+        # mmap mode leaves codes as they are: a dequantize or decode would
+        # materialize the whole f32 tensor, the copy mmap exists to avoid
+        if "P_codes" in out and "P_pad" not in out:
+            out["P_pad"] = dequantize_int8(out["P_codes"], out["P_scale"])
+        if "P_codes4" in out and "P_pad" not in out:
+            out["P_pad"] = dequantize_int4(out["P_codes4"], out["P_scale"])
+        if "P_pq_codes" in out and "P_pad" not in out:
+            out["P_pad"] = decode_pq(out["P_pq_codes"], out["P_pq_books"],
+                                     expanded=bool(out.get("P_pq_expanded",
+                                                           False)))
     for key in ("relevant_docs", "docidx_2_docid"):
         jk = f"{key}_json"
         if jk in decoded_json:

@@ -11,6 +11,7 @@ many small ones.
     python -m evdr_tpu_torch.tools.serve_http --index features/dump_all.npz \
         --port 8080 [--dtype int8|int4|pq [--quantize_queries]] [--device cpu]
         [--prune_centroids 4 --n_candidates 512 [--summary_dtype int8]]
+        [--save_dir snapshots/]
 
 API:
 - ``GET /healthz`` -> ``{"status": "ok", "n_docs": N, "impl": ..., ...}``
@@ -22,8 +23,17 @@ API:
      "n_candidates": 512                        (optional, pruned engines)}``
   -> ``{"docids": [[...] per query], "scores": [[...] per query],
         "latency_ms_per_query": ...}``
-- ``POST /add``, ``/delete``, ``/save`` answer 501 while the engine lacks
-  incremental updates (a later slice of the port).
+- ``POST /add`` ``{"documents": [[[...] per token] per doc], "docids":
+  [...] (optional), "attnmask": ... (optional)}`` -> ``{"added": n,
+  "n_docs": N}`` (engine.add_ragged: a tail index merged into every
+  search; an existing docid is replaced)
+- ``POST /delete`` ``{"docids": [...]}`` -> ``{"deleted": n, "n_docs": N}``
+- ``POST /save`` ``{"path": "name.npz"}`` -> ``{"saved": path, "n_docs":
+  N}``: the current corpus as a packed npz, only as a ``*.npz`` file
+  directly under ``--save_dir`` (403 without the flag, 400 for any other
+  path)
+
+``n_docs`` counts live docs (main + added - deleted).
 """
 
 from __future__ import annotations
@@ -558,6 +568,9 @@ def main(argv=None) -> None:
                         "previous dispatch was in flight)")
     p.add_argument("--max_batch", type=int, default=64,
                    help="max requests coalesced into one device dispatch")
+    p.add_argument("--save_dir", default=None,
+                   help="directory POST /save may write *.npz snapshots "
+                        "into (endpoint disabled when omitted)")
     p.add_argument("--warm", default="1,8,32",
                    help="comma list of batch buckets to run once before "
                         "serving (the first call builds and loads the "
@@ -588,7 +601,8 @@ def main(argv=None) -> None:
                       default_candidates=a.n_candidates,
                       max_body_mb=a.max_body_mb,
                       length_multiple=a.length_multiple,
-                      batch_wait_ms=a.batch_wait_ms, max_batch=a.max_batch)
+                      batch_wait_ms=a.batch_wait_ms, max_batch=a.max_batch,
+                      save_dir=a.save_dir)
     print(f"[serve] {eng.n_docs} docs ready on http://{a.host}:{a.port} "
           f"({eng.impl} on {eng.device})", flush=True)
     try:

@@ -236,16 +236,188 @@ def test_build_sharded_index_quantizes_tensors_like_arrays():
 
 
 def test_unported_options_raise(tmp_path):
-    # mmap loads wait for their ROADMAP item; unknown dtypes, impls and
-    # summary tiers (PQ summaries: stage 1 has no books) are refused
+    # unknown dtypes, impls and summary tiers (PQ summaries: stage 1 has no
+    # books) are refused; a streaming build refuses what touches the whole
+    # array (normalize, summaries, PQ training), as in the JAX engine
     with pytest.raises(ValueError, match="summary_dtype"):
         RetrievalEngine(prune_centroids=4, summary_dtype="pq", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RetrievalEngine.from_npz(tmp_path / "x.npz", mmap=True,
-                                 device="cpu")
+    P, pm = np.zeros((3, 4, 16), np.float32), np.ones((3, 4), bool)
+    for kw, normalize in (({}, None), ({"prune_centroids": 2}, False),
+                          ({"dtype": "pq"}, False)):
+        with pytest.raises(ValueError, match="streaming build"):
+            RetrievalEngine(device="cpu", **kw).build(
+                P, pm, streaming=True, normalize=normalize)
     with pytest.raises(ValueError):
         RetrievalEngine(dtype="int2", device="cpu")
     with pytest.raises(ValueError):
         RetrievalEngine(impl="cuda", device="cpu")
     with pytest.raises(ValueError):
         convert_payload_to_packed({}, dtype="int2")
+
+
+# ------------------------------------------------ memory-mapped loading
+
+
+def test_packed_mmap_and_direct_codes(tmp_path):
+    """--normalize packed files: the mmap loader returns memmap views and
+    dequantizes nothing (float32, int8, int4); from_npz(mmap=True) streams
+    them into the same index as the eager load (bit for bit), and serves
+    int8/int4 codes directly; the JAX loader's views hold the same bytes."""
+    from evdr_tpu.tools.convert_packed import (
+        load_packed_payload as jax_load_packed)
+    from evdr_tpu_torch.parallel import sharded_index
+
+    c = make_synthetic_corpus(n_docs=20, n_queries=8, dim=32, seed=3)
+    Q, qm = preprocess_queries(c["query"], c["query_attnmask"])
+    for dtype, key in (("float32", "P_pad"), ("int8", "P_codes"),
+                       ("int4", "P_codes4")):
+        packed = convert_payload_to_packed(c, dtype=dtype, normalize=True)
+        pth = tmp_path / f"norm_{dtype}.packed.npz"
+        np.savez(pth, **packed)
+        pl = load_packed_payload(pth, mmap_docs=True)
+        jl = jax_load_packed(pth, mmap_docs=True)
+        assert isinstance(pl[key], np.memmap) and not pl[key].flags.writeable
+        assert isinstance(pl["pmask"], np.memmap)
+        if key != "P_pad":
+            assert "P_pad" not in pl and isinstance(pl["P_scale"], np.memmap)
+        for k in pl:
+            if isinstance(pl[k], np.ndarray):
+                np.testing.assert_array_equal(pl[k], jl[k], err_msg=k)
+        eng_dtype = None if dtype == "float32" else dtype
+        eng_m = RetrievalEngine.from_npz(pth, mmap=True, dtype=eng_dtype,
+                                         device="cpu")
+        eng_e = RetrievalEngine.from_npz(pth, dtype=eng_dtype, device="cpu")
+        for a, b in ((eng_m.index.P, eng_e.index.P),
+                     (eng_m.index.pmask, eng_e.index.pmask),
+                     (eng_m.index.scales, eng_e.index.scales)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b)
+        v_m, i_m = eng_m.search_dense(Q, qm, k=5)
+        v_e, i_e = eng_e.search_dense(Q, qm, k=5)
+        np.testing.assert_array_equal(i_m, i_e)
+        np.testing.assert_array_equal(v_m, v_e)
+        assert eng_m.ids_for(i_m) == eng_e.ids_for(i_e)
+    # the mmap load streams: every copy to the device is a bounded chunk
+    seen = []
+    real = sharded_index._host_tensor
+
+    def spy(x):
+        seen.append(x.nbytes)
+        return real(x)
+
+    try:
+        sharded_index._host_tensor = spy
+        sharded_index.STREAM_CHUNK_BYTES, old = 4096, \
+            sharded_index.STREAM_CHUNK_BYTES
+        RetrievalEngine.from_npz(tmp_path / "norm_int8.packed.npz",
+                                 mmap=True, dtype="int8", device="cpu")
+    finally:
+        sharded_index._host_tensor = real
+        sharded_index.STREAM_CHUNK_BYTES = old
+    codes_bytes = int(np.prod(load_packed_payload(
+        tmp_path / "norm_int8.packed.npz", mmap_docs=True)["P_codes"].shape[
+            1:]))
+    assert len(seen) > 3 and max(seen) <= max(4096, codes_bytes)
+
+
+def test_int4_from_npz_mmap_over_float_file_degrades_eagerly(tmp_path):
+    """An int4 engine over a normalized FLOAT packed file with mmap=True
+    quantizes eagerly (int4 has no quantize-on-stream) instead of failing,
+    and serves what the eager load serves; a streaming int4 build from
+    floats is refused."""
+    c = make_synthetic_corpus(n_docs=17, n_queries=5, dim=32, seed=8)
+    Q, qm = preprocess_queries(c["query"], c["query_attnmask"])
+    np.savez(tmp_path / "f32.npz", **convert_payload_to_packed(
+        c, dtype="float32", normalize=True))
+    eng = RetrievalEngine.from_npz(tmp_path / "f32.npz", dtype="int4",
+                                   mmap=True, device="cpu")
+    assert eng.index.P.dtype == torch.uint8
+    eager = RetrievalEngine.from_npz(tmp_path / "f32.npz", dtype="int4",
+                                     device="cpu")
+    assert torch.equal(eng.index.P, eager.index.P)
+    np.testing.assert_array_equal(eng.search_dense(Q, qm, k=3)[1],
+                                  eager.search_dense(Q, qm, k=3)[1])
+    P = np.zeros((3, 4, 16), np.float32)
+    with pytest.raises(ValueError, match="streaming int4"):
+        build_sharded_index(P, np.ones((3, 4), bool), "cpu", dtype="int4",
+                            streaming=True)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "int8"])
+def test_streamed_build_matches_plain(dtype):
+    """streaming=True gives the one-shot build's index bit for bit, in
+    chunks smaller than the index (the cast and the int8 quantization run
+    chunk by chunk; per-token scales make that exact), from read-only
+    memmap-like input, padded to the doc quantum."""
+    from evdr_tpu_torch.parallel import sharded_index
+
+    rng = np.random.default_rng(1)
+    P = rng.normal(size=(21, 6, 16)).astype(np.float32)
+    pm = rng.random((21, 6)) > 0.2
+    a = build_sharded_index(P, pm, "cpu", dtype=dtype, pad_docs_to=8)
+    Pr, pmr = P.copy(), pm.copy()
+    Pr.flags.writeable = pmr.flags.writeable = False
+    old = sharded_index.STREAM_CHUNK_BYTES
+    try:
+        sharded_index.STREAM_CHUNK_BYTES = 1024
+        b = build_sharded_index(Pr, pmr, "cpu", dtype=dtype, pad_docs_to=8,
+                                streaming=True)
+    finally:
+        sharded_index.STREAM_CHUNK_BYTES = old
+    assert a.n_pad == b.n_pad == 24 and a.n_docs == b.n_docs == 21
+    assert a.P.dtype == b.P.dtype
+    assert torch.equal(a.P, b.P) and torch.equal(a.pmask, b.pmask)
+    assert (a.scales is None) == (b.scales is None)
+    if a.scales is not None:
+        assert torch.equal(a.scales, b.scales)
+
+
+def test_as_tensor_copies_read_only_arrays_in_chunks():
+    """A read-only array (a memmap, a JAX array's view) reaches the device
+    a bounded chunk of rows at a time, never as one whole host copy."""
+    from evdr_tpu_torch.parallel import sharded_index
+
+    x = np.arange(40 * 8, dtype=np.float32).reshape(40, 8)
+    x.flags.writeable = False
+    sizes = []
+    real = sharded_index._host_tensor
+
+    def spy(a):
+        sizes.append(a.shape[0])
+        return real(a)
+
+    old = sharded_index.STREAM_CHUNK_BYTES
+    try:
+        sharded_index._host_tensor = spy
+        sharded_index.STREAM_CHUNK_BYTES = 64
+        t = sharded_index.as_tensor(x, "cpu", torch.bfloat16)
+    finally:
+        sharded_index._host_tensor = real
+        sharded_index.STREAM_CHUNK_BYTES = old
+    assert sizes == [2] * 20
+    assert t.dtype == torch.bfloat16
+    assert torch.equal(t, torch.from_numpy(x.copy()).to(torch.bfloat16))
+    s = np.asarray(3.0)
+    s.flags.writeable = False
+    assert float(sharded_index.as_tensor(s, "cpu")) == 3.0
+
+
+def test_from_npz_does_not_mutate_engine_normalize(tmp_path):
+    """Loading a pre-normalized packed file (eager or mmap) leaves the
+    engine's normalize default alone: a later build() with raw embeddings
+    on the same engine still normalizes them."""
+    c = make_synthetic_corpus(n_docs=20, n_queries=8, dim=32, seed=5)
+    Q, qm = preprocess_queries(c["query"], c["query_attnmask"])
+    packed = convert_payload_to_packed(c, dtype="float32", normalize=True)
+    pth = tmp_path / "norm.packed.npz"
+    np.savez(pth, **packed)
+    for mmap in (False, True):
+        eng = RetrievalEngine.from_npz(pth, mmap=mmap, device="cpu")
+        assert eng.normalize is True
+        v_loaded, i_loaded = eng.search_dense(Q, qm, k=3)
+        eng.build(np.asarray(packed["P_pad"], np.float32) * 7.0,
+                  np.asarray(packed["pmask"], bool))
+        v_raw, i_raw = eng.search_dense(Q, qm, k=3)
+        np.testing.assert_array_equal(i_raw, i_loaded)
+        np.testing.assert_allclose(v_raw, v_loaded, rtol=1e-4, atol=1e-4)

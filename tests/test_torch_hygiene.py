@@ -922,3 +922,95 @@ def test_pruned_engine_equals_exact_search_at_full_cover_on_the_card(
     above = np.concatenate([np.full((nq, 1), np.inf), step], axis=1)
     untied = (above[:, :k] > 1e-3) & (step[:, :k] > 1e-3)
     assert untied.sum() > nq and (ie[:, :k][untied] == idx[untied]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_device_token_quantizers_equal_host_on_the_card(tier):
+    """The int8 and int4 token quantizers give the host's codes and scales
+    bit for bit on the card, so an index quantized there (a tail, a
+    streamed chunk, a tensor build) equals one quantized from numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    quantize = quantize_tokens_int8 if tier == "int8" else quantize_tokens_int4
+    rng = np.random.default_rng(7)
+    P = rng.normal(size=(64, 37, 128)).astype(np.float32)
+    P /= np.linalg.norm(P, axis=-1, keepdims=True)
+    pm = rng.random((64, 37)) > 0.1
+    codes, scales = quantize(P, pm)
+    dc, ds = quantize(torch.from_numpy(P).cuda(), torch.from_numpy(pm).cuda())
+    np.testing.assert_array_equal(dc.cpu().numpy(), codes)
+    np.testing.assert_array_equal(ds.cpu().numpy(), scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,q8,func", [
+    ("bfloat16", False, "evdr_maxsim_bf16"),
+    ("int8", False, "evdr_maxsim_int8"),
+    ("int8", True, "evdr_maxsim_int8full"),
+    ("int4", False, "evdr_maxsim_int4"),
+    ("pq", False, "evdr_maxsim_pq")])
+def test_incremental_engine_on_the_card(dtype, q8, func, tmp_path):
+    """Incremental serving on the card: two adds (Lp 70 and 63, one
+    upsert), deletes in main and tail; the merged search launches the
+    tier's kernel once on the main index and once on the tail, returns no
+    deleted doc, and (but for pq, whose codes depend on the books) gives
+    the ids and scores of a fresh engine on the live corpus bit for bit
+    (the tail quantizes on the card, the fresh build from numpy on the
+    host: their scales agree); compact and a save -> from_npz(mmap=True)
+    round trip keep the ids and scores bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cm = cuda_maxsim
+    rng = np.random.default_rng(len(func) + q8)
+    nd, lp, d, nq, lq, k = 300, 70, 128, 12, 16, 10
+
+    def pages(n, lp_):
+        P = rng.normal(size=(n, lp_, d)).astype(np.float32)
+        return P, rng.random((n, lp_)) > 0.1
+
+    P, pm = pages(nd, lp)
+    A, am = pages(40, lp)
+    B, bm = pages(30, lp - 7)
+    Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((nq, lq), bool)
+    kw = dict(dtype=dtype, quantize_queries=q8, pq_m=16)
+    eng = RetrievalEngine(**kw).build(P, pm,
+                                      docids=[f"m{i}" for i in range(nd)])
+    eng.add(A, am, docids=[f"a{i}" for i in range(40)])
+    eng.add(B, bm, docids=["m7"] + [f"b{i}" for i in range(1, 30)])
+    dead = ["m3", "m100", "a5", "b9"]
+    assert eng.delete(dead) == 4 and eng.n_docs == nd + 70 - 5
+    cm.reset_launch_counts()
+    vals, idx = eng.search_dense(Q, qm, k=k)
+    assert cm.func_launches(func) == 2
+    ids = eng.ids_for(idx)
+    assert not set(dead) & {x for row in ids for x in row}
+    assert not np.isin(idx, [3, 7, 100, nd + 5, nd + 49]).any()
+    if dtype != "pq":
+        Bp = np.pad(B, ((0, 0), (0, 7), (0, 0)))
+        bmp = np.pad(bm, ((0, 0), (0, 7)))
+        keep = [i for i in range(nd) if i not in (3, 7, 100)]
+        live_a = [i for i in range(40) if i != 5]
+        live_b = [i for i in range(30) if i != 9]
+        fresh = RetrievalEngine(**kw).build(
+            np.concatenate([P[keep], A[live_a], Bp[live_b]]),
+            np.concatenate([pm[keep], am[live_a], bmp[live_b]]),
+            docids=[f"m{i}" for i in keep] + [f"a{i}" for i in live_a]
+            + ["m7" if i == 0 else f"b{i}" for i in live_b])
+        fv, fi = fresh.search_dense(Q, qm, k=k)
+        assert fresh.ids_for(fi) == ids
+        np.testing.assert_array_equal(fv, vals)
+    eng.compact()
+    v2, i2 = eng.search_dense(Q, qm, k=k)
+    assert eng.ids_for(i2) == ids
+    np.testing.assert_array_equal(v2, vals)
+    eng.save_npz(tmp_path / "s.npz")
+    e3 = RetrievalEngine.from_npz(tmp_path / "s.npz", mmap=True, **kw)
+    v3, i3 = e3.search_dense(Q, qm, k=k)
+    assert e3.ids_for(i3) == ids
+    np.testing.assert_array_equal(v3, v2)

@@ -101,11 +101,43 @@ def _obj(arrs):
     return o
 
 
-def test_unported_endpoints_and_bad_requests(server):
+def test_unported_endpoints_and_bad_requests(server, corpus, tmp_path):
+    """/add, /delete and /save answer 200 through the engine's incremental
+    methods (a server of its own, so the shared one stays unchanged);
+    /save is 403 without --save_dir and 400 for a path outside it; bad
+    searches are 400, unknown paths 404."""
     _, url = server
-    assert _post(url + "/add", {"documents": [[[0.0] * 32]]})[0] == 501
-    assert _post(url + "/delete", {"docids": ["0"]})[0] == 501
     assert _post(url + "/save", {"path": "x.npz"})[0] == 403
+    c = corpus
+    eng = RetrievalEngine(dtype="bfloat16", device="cpu").build_from_ragged(
+        c["documents"], c["doc_attnmask"], c["doc_imgmask"],
+        docids=c["docid"])
+    srv = serve_http.make_server(eng, port=0, save_dir=tmp_path)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    mine = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        doc = np.asarray(c["query"][0], np.float32)
+        assert _post(mine + "/add", {"documents": [doc.tolist()],
+                                     "docids": ["new"]}) == (
+            200, {"added": 1, "n_docs": 31})
+        code, body = _post(mine + "/search", {"queries": [doc.tolist()],
+                                              "k": 1})
+        assert code == 200 and body["docids"] == [["new"]]
+        gone = str(c["docid"][0])
+        assert _post(mine + "/delete", {"docids": [gone, "nope"]}) == (
+            200, {"deleted": 1, "n_docs": 30})
+        assert _post(mine + "/save", {"path": "snap.npz"}) == (
+            200, {"saved": str(tmp_path / "snap.npz"), "n_docs": 30})
+        assert _post(mine + "/save", {"path": "../out.npz"})[0] == 400
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=10)
+    back = RetrievalEngine.from_npz(tmp_path / "snap.npz", dtype="bfloat16",
+                                    device="cpu")
+    assert back.n_docs == 30 and "new" in list(back.index.docids)
+    assert gone not in list(back.index.docids)
     assert _post(url + "/search", {"queries": [[[0.0] * 7]]})[0] == 400
     assert _post(url + "/search", {"queries": [[[1.0] * 32]], "k": 0})[0] \
         == 400
@@ -134,3 +166,20 @@ def test_search_cli_writes_trec_run_like_jax_cli(tmp_path, corpus):
 def test_serve_cli_rejects_multihost(tmp_path):
     with pytest.raises(SystemExit):
         serve_http.main(["--index", str(tmp_path / "x.npz"), "--multihost"])
+
+
+def test_serve_cli_passes_save_dir(tmp_path, corpus, monkeypatch):
+    """--save_dir reaches make_server (the JAX CLI's flag)."""
+    path = tmp_path / "c.npz"
+    save_synthetic_npz(path, corpus)
+    seen = {}
+
+    def fake_make_server(eng, *a, save_dir=None, **kw):
+        seen["save_dir"], seen["n_docs"] = save_dir, eng.n_docs
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve_http, "make_server", fake_make_server)
+    with pytest.raises(KeyboardInterrupt):
+        serve_http.main(["--index", str(path), "--device", "cpu",
+                         "--save_dir", str(tmp_path), "--warm", "1"])
+    assert seen == {"save_dir": str(tmp_path), "n_docs": 30}
