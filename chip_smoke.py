@@ -147,7 +147,21 @@ line each:
     loads a 25,000-page int8 file eagerly and memory-mapped. Times: q/s before add and with the tail and
     tombstones, the first search after the adds (the lazy tail build),
     delete, compact, save and both loads, the tail kernel's share of the
-    merged search.
+    merged search;
+23. multi-device serving on the one card: (a) a 4-shard mesh (4 x
+    cuda:0) over phase 4's shapes serving int8 with and without
+    quantize_queries (50,000 pages), int4, PQ at M = 16 (50,000 pages, random
+    codes and books) and bf16 (10,000), and a 2 x 2 (dp x docs) mesh for
+    int8, each against its one-shard engine, one tier at a time; pruned
+    int8 on 2,000 pages at 512 candidates and at all of them; phase 22's
+    mutations on the 4-shard int8 engine; (c) a one-process NCCL group of
+    2 shards; (b) two tools/serve_http --multihost processes over gloo
+    (2 shards each) serving a 25,000-page int8 file: /healthz, /search,
+    /add, /delete, /search, /save. Gates: top-10 ids equal and scores
+    bit-equal to the one-shard engine after the same calls, one launch a
+    shard, both servers exit 0. Times: q/s of each mesh beside its
+    one-shard engine's, the merge's share of a mesh top-k (CUDA events),
+    the processes' start and HTTP times.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
@@ -166,7 +180,9 @@ phases 16, 17 and 20, with the counts set to 0 just before each. Phase
 21's stage 1 launches (K1, K2, K4 at Lp 4) join the entries of K1 bf16,
 K2 and K4 as ``pruned_stage1_launches``, and phase 22's merged main +
 tail searches (counts set to 0 just before each) those of K1 bf16, K2,
-K4 and K3 (compact books) as ``incremental_launches``.
+K4 and K3 (compact books) as ``incremental_launches``, and phase 23's
+mesh searches (counts set to 0 just before each) as
+``sharded_launches``.
 """
 
 from __future__ import annotations
@@ -237,6 +253,12 @@ INC_DOCS, INC_BF16_DOCS, INC_ADD_LP = 49_000, 10_000, (LP, LP, 701, 701)
 INC_ADD, INC_UPSERT, INC_DELETE = 1_000, 50, 250
 INC_PRUNE_DOCS, INC_PRUNE_CANDS, RSS_DOCS = 2_000, 512, 25_000
 INC_EAGER = ("bfloat16",)
+# multi-device serving (phase 23): 4 shards of the one card (and a 2 x 2
+# dp x docs mesh for int8) over phase 4's shapes, pruned int8 on
+# PRUNE_FULL_DOCS pages; a 25,000-page int8 file served by two
+# serve_http --multihost processes (gloo, 2 shards each; 16 queries over
+# HTTP) and a one-process NCCL group of 2 shards
+MESH_SHARDS, MESH_FILE_DOCS, MESH_HTTP_NQ, MESH_SPAWN_S = 4, 25_000, 16, 300
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -2974,6 +2996,431 @@ def incremental_phase(cm, gen, seed, smi, root):
     return reports, launches
 
 
+# ------------------------------------------ multi-device serving (phase 23)
+
+
+def mesh_device():
+    """The card's first device by index (a mesh names its devices)."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def mesh_search(cm, eng, Q, qm, **kw):
+    """One search_dense with the launch counts set to 0 just before it:
+    (vals, idx, {wrapper: launches}, [launch shapes])."""
+    cm.reset_launch_counts()
+    vals, idx = eng.search_dense(Q, qm, k=K, **kw)
+    torch.cuda.synchronize()
+    shapes = [{"func": f, "nq": nq_, "lq": lq_, "nd": nd_, "lp": lp_,
+               "launches": n} for (w, f, nq_, lq_, nd_, lp_), n in
+              sorted(cm.launch_shapes.items())]
+    return vals, idx, {k: v for k, v in cm.launch_counts().items() if v}, \
+        shapes
+
+
+def same_results(label, one, eng, ref, got):
+    """Top-K ids (as docids) and scores of ``got`` equal ``ref``'s bit for
+    bit."""
+    (v1, i1), (v2, i2) = ref, got
+    same_ids = one.ids_for(i1) == eng.ids_for(i2)
+    bit = bool(v1.shape == v2.shape and (v1 == v2).all())
+    check(same_ids and bit, f"{label}: mesh top-{K} ids equal "
+          f"{same_ids}, scores bit-equal {bit} to the one-shard engine")
+
+
+def merge_share(eng, Q, qm):
+    """CUDA-event medians of a mesh top-k and of its shards' scoring
+    alone (the rest: the -inf of the padding, the local top-k, the
+    gather and the merge): (top-k ms, scores ms, merge share)."""
+    from evdr_tpu_torch.parallel.topk import _shard_scores, sharded_topk
+
+    Qd, qmd = eng._queries(Q, qm)
+    t_all, _, _ = cuda_ms(lambda: sharded_topk(Qd, qmd, eng.index, K,
+                                               eng.impl), 5)
+    t_sc, _, _ = cuda_ms(lambda: _shard_scores(Qd, qmd, eng.index,
+                                               eng.impl), 5)
+    return t_all, t_sc, 1.0 - t_sc / t_all
+
+
+def mesh_tier(cm, label, wrapper, one, eng, Q, qm, n_launch):
+    """A mesh engine against its tier's one-shard engine: the mesh search
+    with the counts set to 0 (``wrapper`` launched ``n_launch`` times,
+    once a shard), ids and scores bit-equal, q/s of both, the merge's
+    share. Returns (report, launches)."""
+    ref = one.search_dense(Q, qm, k=K)
+    vals, idx, counts, shapes = mesh_search(cm, eng, Q, qm)
+    check(counts == {wrapper.__name__: n_launch}, f"{label}: one launch a "
+          f"shard of {wrapper.__name__}: {counts}")
+    same_results(label, one, eng, ref, (vals, idx))
+    rep = {"tier": label, "qps_one_shard": qps(one, Q, qm),
+           "qps_mesh": qps(eng, Q, qm)}
+    rep["topk_ms"], rep["scores_ms"], rep["merge_share"] = merge_share(
+        eng, Q, qm)
+    return rep, {"tier": label, "launches": counts[wrapper.__name__],
+                 "shapes": shapes}
+
+
+def mesh_int8(cm, gen, m4, m22):
+    """Phase 23 (a), int8: K2 in both modes on a 4-shard mesh and K2 on a
+    2 x 2 mesh over INT8_DOCS pages, against the one-shard engines; then
+    phase 22's mutations on the 4-shard engine against the one-shard
+    merged search."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    plan = inc_plan(INT8_DOCS)
+    ids = plan["main_ids"]
+    codes, scales, pm = make_int8_pages(INT8_DOCS, gen, quantize_tokens_int8)
+    kw = dict(dtype="int8", normalize=False)
+    one = RetrievalEngine(**kw).build_from_codes(codes, scales, pm,
+                                                 docids=ids)
+    ix = one.index
+    one_q8 = RetrievalEngine.from_index(
+        ix.P, ix.pmask, ix.n_docs, scales=ix.scales, docids=ix.docids,
+        quantize_queries=True, **kw)
+    e4 = RetrievalEngine(mesh=m4, **kw).build_from_codes(codes, scales, pm,
+                                                         docids=ids)
+    e4q = RetrievalEngine(mesh=m4, quantize_queries=True,
+                          **kw).build_from_codes(codes, scales, pm,
+                                                 docids=ids)
+    e22 = RetrievalEngine(mesh=m22, **kw).build_from_codes(codes, scales,
+                                                           pm, docids=ids)
+    del codes, scales, pm
+    check(e4.index.n_pad == -(-INT8_DOCS // 256) * 256
+          and e22.index.n_pad == -(-INT8_DOCS // 128) * 128,
+          "mesh layouts: padded to n_shards x 64")
+    Q, qm, _ = planted_queries(lambda t: ix.P[t].float()
+                               * ix.scales[t][..., None], INT8_DOCS, gen)
+    out = [mesh_tier(cm, "int8", cm.maxsim_cuda_int8, one, e4, Q, qm, 4),
+           mesh_tier(cm, "int8+quantize_queries", cm.maxsim_cuda_int8full,
+                     one_q8, e4q, Q, qm, 4),
+           mesh_tier(cm, "int8 2x2", cm.maxsim_cuda_int8, one, e22, Q, qm,
+                     4)]
+    del e4q, e22, one_q8
+    torch.cuda.empty_cache()
+    parts, Pt, pmt = added_pages(gen)
+    t = {}
+    for label, e in (("one", one), ("mesh", e4)):
+        t0 = time.perf_counter()
+        for j, (x, m) in enumerate(parts):
+            e.add(x, m, docids=plan["add_ids"][j * plan["per"]:
+                                              (j + 1) * plan["per"]])
+        e.delete(plan["deleted"])
+        e.search_dense(Q[:1], qm[:1], k=K)       # the lazy tail build
+        t[label] = time.perf_counter() - t0
+    check(e4.tail.parts is not None and e4.n_docs == one.n_docs
+          == len(plan["live"]), "mesh tail on the shards")
+    Qi, qmi = inc_queries(plan, lambda t_: ix.P[t_].float()
+                          * ix.scales[t_][..., None], ix.pmask, Pt, pmt, gen)
+    ref = one.search_dense(Qi, qmi, k=K)
+    vals, idx, counts, _ = mesh_search(cm, e4, Qi, qmi)
+    check(counts == {"maxsim_cuda_int8": 8}, f"mesh merged search: the "
+          f"main's 4 shards and the tail's 4: {counts}")
+    same_results("int8 mutations", one, e4, ref, (vals, idx))
+    _, r1 = inc_gates("mesh int8 mutations", e4, plan, vals, idx)
+    inc = {"tier": "int8 mutations", "add_delete_first_search_s": t,
+           "recall_at_1_live": r1, "qps_one_shard": qps(one, Qi, qmi),
+           "qps_mesh": qps(e4, Qi, qmi)}
+    del one, e4, ix
+    torch.cuda.empty_cache()
+    return out, inc
+
+
+def mesh_pruned(cm, gen, m4):
+    """Phase 23 (a), pruned int8 on PRUNE_FULL_DOCS pages: the mesh engine
+    over the one-shard engine's codes and summaries; at INC_PRUNE_CANDS
+    candidates and at all of them ids and scores bit-equal."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.parallel.sharded_index import (build_sharded_index,
+                                                       pad_index_dim)
+
+    n = PRUNE_FULL_DOCS
+    P, pm = make_pages(n, gen)
+    kw = dict(dtype="int8", prune_centroids=PRUNE_K, normalize=False)
+    one = RetrievalEngine(**kw).build(P, pm)
+    ix, s = one.index, one.summary
+    em = RetrievalEngine(mesh=m4, **kw).build_from_codes(
+        ix.P[:n], ix.scales[:n], ix.pmask[:n])
+    em.summary = pad_index_dim(build_sharded_index(
+        s.P[:n], s.pmask[:n], m4, dtype="int8", scales=s.scales[:n]))
+    Q, qm, _ = planted_queries(lambda t: P[t], n, gen)
+    del P
+    rep = {"tier": "int8 pruned", "docs": n}
+    for nc in (INC_PRUNE_CANDS, n):
+        ref = one.search_dense(Q, qm, k=K, n_candidates=nc)
+        vals, idx, counts, _ = mesh_search(cm, em, Q, qm, n_candidates=nc)
+        check(counts == {"maxsim_cuda_int8": 4}, f"pruned stage 1: one "
+              f"launch a shard: {counts}")
+        same_results(f"int8 pruned at {nc}", one, em, ref, (vals, idx))
+        rep[f"qps_one_shard_{nc}"] = qps(one, Q, qm, n_candidates=nc)
+        rep[f"qps_mesh_{nc}"] = qps(em, Q, qm, n_candidates=nc)
+    del one, em
+    torch.cuda.empty_cache()
+    return rep
+
+
+def mesh_tiers(cm, gen, m4):
+    """Phase 23 (a): int4 (K4) and PQ at M = PQ_M (K3, compact books) over
+    INT4_DOCS / PQ_DOCS pages, bf16 (K1) over BF16_DOCS, each on the
+    4-shard mesh against its one-shard engine, one tier at a time."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+
+    out = []
+    packed, sc, pm = make_int8_pages(INT4_DOCS, gen, quantize_tokens_int4,
+                                     rows=(LP + 1) // 2, dtype=torch.uint8)
+    kw = dict(dtype="int4", normalize=False)
+    one = RetrievalEngine(**kw).build_from_codes4(packed, sc, pm)
+    em = RetrievalEngine(mesh=m4, **kw).build_from_codes4(packed, sc, pm)
+    del packed, sc, pm
+    ix = one.index
+    Q, qm, _ = planted_queries(lambda t: cm.unpack_int4_torch(
+        ix.P[t], LP).float() * ix.scales[t][..., None], INT4_DOCS, gen)
+    out.append(mesh_tier(cm, "int4", cm.maxsim_cuda_int4, one, em, Q, qm,
+                         4))
+    del one, em, ix
+    torch.cuda.empty_cache()
+
+    books = unit(torch.randn((PQ_M, 256, D // PQ_M), device=DEVICE,
+                             generator=gen)) / PQ_M ** 0.5
+    codes = torch.randint(0, 256, (PQ_DOCS, LP, PQ_M), device=DEVICE,
+                          generator=gen, dtype=torch.uint8)
+    pm = torch.rand((PQ_DOCS, LP), device=DEVICE, generator=gen) > 0.1
+    kw = dict(dtype="pq", pq_m=PQ_M, normalize=False)
+    one = RetrievalEngine(**kw).build_from_pq(codes, books, pm)
+    em = RetrievalEngine(mesh=m4, **kw).build_from_pq(codes, books, pm)
+    del codes, pm
+    Q, qm, _ = planted_queries(lambda t: pq_tokens(one.index.P[t], books),
+                               PQ_DOCS, gen)
+    out.append(mesh_tier(cm, "pq", cm.maxsim_cuda_pq, one, em, Q, qm, 4))
+    del one, em
+    torch.cuda.empty_cache()
+
+    Pf, pmf = make_pages(BF16_DOCS, gen)
+    kw = dict(dtype="bfloat16", normalize=False)
+    one = RetrievalEngine(**kw).build(Pf, pmf)
+    em = RetrievalEngine(mesh=m4, **kw).build(Pf, pmf)
+    Q, qm, _ = planted_queries(lambda t: Pf[t], BF16_DOCS, gen)
+    del Pf, pmf
+    out.append(mesh_tier(cm, "bfloat16", cm.maxsim_cuda, one, em, Q, qm,
+                         4))
+    del one, em
+    torch.cuda.empty_cache()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_nccl(one, Q, qm, codes, scales, pm, ids):
+    """Phase 23 (c): a one-process NCCL group of 2 shards on the card
+    (its candidates and score blocks all-gathered by NCCL): search and
+    score_all bit-equal to the one-shard engine. Returns the q/s."""
+    import torch.distributed as dist
+
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.parallel.multihost import (global_doc_mesh,
+                                                   init_multihost)
+
+    init_multihost(f"localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        mesh = global_doc_mesh(2, device=mesh_device())
+        check(mesh.backend == "nccl" and mesh.multiprocess, "NCCL mesh")
+        en = RetrievalEngine(dtype="int8", mesh=mesh,
+                             normalize=False).build_from_codes(
+            codes, scales, pm, docids=ids)
+        same_results("NCCL group", one, en, one.search_dense(Q, qm, k=K),
+                     en.search_dense(Q, qm, k=K))
+        check(bool((one.score_all(Q[:16], qm[:16])
+                    == en.score_all(Q[:16], qm[:16])).all()),
+              "NCCL score_all bit-equal")
+        rate = qps(en, Q, qm)
+        del en
+    finally:
+        dist.destroy_process_group()
+    return rate
+
+
+def http_json(url, path, obj=None, timeout=300):
+    req = urllib.request.Request(
+        url + path, data=None if obj is None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def mesh_http(one, Q, qm, gen, work, root):
+    """Phase 23 (b): two tools/serve_http --multihost processes on the
+    card over gloo, 2 shards each, serving the packed int8 file of
+    ``one`` (memory-mapped, each process reading its shards' rows):
+    /healthz, /search, /add, /delete, /search, /save, every answer equal
+    to ``one`` after the same calls; SIGINT to process 0 stops both."""
+    import signal
+
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.data.packing import preprocess_queries
+
+    path = work / "mesh.npz"
+    t0 = time.perf_counter()
+    one.save_npz(path)
+    t_save = time.perf_counter() - t0
+    port, cport = free_port(), free_port()
+    logs = [work / f"serve{i}.log" for i in range(2)]
+    cmds = [[sys.executable, "-m", "evdr_tpu_torch.tools.serve_http",
+             "--index", str(path), "--dtype", "int8", "--device",
+             mesh_device(), "--multihost", "--coordinator",
+             f"localhost:{cport}", "--num_processes", "2", "--process_id",
+             str(i), "--dist_backend", "gloo", "--local_shards", "2",
+             "--port", str(port), "--warm", "1", "--save_dir", str(work)]
+            for i in range(2)]
+    url = f"http://127.0.0.1:{port}"
+    n = MESH_HTTP_NQ
+    queries = [Q[i][qm[i]].cpu().numpy().tolist() for i in range(n)]
+    qobj = np.empty(n, dtype=object)
+    qobj[:] = [np.asarray(q, np.float32) for q in queries]
+    Qh, qmh = preprocess_queries(qobj, None, length_multiple=8)
+    new = unit(torch.randn((4, 256, D), device=DEVICE, generator=gen)
+               ).cpu().numpy()
+    new_ids = ["new0", "new1", "f10", "new3"]
+    dead = ["f3", f"f{MESH_FILE_DOCS - 5}", "new1", "nope"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=open(log, "w"),
+                              stderr=subprocess.STDOUT, cwd=str(root))
+             for c, log in zip(cmds, logs)]
+    deadline = time.monotonic() + MESH_SPAWN_S
+    rep = {"save_s": t_save}
+    try:
+        while True:
+            check(all(p.poll() is None for p in procs)
+                  and time.monotonic() < deadline, "serve_http --multihost "
+                  "up: " + " | ".join(x.read_text()[-2000:] for x in logs))
+            try:
+                health = http_json(url, "/healthz", timeout=10)
+                break
+            except OSError:
+                time.sleep(0.5)
+        rep["ready_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = [http_json(url, "/search", {"queries": queries, "k": K})]
+        rep["search_s"] = time.perf_counter() - t1
+        added = http_json(url, "/add", {"documents": new.tolist(),
+                                        "docids": new_ids})
+        deleted = http_json(url, "/delete", {"docids": dead})
+        got.append(http_json(url, "/search", {"queries": queries, "k": K}))
+        saved = http_json(url, "/save", {"path": "mesh_snap.npz"})
+        procs[0].send_signal(signal.SIGINT)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 0], f"serve_http --multihost exit codes {rcs}: "
+          + " | ".join(x.read_text()[-2000:] for x in logs))
+    rep["wall_s"] = time.perf_counter() - t0
+    nd = one.n_docs
+    check(health["mesh"] == {"shards": 4, "processes": 2,
+                             "backend": "gloo"} and health["n_docs"] == nd,
+          f"/healthz {health}")
+    want = [one.search_dense(Qh, qmh, k=K)]
+    one.add(new, np.ones(new.shape[:2], bool), docids=new_ids,
+            normalize=True)
+    one.delete(dead)
+    want.append(one.search_dense(Qh, qmh, k=K))
+    for reply, (v, i) in zip(got, want):
+        check(reply["docids"] == one.ids_for(i) and np.array_equal(
+            np.asarray(reply["scores"], np.float32), v),
+              "HTTP answers equal the one-process engine's")
+    check(added == {"added": 4, "n_docs": nd + 3}
+          and deleted == {"deleted": 3, "n_docs": nd}
+          and saved["n_docs"] == nd, f"/add {added}, /delete {deleted}, "
+          f"/save {saved}")
+    back = RetrievalEngine.from_npz(work / "mesh_snap.npz", mmap=True,
+                                    dtype="int8")
+    v2, i2 = back.search_dense(Qh, qmh, k=K)
+    check(back.ids_for(i2) == one.ids_for(want[-1][1])
+          and np.array_equal(v2, want[-1][0]), "the saved file reloads "
+          "with the same top-K")
+    del back
+    return rep
+
+
+def mesh_processes(cm, gen, root):
+    """Phase 23 (c) then (b) on one MESH_FILE_DOCS-page int8 corpus."""
+    from evdr_tpu_torch import RetrievalEngine
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    work = root / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        n = MESH_FILE_DOCS
+        codes, scales, pm = make_int8_pages(n, gen, quantize_tokens_int8)
+        ids = [f"f{i}" for i in range(n)]
+        one = RetrievalEngine(dtype="int8", normalize=False
+                              ).build_from_codes(codes, scales, pm,
+                                                 docids=ids)
+        ix = one.index
+        Q, qm, _ = planted_queries(lambda t: ix.P[t].float()
+                                   * ix.scales[t][..., None], n, gen)
+        t0 = time.perf_counter()
+        rep = {"nccl_qps": mesh_nccl(one, Q, qm, codes, scales, pm, ids),
+               "nccl_s": time.perf_counter() - t0,
+               "one_process_qps": qps(one, Q, qm)}
+        del codes, scales, pm
+        torch.cuda.empty_cache()
+        rep["http"] = mesh_http(one, Q, qm, gen, work, root)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rep
+
+
+def mesh_phase(cm, gen, smi, root):
+    """Phase 23: multi-device serving. Returns the reports and the mesh
+    searches' launches by kernels-line entry."""
+    from evdr_tpu_torch.parallel.mesh import mesh_of
+
+    t0 = time.perf_counter()
+    dev = mesh_device()
+    m4 = mesh_of([dev] * MESH_SHARDS)
+    m22 = mesh_of([dev] * MESH_SHARDS, dp=2)
+    tiers, inc = mesh_int8(cm, gen, m4, m22)
+    pruned = mesh_pruned(cm, gen, m4)
+    tiers += mesh_tiers(cm, gen, m4)
+    t_a = time.perf_counter() - t0
+    procs = mesh_processes(cm, gen, root)
+    for rep, launches in tiers:
+        log(f"phase 23 {rep['tier']} on {MESH_SHARDS} shards of {dev}: "
+            f"{rep['qps_mesh']:.1f} q/s against {rep['qps_one_shard']:.1f} "
+            f"on one shard; mesh top-k {rep['topk_ms']:.3f} ms, of it the "
+            f"shards' scores {rep['scores_ms']:.3f} ms (merge share "
+            f"{rep['merge_share']:.1%}); ids and scores bit-equal; "
+            f"launches {launches['launches']}; {smi}")
+    log(f"phase 23 int8 mutations (phase 22's plan on the 4-shard mesh): "
+        f"{inc}; bit-equal to the one-shard merged search; {smi}")
+    log(f"phase 23 pruned: {pruned}; bit-equal; {smi}")
+    log(f"phase 23 processes: NCCL group of 1 process x 2 shards "
+        f"{procs['nccl_qps']:.1f} q/s ({procs['one_process_qps']:.1f} "
+        f"one shard); serve_http --multihost (2 gloo processes x 2 shards, "
+        f"{MESH_FILE_DOCS} pages): {procs['http']}; {smi}")
+    by_entry = {"int8": "maxsim_int8", "int8 2x2": "maxsim_int8",
+                "int8+quantize_queries": "maxsim_int8full",
+                "int4": "maxsim_int4", "pq": "maxsim_pq",
+                "bfloat16": "maxsim_bf16"}
+    launches = {}
+    for rep, ln in tiers:
+        launches.setdefault(by_entry[rep["tier"]], []).append(ln)
+    reports = [rep for rep, _ in tiers] + [inc, pruned, procs]
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f} s)")
+    return reports, launches
+
+
 # ------------------------------------------------- training, the rest (18)
 
 
@@ -3341,7 +3788,21 @@ def main(argv=None) -> int:
                                 "maxsim_pq"},
           f"phase 22 ran K1, K2 (both modes), K4 and K3: "
           f"{sorted(inc_launches)}")
-    log(f"phases 1-22: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 23. multi-device serving; the mesh searches' launches join the
+    # entries of the kernels they ran
+    reports, mesh_launches = mesh_phase(cm, gen, smi, Path(root))
+    log("phase 23 report: " + json.dumps(reports))
+    for kname, tiers in mesh_launches.items():
+        entry = next(k for k in kernels if k["name"] == kname)
+        entry["sharded_launches"] = tiers
+    check(set(mesh_launches) == {"maxsim_bf16", "maxsim_int8",
+                                 "maxsim_int8full", "maxsim_int4",
+                                 "maxsim_pq"},
+          f"phase 23 ran K1, K2 (both modes), K4 and K3 on the mesh: "
+          f"{sorted(mesh_launches)}")
+    log(f"phases 1-23: {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     n_k = 15 + 16

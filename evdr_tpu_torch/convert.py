@@ -24,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from evdr_tpu_torch.parallel.sharded_index import ShardedIndex, as_tensor
+from evdr_tpu_torch.parallel.mesh import DeviceMesh
+from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, _pad_docs,
+                                                   as_tensor, shard_range)
 
 
 def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
@@ -35,7 +37,14 @@ def index_from_numpy(P, pmask, n_docs: int, scales=None, docids=None,
     bfloat16 tokens; int8 codes or (N, ceil(Lp/2), D) token-pair packed
     uint8 int4 codes, then with ``scales``, their per-token f32 scales; or
     (N, Lp, M) uint8 PQ codes, then with ``books``, their f32 codebooks
-    (``books_expanded`` for full-width OPQ books)."""
+    (``books_expanded`` for full-width OPQ books).
+
+    ``device`` may be a ``DeviceMesh`` of several shards: each shard this
+    process owns takes its rows of the first ``n_docs`` (padding to the
+    mesh layout of ``build_sharded_index``, 64 rows a shard at a time)."""
+    if isinstance(device, DeviceMesh) and device.size > 1:
+        return _index_on_mesh(P, pmask, n_docs, scales, docids, books,
+                              books_expanded, device)
     P = as_tensor(P, device)
     if P.dtype not in (torch.float32, torch.bfloat16, torch.int8,
                        torch.uint8):
@@ -85,3 +94,29 @@ def train_state_from_numpy(param, mu, nu, count, device="cuda"):
         "exp_avg_sq": torch.tensor(nu, device=device),
     }
     return p.requires_grad_(True), state
+
+
+def _index_on_mesh(P, pmask, n_docs, scales, docids, books, books_expanded,
+                   mesh) -> ShardedIndex:
+    n = int(n_docs)
+    if not 0 <= n <= P.shape[0]:
+        raise ValueError(f"n_docs={n_docs} outside [0, {P.shape[0]}]")
+    quantum = mesh.n_doc_shards * 64
+    rows = -(-n // quantum) * quantum // mesh.n_doc_shards
+    parts = []
+    for _, col, dev in mesh.local_shards():
+        lo, hi = shard_range(rows, col, n)
+        part = index_from_numpy(
+            P[lo:hi], pmask[lo:hi], hi - lo,
+            scales=None if scales is None else scales[lo:hi], books=books,
+            books_expanded=books_expanded, device=dev)
+        part.P, part.pmask = _pad_docs(part.P, rows), _pad_docs(part.pmask,
+                                                                rows)
+        if part.scales is not None:
+            part.scales = _pad_docs(part.scales, rows)
+        parts.append(part)
+    return ShardedIndex(
+        P=None, pmask=None, n_docs=n,
+        docids=None if docids is None else np.asarray(docids, dtype=object),
+        books=parts[0].books, books_expanded=bool(books_expanded),
+        mesh=mesh, parts=parts)

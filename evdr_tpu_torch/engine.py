@@ -1,7 +1,10 @@
 """RetrievalEngine — the user-facing multi-vector retrieval API on a GPU.
 
-Loads (or receives) a page-embedding index, places it on one device, and
-serves MaxSim top-k queries through the fused CUDA kernels:
+Loads (or receives) a page-embedding index, places it on one device or
+shards it over a doc mesh (``parallel/mesh.py``: several GPUs, a
+``dp x docs`` grid, or one GPU per process across ``torch.distributed``,
+``parallel/multihost.py``), and serves MaxSim top-k queries through the
+fused CUDA kernels:
 
     engine = RetrievalEngine.from_npz("features/tabfquad_dump_all.npz")
     docids, scores = engine.search(query_token_arrays, k=10)
@@ -25,6 +28,14 @@ the main index; ``delete`` tombstones docs (a device-side alive mask);
 current corpus as a packed file that either package loads.
 ``from_npz(mmap=True)`` streams a packed file's memory-mapped arrays to
 the device a bounded chunk at a time.
+
+On a mesh of several shards every shard scores its rows through the same
+kernels and the candidates merge exactly (``parallel/topk.py``); pruned
+search reranks each shard's candidates where they lie, and incremental
+serving merges the tail by over-fetching the main index (as the JAX
+package's mesh branch). Across processes every search, add, delete,
+compact and snapshot is a collective that every process enters with the
+same inputs (``multihost.MultihostSearchCoordinator`` drives them).
 """
 
 from __future__ import annotations
@@ -39,9 +50,12 @@ from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
                                          preprocess_queries)
 from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
                                                    build_sharded_index,
-                                                   pad_index_dim, pad_queries)
-from evdr_tpu_torch.parallel.topk import (_single_device_merged_topk,
-                                          sharded_maxsim, sharded_topk)
+                                                   pad_index_dim, pad_queries,
+                                                   set_books)
+from evdr_tpu_torch.parallel.topk import (_mesh_topk,
+                                          _single_device_merged_topk,
+                                          sharded_maxsim, sharded_rerank,
+                                          sharded_topk)
 
 DTYPES = (None, "float32", "bfloat16", "int8", "int4", "pq")
 SUMMARY_DTYPES = (None, "bfloat16", "float32", "int8", "int4")
@@ -64,7 +78,7 @@ class RetrievalEngine:
                  normalize: bool = True, prune_centroids: int = 0,
                  quantize_queries: bool = False, pq_m: int = 16,
                  pq_opq: bool = False, summary_dtype: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         """``dtype='int8'`` stores the index quantized (ops/quantize.py,
         half the bytes of bf16); adding ``quantize_queries=True`` also
         quantizes queries on the device so scoring runs int8 x int8
@@ -79,6 +93,10 @@ class RetrievalEngine:
         ``pq_opq``: the int8 x int8 tile needs compact books (with expanded
         books the quantized queries would only cast back up to bf16, at
         the same cost and with more error).
+
+        ``mesh`` (``parallel/mesh.DeviceMesh``) shards the index over its
+        doc shards instead of placing it on ``device``; a device alone is
+        a mesh of one, and a mesh of one takes the one-device path.
 
         ``impl`` is 'auto' or the name it resolves to: 'cuda' on a GPU,
         'plain' (the kernels' plain versions) on the CPU, with '_q8' for
@@ -99,7 +117,17 @@ class RetrievalEngine:
             raise ValueError(
                 f"summary_dtype={summary_dtype!r} unsupported: the summary "
                 "stage scores dense tokens (bfloat16/float32/int8/int4)")
+        if mesh is not None:
+            devs = {resolve_device(d) for d in mesh.devices}
+            if len({d.type for d in devs}) != 1:
+                raise ValueError(f"a mesh of one device type: {devs}")
+            if device is not None and resolve_device(device) not in devs:
+                raise ValueError(f"device {device} is not on the mesh")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # a mesh of several shards (or processes) takes the mesh branches
+        self._sharded = mesh is not None and mesh.size > 1
         self.dtype = dtype
         self.normalize = normalize
         self.pq_m = pq_m
@@ -147,10 +175,17 @@ class RetrievalEngine:
     def _build_summary(self, S, smask) -> None:
         self.summary = self._build_index(S, smask, dtype=self._sdtype())
 
+    @property
+    def _place(self):
+        """Where indexes go: the mesh of several shards, or the device."""
+        return self.mesh if self._sharded else self.device
+
     def _build_index(self, P, pmask, docids=None, dtype=None, scales=None,
                      streaming: bool = False) -> ShardedIndex:
+        # on a mesh across processes each process builds (and so reads,
+        # from a memory-mapped file) only its own shards' rows
         return pad_index_dim(build_sharded_index(
-            P, pmask, self.device, dtype=dtype, scales=scales,
+            P, pmask, self._place, dtype=dtype, scales=scales,
             docids=_ids(docids), streaming=streaming))
 
     # ------------------------------------------------------------------ build
@@ -246,13 +281,13 @@ class RetrievalEngine:
         self._reset_incremental()
         if self.dtype != "pq":
             raise ValueError("build_from_pq requires dtype='pq'")
-        self.index = build_sharded_index(
-            as_tensor(codes, self.device, torch.uint8), pmask, self.device,
-            docids=_ids(docids))
-        self.index.books = as_tensor(books, self.device,
-                                     torch.float32).contiguous()
-        self.index.books_expanded = bool(expanded)
-        self.index = pad_index_dim(self.index)
+        if not self._sharded:
+            codes = as_tensor(codes, self.device, torch.uint8)
+        # on a mesh each shard reads its own rows of the codes (a memory-
+        # mapped file streams) and takes a copy of the books
+        self.index = pad_index_dim(set_books(build_sharded_index(
+            codes, pmask, self._place, docids=_ids(docids)), books,
+            expanded))
         return self
 
     def build_from_ragged(self, documents_obj, doc_attnmask=None,
@@ -266,14 +301,15 @@ class RetrievalEngine:
                    **kw) -> "RetrievalEngine":
         """Serve an index that already exists as arrays: the (padded)
         arrays of a JAX ``ShardedIndex`` (``np.asarray(eng.index.P)``, ...)
-        or tensors, used as stored (see ``evdr_tpu_torch.convert``)."""
+        or tensors, used as stored (see ``evdr_tpu_torch.convert``); on a
+        mesh each shard takes its rows."""
         from evdr_tpu_torch.convert import index_from_numpy
 
         eng = cls(**kw)
         eng._reset_incremental()
         eng.index = pad_index_dim(index_from_numpy(
             P, pmask, n_docs, scales=scales, docids=docids, books=books,
-            books_expanded=books_expanded, device=eng.device))
+            books_expanded=books_expanded, device=eng._place))
         return eng
 
     # ---------------------------------------------------------- incremental
@@ -401,7 +437,12 @@ class RetrievalEngine:
                 codes = encode_with_books(self._tail_P, books, self._tail_pm)
             else:
                 codes = encode_pq_device(P, books, pm)
-            tail = build_sharded_index(codes, pm, self.device)
+            tail = build_sharded_index(codes, pm, self._place)
+            # the main index's padded books, shard by shard
+            for tp, mp in zip([tail] if tail.parts is None else tail.parts,
+                              [ix] if ix.parts is None else ix.parts):
+                tp.books, tp.books_expanded = mp.books, mp.books_expanded
+                tp.dim = mp.dim
             tail.books, tail.books_expanded = ix.books, ix.books_expanded
             tail.dim = ix.dim
         else:
@@ -553,8 +594,12 @@ class RetrievalEngine:
 
     def save_npz(self, path) -> None:
         """Write the current corpus as a packed npz (see
-        :meth:`to_packed_payload`), atomically."""
-        self.write_packed_npz(path, self.to_packed_payload())
+        :meth:`to_packed_payload`), atomically. Across processes a
+        collective (every process gathers the rows) in which process 0
+        alone writes."""
+        payload = self.to_packed_payload()
+        if self.mesh is None or self.mesh.rank == 0:
+            self.write_packed_npz(path, payload)
 
     def compact(self) -> "RetrievalEngine":
         """Fold the tail into the main index and drop tombstoned rows: an
@@ -639,6 +684,33 @@ class RetrievalEngine:
         take = order[:, :min(k, self.n_docs)]
         return (np.take_along_axis(v, take, axis=1),
                 np.take_along_axis(gi, take, axis=1))
+
+    def _search_mesh(self, Q, Qd, qmd, k: int, n_candidates, merging: bool):
+        """search_dense on a mesh of several shards: the main index's
+        top-k (over-fetched by the tombstones when merging, as on one
+        device's pruned path), exact or pruned, then the tail merge."""
+        ix = self.index
+        n_tomb = len(self._tombstones)
+        k_main = min(_ceil32(k + n_tomb), ix.n_docs) if merging else k
+        if n_candidates:
+            # stage 1 selects exactly on the summaries (the reference's
+            # approx_max_k is a TPU selection); stage 2 reranks each
+            # shard's candidates where they lie
+            c = int(n_candidates) + (_ceil32(n_tomb) if n_tomb else 0)
+            Qs = pad_queries(as_tensor(Q, self.device, torch.float32),
+                             self.summary)
+            _, cand = _mesh_topk(Qs, qmd, self.summary, min(c, ix.n_docs),
+                                 self.impl, drop_empty=True)
+            vals, idx = sharded_rerank(Qd, qmd, ix, cand, k_main)
+        else:
+            vals, idx = sharded_topk(Qd, qmd, ix, k=k_main, impl=self.impl)
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        if merging:
+            return self._merge_tail(Qd, qmd, vals, idx, k)
+        if n_candidates:
+            return vals, idx
+        k_out = min(k, self.n_docs)
+        return vals[:, :k_out], idx[:, :k_out]
 
     @classmethod
     def from_npz(cls, npz_path, mmap: bool = False, **kw
@@ -773,6 +845,8 @@ class RetrievalEngine:
         self._ensure_tail()  # pending adds materialize on first search
         ix, tail = self.index, self.tail
         merging = tail is not None or bool(self._tombstones)
+        if self._sharded:
+            return self._search_mesh(Q, Qd, qmd, k, n_candidates, merging)
         if merging and not n_candidates:
             # main + tail + the tombstone mask + top-k on the device
             vals, idx = _single_device_merged_topk(
@@ -890,15 +964,32 @@ def _pad_tokens(x: np.ndarray, lp: int, fill) -> np.ndarray:
 def _fetch_rows(ix: ShardedIndex):
     """Host (tokens or codes, pmask, scales or None) of the valid rows of
     ``ix``, tokens cut back to ``ix.dim`` (PQ codes as stored), bf16
-    tokens as their uint16 bits."""
+    tokens as their uint16 bits. A mesh's shards are gathered in bounded
+    chunks (across processes a collective: ``multihost.gather_to_host``)."""
     n = ix.n_docs
-    P = ix.P[:n]
-    if ix.books is None:
-        P = P[..., :ix.dim]
-    bits = P.dtype == torch.bfloat16
-    P = (P.view(torch.int16) if bits else P).cpu().numpy()
-    return (P.view(np.uint16) if bits else P, ix.pmask[:n].cpu().numpy(),
-            None if ix.scales is None else ix.scales[:n].cpu().numpy())
+
+    def tokens(part, rows):
+        P = part.P[:rows]
+        if part.books is None:
+            P = P[..., :ix.dim]
+        return P.view(torch.int16) if P.dtype == torch.bfloat16 else P
+
+    bits = ix.first.P.dtype == torch.bfloat16
+    if ix.parts is None:
+        P = tokens(ix, n).cpu().numpy()
+        pm = ix.pmask[:n].cpu().numpy()
+        sc = None if ix.scales is None else ix.scales[:n].cpu().numpy()
+    else:
+        from evdr_tpu_torch.parallel.multihost import gather_to_host
+
+        def rows(ts):
+            return gather_to_host(ts, ix.mesh)[:n]
+
+        P = rows([tokens(p, p.shard_rows) for p in ix.parts])
+        pm = rows([p.pmask for p in ix.parts])
+        sc = (None if ix.first.scales is None
+              else rows([p.scales for p in ix.parts]))
+    return (P.view(np.uint16) if bits else P, pm, sc)
 
 
 def _floats(P: np.ndarray) -> np.ndarray:

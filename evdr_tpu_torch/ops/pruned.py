@@ -127,6 +127,16 @@ def _rerank_block(Q, qmask, P, pmask, cand_idx, k: int, scales=None,
                   books=None, pq_decode: str = "onehot"):
     """One query block of the exact candidate rerank (see
     :func:`rerank_candidates`)."""
+    scores = _rerank_scores(Q, qmask, P, pmask, cand_idx, scales, books,
+                            pq_decode)
+    vals, pos = _select_topk(scores, min(k, scores.shape[-1]))
+    return vals, torch.gather(cand_idx, 1, pos)
+
+
+def _rerank_scores(Q, qmask, P, pmask, cand_idx, scales=None, books=None,
+                   pq_decode: str = "onehot"):
+    """(nq, C) exact f32 MaxSim of each query's candidates (rows
+    ``cand_idx`` of ``P``); a candidate with no valid token at -inf."""
     Pg = P[cand_idx]                          # (nq, C, Lp, D) or PQ codes
     if books is not None:
         Pg = _decode_pq(Pg, books, Q.shape[-1], pq_decode)
@@ -144,9 +154,7 @@ def _rerank_block(Q, qmask, P, pmask, cand_idx, k: int, scales=None,
     mx = mx * qmask.float()[:, None, :]
     scores = mx.sum(dim=-1)                   # (nq, C)
     # candidates with no valid token (index padding, empty docs) rank last
-    scores = torch.where(any_valid, scores, -torch.inf)
-    vals, pos = _select_topk(scores, min(k, scores.shape[-1]))
-    return vals, torch.gather(cand_idx, 1, pos)
+    return torch.where(any_valid, scores, -torch.inf)
 
 
 def rerank_candidates(Q, qmask, P, pmask, cand_idx, k: int, scales=None,

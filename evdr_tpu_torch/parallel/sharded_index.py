@@ -1,22 +1,30 @@
-"""Single-device multi-vector index.
+"""Doc-sharded multi-vector index.
 
-Counterpart of ``evdr_tpu/parallel/sharded_index.py`` for one device: the
-doc axis is padded to a multiple of ``pad_docs_to`` (padded docs are fully
+Counterpart of ``evdr_tpu/parallel/sharded_index.py``. The doc axis is
+padded to a multiple of ``n_shards * pad_docs_to`` (padded docs are fully
 masked, so they score 0, and the valid count is tracked so top-k drops
-them). Sharding the index over several GPUs is a later slice of the port.
+them). On one device the index is the tensors ``P``, ``pmask``,
+``scales`` and ``books``. On a mesh of several shards (``parallel/mesh.
+DeviceMesh``) the shards are contiguous row ranges with the padding at the
+end, as in the JAX package, so a global doc index names the same row in
+both; ``parts`` holds the shards this process owns, each a one-device
+``ShardedIndex`` on its device (int8/int4 scales shard with their docs,
+PQ books are copied to every shard's device). A ``dp x docs`` mesh holds
+the whole index on each dp group.
 
 ``streaming=True`` builds (``build_sharded_index``) copy a host array, such
 as a read-only ``np.memmap`` of a packed file, into device tensors
 allocated once at the padded size, a bounded chunk of rows at a time
 (int8 quantized chunk by chunk), so a GB-scale file never lands whole in
-anonymous host memory. ``as_tensor`` takes the same route for any
-read-only array.
+anonymous host memory; on a mesh, one shard at a time. A mesh build reads
+only the rows of the shards this process owns. ``as_tensor`` takes the
+same route for any read-only array.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -25,6 +33,7 @@ from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, pad_dim,
                                             pad_pq_queries, pq_width)
 from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
 from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+from evdr_tpu_torch.parallel.mesh import DeviceMesh
 
 _FLOAT_DTYPES = {None: torch.float32, "float32": torch.float32,
                  "bfloat16": torch.bfloat16}
@@ -34,10 +43,13 @@ _QUANTIZERS = {"int8": (quantize_tokens_int8, torch.int8),
 
 @dataclass
 class ShardedIndex:
+    # one device (a mesh of one): the tensors below; a mesh of several:
+    # P, pmask and scales are None, ``parts`` holds this process's shards
+    # and ``books`` the first shard's copy of the books
     # (N_pad, Lp, D) float32 / bfloat16 / int8 codes, (N_pad, ceil(Lp/2), D)
     # uint8 packed int4 codes, or (N_pad, Lp, M) uint8 PQ codes
-    P: torch.Tensor
-    pmask: torch.Tensor      # (N_pad, Lp) bool
+    P: Optional[torch.Tensor]
+    pmask: Optional[torch.Tensor]      # (N_pad, Lp) bool
     n_docs: int              # valid docs (<= N_pad)
     docids: Optional[np.ndarray] = None
     # int8 and int4 indexes: per-token f32 scales (N_pad, Lp); None otherwise
@@ -51,10 +63,29 @@ class ShardedIndex:
     # the token dim D of the indexed pages, where the stored tokens (or PQ
     # books) were zero-padded wider for the kernels (pad_index_dim)
     dim: Optional[int] = None
+    mesh: Optional[DeviceMesh] = None
+    # this process's shards in ``mesh.local_shards()`` order, each a
+    # one-device index of ``shard_rows`` rows whose n_docs counts its
+    # valid rows
+    parts: Optional[List["ShardedIndex"]] = None
 
     @property
     def n_pad(self) -> int:
-        return int(self.P.shape[0])
+        if self.parts is None:
+            return int(self.P.shape[0])
+        return self.shard_rows * self.mesh.n_doc_shards
+
+    @property
+    def shard_rows(self) -> int:
+        if self.parts is None:
+            return self.n_pad
+        return int(self.parts[0].pmask.shape[0])
+
+    @property
+    def first(self) -> "ShardedIndex":
+        """The one-device index whose tensors describe the layout (dtype,
+        widths, books): the index itself, or its first shard."""
+        return self if self.parts is None else self.parts[0]
 
 
 # rows a streamed copy moves at a time: about this many host bytes
@@ -162,7 +193,7 @@ def _build_streamed(P, pmask, device, dtype, n_pad, scales, docids):
 def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
                         scales=None, docids=None,
                         streaming: bool = False) -> ShardedIndex:
-    """Place an index on ``device``.
+    """Place an index on ``device``, or shard it over a ``DeviceMesh``.
 
     ``dtype`` stores it narrower: 'bfloat16' casts (round to nearest even),
     'int8' and 'int4' quantize per token (ops/quantize.py, ops/int4.py)
@@ -176,13 +207,28 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
     allocates each device tensor once at the padded size and copies a
     bounded chunk of rows at a time into it, quantizing int8 chunk by
     chunk; an int4 build must then be given its packed codes + scales.
+
+    On a mesh of several shards each shard this process owns is built
+    from its own rows only (per-token quantization makes that exact), with
+    the doc axis padded to a multiple of ``n_shards * pad_docs_to``.
     """
     if dtype not in (None, "float32", "bfloat16", "int8", "int4"):
         raise ValueError(f"unsupported index dtype {dtype!r}")
-    device = torch.device(device)
-    n = int(P.shape[0])
     quantum = max(1, int(pad_docs_to))
+    n = int(P.shape[0])
+    if isinstance(device, DeviceMesh):
+        if device.size > 1:
+            return _build_on_mesh(P, pmask, device, dtype, quantum, scales,
+                                  docids, streaming)
+        device = device.devices[0]
     n_pad = ((n + quantum - 1) // quantum) * quantum
+    return _build_one(P, pmask, torch.device(device), dtype, n_pad, scales,
+                      docids, streaming)
+
+
+def _build_one(P, pmask, device, dtype, n_pad, scales, docids, streaming):
+    """One device's index of ``n_pad`` rows (the valid rows first)."""
+    n = int(P.shape[0])
     if streaming:
         return _build_streamed(P, pmask, device, dtype, n_pad, scales,
                                docids)
@@ -209,6 +255,48 @@ def build_sharded_index(P, pmask, device, dtype=None, pad_docs_to: int = 64,
     )
 
 
+def shard_range(rows: int, col: int, n_docs: int):
+    """Rows [lo, hi) of the corpus that doc shard ``col`` of ``rows`` rows
+    holds (clipped to ``n_docs``; the shard's other rows are padding)."""
+    rows = int(rows)
+    lo = min(col * rows, n_docs)
+    return lo, min(lo + rows, n_docs)
+
+
+def _build_on_mesh(P, pmask, mesh, dtype, quantum, scales, docids,
+                   streaming) -> ShardedIndex:
+    if streaming and mesh.dp > 1:
+        # as the JAX package: a dp-replicated stream would read every row
+        # once per group
+        raise ValueError("streaming builds support 1D doc meshes only; "
+                         "load eagerly or use a 1D mesh")
+    n = int(P.shape[0])
+    q = mesh.n_doc_shards * quantum
+    n_pad = ((n + q - 1) // q) * q
+    rows = n_pad // mesh.n_doc_shards
+    parts = []
+    for _, col, dev in mesh.local_shards():
+        lo, hi = shard_range(rows, col, n)
+        parts.append(_build_one(
+            P[lo:hi], pmask[lo:hi], dev, dtype, rows,
+            None if scales is None else scales[lo:hi], None, streaming))
+    return ShardedIndex(P=None, pmask=None, n_docs=n, docids=docids,
+                        mesh=mesh, parts=parts)
+
+
+def set_books(index: ShardedIndex, books, expanded: bool) -> ShardedIndex:
+    """Give a PQ index its f32 codebooks, copied to every shard's device."""
+    copies = {}
+    for part in ([index] if index.parts is None else index.parts):
+        dev = part.pmask.device
+        if dev not in copies:
+            copies[dev] = as_tensor(books, dev, torch.float32).contiguous()
+        part.books, part.books_expanded = copies[dev], bool(expanded)
+    index.books = index.first.books
+    index.books_expanded = bool(expanded)
+    return index
+
+
 def pad_index_dim(index: ShardedIndex) -> ShardedIndex:
     """Zero-pad the stored token dim once, up to the width the kernels take
     (a multiple of ``D_GRANULE``), and record the true dim
@@ -219,6 +307,12 @@ def pad_index_dim(index: ShardedIndex) -> ShardedIndex:
     OPQ books their last axis. Queries meet the index through
     :func:`pad_queries`."""
     if index.dim is not None:
+        return index
+    if index.parts is not None:
+        for part in index.parts:
+            pad_index_dim(part)
+        index.dim = index.first.dim
+        index.books = index.first.books
         return index
 
     def width(d):
@@ -243,6 +337,7 @@ def pad_queries(Q: torch.Tensor, index: ShardedIndex) -> torch.Tensor:
     """(nq, Lq, D) queries at the index's true dim -> the stored width of
     :func:`pad_index_dim` (zeros; per subspace for compact PQ books).
     Queries of any other width pass unchanged, for the scorer to refuse."""
+    index = index.first
     d = index.dim
     if d is None or Q.shape[-1] != d:
         return Q

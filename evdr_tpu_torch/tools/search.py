@@ -10,8 +10,10 @@ TREC run file or JSON — the offline equivalent of
         --queries q.npz --k 10 --out run.trec [--format trec|json] \
         [--dtype bfloat16|int8|int4|pq [--quantize_queries]] [--device cpu]
         [--prune_centroids 4 --n_candidates 512 [--summary_dtype int8]]
+        [--mesh_docs 4]
 
-Runs on the GPU unless ``--device cpu`` is given, and fails when there is
+``--mesh_docs N`` shards the index over the first N GPUs
+(``parallel/mesh.make_mesh``). Runs on the GPU unless ``--device cpu`` is given, and fails when there is
 none. Prints one JSON summary line (n_queries, n_docs, per-query latency ms)
 to stderr on completion.
 """
@@ -64,18 +66,23 @@ def write_trec_run(fh, qkeys, docids, scores, tag: str = "evdr_tpu") -> None:
 def run_search(index_path, queries_path, k: int = 10, dtype: str = "bfloat16",
                impl: str = "auto", quantize_queries: bool = False,
                device=None, prune_centroids: int = 0, n_candidates: int = 0,
-               summary_dtype=None):
+               summary_dtype=None, mesh_docs: int = 1):
     """Returns (qkeys, per-query docid lists, scores (nq, k), summary dict).
-    ``prune_centroids`` with ``n_candidates``: two-stage pruned search."""
+    ``prune_centroids`` with ``n_candidates``: two-stage pruned search;
+    ``mesh_docs > 1``: the index sharded over that many GPUs."""
     import torch
 
     from evdr_tpu_torch.engine import RetrievalEngine
+    from evdr_tpu_torch.parallel.mesh import make_mesh
 
+    mesh = (make_mesh(mesh_docs, device=device or "cuda")
+            if mesh_docs > 1 else None)
     eng = RetrievalEngine.from_npz(index_path, dtype=dtype, impl=impl,
                                    quantize_queries=quantize_queries,
                                    prune_centroids=prune_centroids,
                                    summary_dtype=summary_dtype,
-                                   device=device)
+                                   device=None if mesh else device,
+                                   mesh=mesh)
     Q, qmask, qkeys = _load_queries(queries_path)
     kk = min(k, eng.n_docs)
     nc = n_candidates or None
@@ -88,7 +95,8 @@ def run_search(index_path, queries_path, k: int = 10, dtype: str = "bfloat16",
                "k": int(vals.shape[1]),
                "latency_ms_per_query": round(latency_ms, 4), "dtype": dtype,
                "impl": eng.impl, "device": str(eng.device),
-               "pruned": bool(n_candidates and prune_centroids)}
+               "pruned": bool(n_candidates and prune_centroids),
+               "shards": int(mesh_docs)}
     if eng.device.type == "cuda":
         summary["device_name"] = torch.cuda.get_device_name(eng.device)
     return qkeys, eng.ids_for(idx), np.asarray(vals), summary
@@ -114,6 +122,8 @@ def main(argv=None) -> None:
     p.add_argument("--quantize_queries", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain path")
+    p.add_argument("--mesh_docs", type=int, default=1,
+                   help="shard the index over this many GPUs")
     p.add_argument("--tag", default="evdr_tpu")
     a = p.parse_args(argv)
 
@@ -121,7 +131,7 @@ def main(argv=None) -> None:
         a.index, a.queries, k=a.k, dtype=a.dtype, impl=a.impl,
         quantize_queries=a.quantize_queries, device=a.device,
         prune_centroids=a.prune_centroids, n_candidates=a.n_candidates,
-        summary_dtype=a.summary_dtype)
+        summary_dtype=a.summary_dtype, mesh_docs=a.mesh_docs)
 
     fh = sys.stdout if a.out == "-" else open(a.out, "w")
     try:

@@ -12,9 +12,19 @@ many small ones.
         --port 8080 [--dtype int8|int4|pq [--quantize_queries]] [--device cpu]
         [--prune_centroids 4 --n_candidates 512 [--summary_dtype int8]]
         [--save_dir snapshots/]
+        [--multihost --coordinator HOST:PORT --num_processes N
+         --process_id I [--dist_backend nccl|gloo] [--local_shards S]]
+
+``--multihost`` serves one index over one process per GPU
+(``parallel/multihost.py``): every process loads only its own doc shards
+of a packed file, process 0 answers HTTP and broadcasts each search and
+mutation, the others mirror it (``MultihostSearchCoordinator.follow``).
+``--dist_backend`` is explicit: its default is ``nccl`` for a GPU and
+``gloo`` on the CPU; several processes on one GPU need ``gloo``.
 
 API:
-- ``GET /healthz`` -> ``{"status": "ok", "n_docs": N, "impl": ..., ...}``
+- ``GET /healthz`` -> ``{"status": "ok", "n_docs": N, "impl": ..., ...,
+  "mesh": {"shards": S, "processes": P, "backend": ...}}``
 - ``GET /metrics`` -> Prometheus text exposition of the serving counters
 - ``POST /search`` with JSON body
   ``{"queries": [[[...dim floats...] per token] per query],
@@ -354,11 +364,15 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8080,
                 return
             if self.path != "/healthz":
                 return self._reply(404, {"error": "unknown path"})
+            mesh = getattr(engine, "mesh", None)
             self._reply(200, {
                 "status": "ok", "n_docs": engine.n_docs,
                 "dtype": engine.dtype, "impl": engine.impl,
                 "device": str(engine.device),
                 "pruned": engine.summary is not None,
+                "mesh": {"shards": 1 if mesh is None else mesh.size,
+                         "processes": 1 if mesh is None else mesh.world,
+                         "backend": None if mesh is None else mesh.backend},
             })
 
         def _read_json(self):
@@ -576,19 +590,67 @@ def main(argv=None) -> None:
                         "serving (the first call builds and loads the "
                         "kernels)")
     p.add_argument("--multihost", action="store_true",
-                   help="not supported by the torch port (multi-GPU "
-                        "serving is a later slice); rejected")
+                   help="one process per GPU (parallel/multihost.py): "
+                        "every process loads its own doc shards; process 0 "
+                        "serves HTTP and broadcasts each search, the rest "
+                        "mirror it")
+    p.add_argument("--coordinator", default=None,
+                   help="multihost: process 0's host:port")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="multihost: the process group's backend (default "
+                        "nccl on a GPU, gloo on the CPU; several processes "
+                        "on one GPU need gloo)")
+    p.add_argument("--local_shards", type=int, default=1,
+                   help="multihost: doc shards a process holds")
+    p.add_argument("--mesh_docs", type=int, default=1,
+                   help="one process: shard the index over this many GPUs")
     a = p.parse_args(argv)
+
+    mesh = None
     if a.multihost:
-        p.error("--multihost is not supported by evdr_tpu_torch yet")
+        from evdr_tpu_torch.engine import resolve_device
+        from evdr_tpu_torch.parallel.multihost import (global_doc_mesh,
+                                                       init_multihost)
+
+        if not (a.coordinator and a.num_processes and a.process_id
+                is not None):
+            p.error("--multihost needs --coordinator, --num_processes and "
+                    "--process_id")
+        backend = a.dist_backend or (
+            "nccl" if resolve_device(a.device).type == "cuda" else "gloo")
+        init_multihost(a.coordinator, a.num_processes, a.process_id,
+                       backend)
+        mesh = global_doc_mesh(a.local_shards, device=a.device)
+        print(f"[serve] multihost process {mesh.rank}/{mesh.world} "
+              f"({backend}): {mesh.size} doc shards, {mesh.n_local} on "
+              f"{mesh.devices[0]}", flush=True)
+    elif a.mesh_docs > 1:
+        from evdr_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(a.mesh_docs, device=a.device or "cuda")
 
     from evdr_tpu_torch.engine import RetrievalEngine
 
     print(f"[serve] loading index {a.index}", flush=True)
     eng = RetrievalEngine.from_npz(
-        a.index, dtype=a.dtype, impl=a.impl,
-        quantize_queries=a.quantize_queries, device=a.device,
+        a.index, mmap=a.multihost, dtype=a.dtype, impl=a.impl,
+        quantize_queries=a.quantize_queries,
+        device=None if mesh else a.device, mesh=mesh,
         prune_centroids=a.prune_centroids, summary_dtype=a.summary_dtype)
+    coord = None
+    if a.multihost:
+        from evdr_tpu_torch.parallel.multihost import (
+            MultihostSearchCoordinator)
+
+        coord = MultihostSearchCoordinator(eng)
+        if mesh.rank != 0:
+            print(f"[serve] follower {mesh.rank} mirroring process 0",
+                  flush=True)
+            coord.follow()
+            return
+        eng = coord  # every search and mutation broadcasts first
     d = warm_query_dim(eng)
     for b in sorted({int(x) for x in a.warm.split(",") if x.strip()}):
         warm = np.zeros((b, a.length_multiple, d), np.float32)
@@ -607,8 +669,13 @@ def main(argv=None) -> None:
           f"({eng.impl} on {eng.device})", flush=True)
     try:
         srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
     finally:
         srv.server_close()
+        if coord is not None:
+            # release the followers from their broadcast wait
+            coord.stop()
 
 
 if __name__ == "__main__":

@@ -90,6 +90,25 @@ def test_engine_and_clis_raise_without_a_gpu(monkeypatch, tmp_path):
     assert RetrievalEngine(device="cpu").impl == "plain"
     assert RetrievalEngine(dtype="int8", quantize_queries=True,
                            device="cpu").impl == "plain_q8"
+    # meshes, NCCL groups and multi-process serving need the GPU too
+    from evdr_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, mesh_of
+    from evdr_tpu_torch.parallel.multihost import init_multihost
+    from evdr_tpu_torch.tools import serve_http
+
+    for make in (make_mesh, lambda: make_mesh(2), lambda: make_mesh_2d(1, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalEngine(mesh=mesh_of(["cuda:0"] * 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_multihost("localhost:1", 2, 0, "nccl")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http.main(["--index", str(path), "--multihost",
+                         "--coordinator", "localhost:1",
+                         "--num_processes", "2", "--process_id", "0"])
+    with pytest.raises(ValueError, match="backend must be one of"):
+        init_multihost("localhost:1", 2, 0, "mpi")
+    assert RetrievalEngine(mesh=mesh_of(["cpu"] * 4)).impl == "plain"
 
 
 def test_wrappers_route_cpu_tensors_to_plain_versions():
@@ -1014,3 +1033,51 @@ def test_incremental_engine_on_the_card(dtype, q8, func, tmp_path):
     v3, i3 = e3.search_dense(Q, qm, k=k)
     assert e3.ids_for(i3) == ids
     np.testing.assert_array_equal(v3, v2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,q8,func", [
+    ("bfloat16", False, "evdr_maxsim_bf16"),
+    ("int8", False, "evdr_maxsim_int8"),
+    ("int8", True, "evdr_maxsim_int8full"),
+    ("int4", False, "evdr_maxsim_int4"),
+    ("pq", False, "evdr_maxsim_pq")])
+def test_four_shard_mesh_on_one_card_equals_one_shard_engine(dtype, q8,
+                                                              func):
+    """A 4-shard mesh on cuda:0 (four shards on one card) launches the
+    tier's kernel once a shard and returns the one-shard engine's ids and
+    scores bit for bit (a doc's score does not depend on the launch's doc
+    count), exact and pruned, and after an add and a delete."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.parallel.mesh import mesh_of
+
+    cm = cuda_maxsim
+    rng = np.random.default_rng(len(func) + q8)
+    nd, lp, d, nq, lq, k = 500, 70, 128, 12, 16, 10
+    P = rng.normal(size=(nd, lp, d)).astype(np.float32)
+    pm = rng.random((nd, lp)) > 0.1
+    pm[5] = False
+    P[256], pm[256] = P[255], pm[255]          # a tie across shards 1, 2
+    Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((nq, lq), bool)
+    kw = dict(dtype=dtype, quantize_queries=q8, pq_m=16)
+    one = RetrievalEngine(**kw).build(P, pm)
+    mesh = RetrievalEngine(mesh=mesh_of(["cuda:0"] * 4), **kw)
+    if dtype == "pq":
+        mesh.build_from_pq(one.index.P[:nd], one._true_books(), pm)
+    else:
+        mesh.build(P, pm)
+    cm.reset_launch_counts()
+    got = mesh.search_dense(Q, qm, k=k)
+    assert cm.func_launches(func) == 4
+    want = one.search_dense(Q, qm, k=k)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for e in (one, mesh):
+        e.add(P[:20] * 0.5, pm[:20], docids=[f"n{i}" for i in range(20)])
+        e.delete(["3", "n4", "300"])
+    for a, b in zip(mesh.search_dense(Q, qm, k=k),
+                    one.search_dense(Q, qm, k=k)):
+        np.testing.assert_array_equal(a, b)
