@@ -161,7 +161,22 @@ line each:
     bit-equal to the one-shard engine after the same calls, one launch a
     shard, both servers exit 0. Times: q/s of each mesh beside its
     one-shard engine's, the merge's share of a mesh top-k (CUDA events),
-    the processes' start and HTTP times.
+    the processes' start and HTTP times;
+24. multi-GPU training on phase 8's fixture: (a) phase 8's run (200
+    steps, --score_impl auto) through run_training on a 4-shard mesh of
+    the card, after its first step is held against the one-device step
+    (loss rtol 1e-5, rows atol 2e-5; the sharded teacher table against
+    the one-device table) and three more steps are traced by
+    utils.timing.trace_ctx (device_memory_report's peak beside); its eval
+    series against phase 8's log (step 0 equal, then MESH_LOSS_RTOL /
+    MESH_METRIC_ATOL), K1 float32 launched on every shard; (b) hardtoken
+    + QAT int4 (its first step against one device) and mixup, 50 steps
+    each, finite, the int4 artifact served through from_npz; (c) two
+    ``evdr_tpu_torch.train.cli`` processes over gloo (--mesh_docs 4
+    --local_shards 2, 50 steps): process 0's log equals (a)'s first 50
+    steps, the follower writes nothing; (d) a one-process NCCL group of 2
+    shards, 20 steps, equal to the one-process mesh. Times: steps/s and
+    eval ms/query beside phase 8's, each part's seconds.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits nonzero and prints no result
@@ -182,12 +197,14 @@ K2 and K4 as ``pruned_stage1_launches``, and phase 22's merged main +
 tail searches (counts set to 0 just before each) those of K1 bf16, K2,
 K4 and K3 (compact books) as ``incremental_launches``, and phase 23's
 mesh searches (counts set to 0 just before each) as
-``sharded_launches``.
+``sharded_launches``, and phase 24 (a)'s mesh run (counts set to 0 just
+before it) K1 float32's as ``mesh_train_launches``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -259,6 +276,17 @@ INC_EAGER = ("bfloat16",)
 # serve_http --multihost processes (gloo, 2 shards each; 16 queries over
 # HTTP) and a one-process NCCL group of 2 shards
 MESH_SHARDS, MESH_FILE_DOCS, MESH_HTTP_NQ, MESH_SPAWN_S = 4, 25_000, 16, 300
+# multi-GPU training (phase 24): phase 8's run on MESH_SHARDS shards of the
+# card; hardtoken + QAT int4 and mixup runs; two training CLI processes
+# (gloo, 2 shards each); a one-process NCCL group of 2 shards; a few mesh
+# steps traced. The log series of a mesh run may differ from one device's
+# by float32 summation order only: losses within MESH_LOSS_RTOL relative,
+# NDCG@5 and Recall@1 within MESH_METRIC_ATOL over 200 steps (measured on
+# an NVIDIA H100 80GB HBM3 at 700.00 W: 1.5e-6 and 1.3e-4, one query's
+# rank change among the 1,000)
+MESH_TRAIN_STEPS_AUG, MESH_PROC_STEPS, MESH_NCCL_STEPS = 50, 50, 20
+MESH_TRACE_STEPS = 3
+MESH_LOSS_RTOL, MESH_METRIC_ATOL = 1e-4, 2e-3
 # training: a syntheticDocQA / shift-sized ViDoRe corpus (SURVEY.md:154),
 # 1,000 pages x 640-768 tokens, its mf5 pooled student (~154 tokens a
 # page), 1,000 test queries x 16-32 tokens, 10,000 ProxyQ train queries
@@ -853,9 +881,10 @@ def training_times(cm, ct, build, eval_args, teacher_args, step_args, gen,
 
 
 def training_phases(cm, ct, gen, seed, smi, work):
-    """Phases 7-10; returns the kernels line's training entries and the
-    fixture's dataset bundle. The fixture stays under ``work`` for phase
-    18."""
+    """Phases 7-10; returns the kernels line's training entries, the
+    fixture's dataset bundle and phase 8's run (its config's kwargs, rates
+    and log series). The fixture stays under ``work`` for phases 18 and
+    24."""
     from evdr_tpu_torch.ops import _cuda_build as build
     from evdr_tpu_torch.train.config import TrainConfig
     from evdr_tpu_torch.train.harness import init_student, load_dataset_bundle
@@ -882,9 +911,11 @@ def training_phases(cm, ct, gen, seed, smi, work):
     del Qe, qme, P, pm
 
     # 8. the trainer
-    trainer_counts, kw, init, best, _, _, f32_shapes = run_trainer(
-        cm, work, seed)
+    trainer_counts, kw, init, best, steps_s, eval_ms, f32_shapes = \
+        run_trainer(cm, work, seed)
     cfg = TrainConfig(**kw)
+    phase8 = {"kw": kw, "steps_s": steps_s, "eval_ms": eval_ms,
+              "lines": run_lines(cfg)}
     bundle = load_dataset_bundle(cfg, FIXTURE_KEY, device=DEVICE)
     check_best_artifact(bundle, init, best)
     param0, pm_s, _ = init_student(cfg, FIXTURE_KEY, bundle, MF)
@@ -902,7 +933,8 @@ def training_phases(cm, ct, gen, seed, smi, work):
                  "maxsim_fwd_train": step_counts["maxsim_cuda_fwd_train"],
                  "maxsim_bwd": step_counts["maxsim_cuda_bwd"]}
     return training_times(cm, ct, build, eval_args, teacher_args, step_args,
-                          gen, counts_of, f32_shapes, parity, smi), bundle
+                          gen, counts_of, f32_shapes, parity, smi), bundle, \
+        phase8
 
 
 # -------------------------------------------------------- capacity tiers
@@ -3421,6 +3453,377 @@ def mesh_phase(cm, gen, smi, root):
     return reports, launches
 
 
+# ------------------------------------------- multi-GPU training (phase 24)
+
+
+def mesh_train_cfg(kw, name, steps, eval_every, shards=MESH_SHARDS, **over):
+    """Phase 8's flags on a mesh of ``shards`` with --score_impl auto."""
+    from evdr_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(kw, name=name, score_impl="auto",
+                              eval_impl="auto", max_steps=steps,
+                              eval_every=eval_every, mesh_docs=shards,
+                              **over))
+
+
+def run_lines(cfg, key=None):
+    """{(step, key): value} of a run's train.log: train and eval losses and
+    metrics."""
+    d = Path(cfg.out_root) / cfg.name / f"mf{MF}" / (key or FIXTURE_KEY)
+    keys = ("train/total loss", "eval/eval loss", "eval/NDCG@5",
+            "eval/Recall@1")
+    return {(r["step"], k): r[k] for r in eval_lines(d / "train.log")
+            for k in keys if k in r}
+
+
+def series_drift(ref, got):
+    """The largest difference of two runs' common log values: relative for
+    losses, absolute for the metrics, and which (step, key) it is at."""
+    out = {"loss_rel": 0.0, "metric_abs": 0.0}
+    for key in sorted(set(ref) & set(got)):
+        a, b = ref[key], got[key]
+        if "loss" in key[1]:
+            d, slot = abs(b - a) / max(abs(a), 1e-12), "loss_rel"
+        else:
+            d, slot = abs(b - a), "metric_abs"
+        if d >= out[slot]:
+            out[slot], out[slot + "_at"] = d, list(key)
+    return out
+
+
+def mesh_first_step(cm, bundle, kw, mesh, label, **over):
+    """One step from the init on one device and on ``mesh`` (the same batch
+    and seed; both on their precomputed teacher tables, K1 float32 by
+    --score_impl auto): the loss, the updated rows, the tables. Returns
+    the report and both steps (their next steps are traced).
+    """
+    from evdr_tpu_torch.train.harness import (MeshStudent,
+                                              _precompute_teacher_scores,
+                                              build_train_step,
+                                              index_stream, init_student,
+                                              make_optimizer)
+    from evdr_tpu_torch.utils.prng import PRNGSequence
+
+    cfg = mesh_train_cfg(kw, label, 1, 1, shards=mesh.size, **over)
+    one_cfg = dataclasses.replace(cfg, mesh_docs=0)
+    param0, pm_s, _ = init_student(cfg, FIXTURE_KEY, bundle, MF)
+    bundle.sc_t_train = _precompute_teacher_scores(
+        bundle.Q_train, bundle.qmask_train, bundle.P_teacher_norm,
+        bundle.pmask_teacher, chunk_q=256, chunk_p=cfg.chunk_p,
+        impl=cfg.score_impl)
+    p1 = param0.clone().requires_grad_(True)
+    step1 = build_train_step(one_cfg, bundle, pm_s,
+                             make_optimizer(one_cfg, p1))
+    ms = MeshStudent(cfg, bundle, mesh, param0, pm_s)
+    step2 = ms.build_step(cfg, make_optimizer(cfg, ms.params))
+    stream = index_stream(int(bundle.Q_train.shape[0]), STEP_NQ, cfg.seed)
+    seeds = PRNGSequence(cfg.seed)
+    idx, seed = next(stream), seeds.next()
+    l1 = float(step1(idx, seed)["total_loss"])
+    l2 = float(step2(idx, seed)["total_loss"])
+    n = bundle.n_docs
+    full = torch.cat([p.detach() for p in ms.params])[:n]
+    table = torch.cat(ms.sct_train, dim=1)[:, :n]
+    rep = {"loss_one": l1, "loss_mesh": l2,
+           "loss_rel": abs(l2 - l1) / abs(l1),
+           "param_max_abs": float((full - p1.detach()).abs().max()),
+           "table_max_abs": float((table - bundle.sc_t_train).abs().max())}
+    bundle.sc_t_train = None
+    check(rep["loss_rel"] <= 1e-5 and rep["param_max_abs"] <= 2e-5,
+          f"phase 24 {label}: the first mesh step equals the one-device "
+          f"step (loss rtol 1e-5, rows atol 2e-5): {rep}")
+    check(rep["table_max_abs"] <= 1e-5, f"phase 24 {label}: the sharded "
+          f"teacher table equals the one-device table: {rep}")
+    return rep, step1, step2
+
+
+def mesh_trace(step, stream, seeds, work, label):
+    """MESH_TRACE_STEPS steps inside utils.timing.trace_ctx: from the Chrome
+    trace, the kernels' count, their busy share of the traced window (the
+    union of their intervals over the window's span) and the five kernels
+    of most time; device_memory_report()'s peak."""
+    from evdr_tpu_torch.utils.timing import device_memory_report, trace_ctx
+
+    tdir = work / f"trace_{label}"
+    with trace_ctx(tdir):
+        for _ in range(MESH_TRACE_STEPS):
+            step(next(stream), seeds.next())
+        torch.cuda.synchronize()
+    events = json.loads((tdir / "trace.json").read_text())["traceEvents"]
+    check(len(events) > 0, f"trace_ctx wrote a trace of the {label} steps")
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   e.get("name", "")) for e in timed
+                  if e.get("cat") == "kernel")
+    busy, end = 0.0, None
+    for a, b, _ in kern:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in timed)
+            - min(float(e["ts"]) for e in timed)) if timed else 0.0
+    by_name = Counter()
+    for a, b, name in kern:
+        by_name[name[:60]] += b - a
+    mem = device_memory_report()
+    return {"steps": MESH_TRACE_STEPS, "kernel_events": len(kern),
+            "window_ms": span / 1e3, "kernel_busy_ms": busy / 1e3,
+            "busy_share": busy / span if span else None,
+            "top_kernels_ms": {k: v / 1e3 for k, v in
+                               by_name.most_common(5)},
+            "peak_bytes": max(v["peak_bytes_in_use"] for v in mem.values())
+            if mem else None}
+
+
+def mesh_batches(kw):
+    """The index stream and seeds the traced steps draw from (the run's)."""
+    from evdr_tpu_torch.train.harness import index_stream
+    from evdr_tpu_torch.utils.prng import PRNGSequence
+
+    return (index_stream(TRAIN_Q, STEP_NQ, kw["seed"]),
+            PRNGSequence(kw["seed"]))
+
+
+def mesh_train_run(cm, cfg, mesh):
+    """run_training on ``mesh`` with the launch counts set to 0 just before
+    it: (wall s, counts, K1 float32 launches by shape, log lines)."""
+    from evdr_tpu_torch.train.harness import run_training
+
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_training(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cm.launch_counts().items() if v}
+    return wall, counts, launch_shapes(cm, "maxsim_cuda_f32"), run_lines(cfg)
+
+
+def log_rates(cfg):
+    """steps/s between log lines with no eval between them, and the median
+    eval ms/query, from a run's train.log."""
+    d = Path(cfg.out_root) / cfg.name / f"mf{MF}" / FIXTURE_KEY
+    rows = eval_lines(d / "train.log")
+    t = {r["step"]: r["time_sec"] for r in rows if "train/total loss" in r}
+    ev = [r["eval/latency"] for r in rows if "eval/NDCG@5" in r]
+    hi = min(cfg.eval_every, cfg.max_steps)
+    return (hi - 20) / (t[hi] - t[20]), statistics.median(ev)
+
+
+def mesh_processes_train(kw, work, root):
+    """Phase 24 (c): two ``evdr_tpu_torch.train.cli`` processes on the one
+    card over gloo, 2 shards each (--mesh_docs 4 --local_shards 2),
+    MESH_PROC_STEPS steps. The CLI finds the fixture through the built-in
+    key 'shift' (links named shiftproject_test_* to phase 8's files); the
+    follower gets its own --out_root, which must stay unwritten. Returns
+    (process 0's config, wall s)."""
+    data = Path(kw["query_root"])
+    stem = f"{FIXTURE_KEY}_test"
+    for rel in ("{}_dump_all.npz", "{}_query.npz",
+                f"S3E_init/mf{MF}/{{}}.npz"):
+        link = data / rel.format("shiftproject_test")
+        if not link.exists():
+            link.symlink_to(Path(rel.format(stem)).name)
+    port = free_port()
+    logs = [work / f"train{i}.log" for i in range(2)]
+    outs = [work / f"procs{i}" for i in range(2)]
+    cmds = [[sys.executable, "-m", "evdr_tpu_torch.train.cli",
+             "--datasets", "shift", "--query_root", str(data),
+             "--teacher_root", str(data), "--init_root", kw["init_root"],
+             "--mfs", str(MF), "--out_root", str(outs[i]), "--name", "procs",
+             "--seed", str(kw["seed"]), "--score_impl", "auto",
+             "--eval_impl", "auto", "--max_steps", str(MESH_PROC_STEPS),
+             "--eval_every", str(EVAL_EVERY), "--mesh_docs",
+             str(MESH_SHARDS), "--local_shards", str(MESH_SHARDS // 2),
+             "--coordinator", f"localhost:{port}", "--num_processes", "2",
+             "--process_id", str(i), "--dist_backend", "gloo", "--device",
+             mesh_device()] for i in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=open(log, "w"),
+                              stderr=subprocess.STDOUT, cwd=str(root))
+             for c, log in zip(cmds, logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_SPAWN_S - (time.perf_counter()
+                                                     - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 0], f"two training CLI processes exit codes {rcs}: "
+          + " | ".join(x.read_text()[-2000:] for x in logs))
+    check(not outs[1].exists(), "the follower process wrote nothing")
+    cfg = mesh_train_cfg(dict(kw, out_root=str(outs[0])), "procs",
+                         MESH_PROC_STEPS, EVAL_EVERY)
+    return cfg, time.perf_counter() - t0
+
+
+def mesh_train_nccl(kw):
+    """Phase 24 (d): a one-process NCCL group of 2 shards trains
+    MESH_NCCL_STEPS steps; the same run on mesh_of([card] * 2) is the
+    reference. Returns (both log series, NCCL run s)."""
+    import torch.distributed as dist
+
+    from evdr_tpu_torch.parallel.mesh import mesh_of
+    from evdr_tpu_torch.parallel.multihost import (global_doc_mesh,
+                                                   init_multihost)
+    from evdr_tpu_torch.train.harness import run_training
+
+    cfgs = [mesh_train_cfg(kw, name, MESH_NCCL_STEPS, MESH_NCCL_STEPS,
+                           shards=2) for name in ("nccl", "nccl_ref")]
+    t0 = time.perf_counter()
+    init_multihost(f"localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        mesh = global_doc_mesh(2, device=mesh_device())
+        check(mesh.backend == "nccl" and mesh.multiprocess, "NCCL mesh")
+        run_training(cfgs[0], mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    run_training(cfgs[1], mesh=mesh_of([mesh_device()] * 2))
+    return run_lines(cfgs[0]), run_lines(cfgs[1]), wall
+
+
+def qat_artifact_serves(cm, cfg, bundle):
+    """The hardtoken + QAT int4 run's artifact through
+    RetrievalEngine.from_npz(dtype='int4'): its best npz where an eval
+    improved on step 0, else the export at its last step (``save_period``;
+    the int4 engine quantizes it exactly as the QAT step's STE did).
+    search_dense's rank 1 equals K4's plain version on the engine's index
+    but for near-ties."""
+    from evdr_tpu_torch import RetrievalEngine
+
+    d = Path(cfg.out_root) / cfg.name / f"mf{MF}" / FIXTURE_KEY
+    path = d / "best_ndcg5.npz"
+    if not path.exists():
+        path = d / f"compressed_ep{cfg.max_steps}.npz"
+    eng = RetrievalEngine.from_npz(path, dtype="int4", device=DEVICE)
+    Q, qm = bundle.Q_test[:NQ], bundle.qmask_test[:NQ]
+    vals, idx = eng.search_dense(Q, qm, k=K)
+    ix = eng.index
+    plain = cm.maxsim_int4_plain(Q, ix.P, ix.scales, qm,
+                                 ix.pmask)[:, :ix.n_docs]
+    rows = torch.arange(Q.shape[0], device=plain.device)
+    top1 = torch.as_tensor(np.asarray(idx[:, 0]), device=plain.device)
+    gap = float((plain[rows, plain.argmax(dim=1)] - plain[rows, top1]).max())
+    check(np.isfinite(vals).all() and gap < 1e-4, f"the QAT int4 artifact "
+          f"serves: rank 1 against K4's plain version, gap {gap}")
+    return {"file": path.name, "n_docs": eng.n_docs, "rank1_gap": gap}
+
+
+def mesh_train_phase(cm, bundle, kw, phase8, smi, work, root):
+    """Phase 24: multi-GPU training on a mesh of the card. Returns the
+    report and (a)'s K1 float32 launches for the kernels line."""
+    from evdr_tpu_torch.parallel.mesh import mesh_of
+
+    t_start = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()  # the trace's peak is phase 24's
+    m4 = mesh_of([mesh_device()] * MESH_SHARDS)
+    rep = {}
+    # (a) the first step against one device, a traced few, then the run
+    rep["first_step"], step1, step = mesh_first_step(cm, bundle, kw, m4,
+                                                     "a")
+    # the same batches traced on one device and on the mesh
+    rep["trace_one"] = mesh_trace(step1, *mesh_batches(kw), work, "one")
+    rep["trace"] = mesh_trace(step, *mesh_batches(kw), work, "mesh")
+    del step, step1
+    torch.cuda.empty_cache()
+    cfg_a = mesh_train_cfg(kw, "mesh", TRAIN_STEPS, EVAL_EVERY)
+    wall, counts_a, shapes, lines_a = mesh_train_run(cm, cfg_a, m4)
+    rows = -(-TRAIN_DOCS // MESH_SHARDS)
+    n_evals = TRAIN_STEPS // EVAL_EVERY + 1
+    want = MESH_SHARDS * (-(-TRAIN_Q // 256) + -(-TEST_Q // 256) + n_evals)
+    check(counts_a == {"maxsim_cuda_f32": want}
+          and all(x["nd"] == rows for x in shapes),
+          f"phase 24 (a): K1 float32 launched on every shard (teacher "
+          f"tables and evals, {want} launches of {rows} pages): {counts_a}, "
+          f"{shapes}")
+    drift_a = series_drift(phase8["lines"], lines_a)
+    steps_s, eval_ms = log_rates(cfg_a)
+    rep["a"] = {"wall_s": wall, "launches": counts_a, "steps_s": steps_s,
+                "eval_ms_per_query": eval_ms, "phase8_steps_s":
+                phase8["steps_s"], "phase8_eval_ms": phase8["eval_ms"],
+                "drift_vs_phase8": drift_a}
+    step0 = [(0, k) for k in ("eval/NDCG@5", "eval/Recall@1")]
+    check(all(lines_a[k] == phase8["lines"][k] for k in step0),
+          "phase 24 (a): the step-0 metrics equal phase 8's")
+    check(drift_a["loss_rel"] <= MESH_LOSS_RTOL
+          and drift_a["metric_abs"] <= MESH_METRIC_ATOL,
+          f"phase 24 (a): the eval and train series match phase 8's "
+          f"(losses rtol {MESH_LOSS_RTOL}, metrics atol "
+          f"{MESH_METRIC_ATOL}): {drift_a}")
+    t_a = time.perf_counter() - t_start
+    log(f"phase 24 (a) {MESH_SHARDS} shards of {mesh_device()}, "
+        f"{TRAIN_STEPS} steps: first step {rep['first_step']}; traced "
+        f"steps on the mesh {rep['trace']}, on one device "
+        f"{rep['trace_one']}; {steps_s:.1f} steps/s (phase 8: "
+        f"{phase8['steps_s']:.1f}), eval {eval_ms:.4f} ms/query (phase 8: "
+        f"{phase8['eval_ms']:.4f}); drift against phase 8 {drift_a}; "
+        f"launches {counts_a}; run {wall:.1f} s, (a) {t_a:.1f} s; {smi}")
+
+    # (b) hardtoken + QAT int4 and mixup on the 4-shard mesh
+    t0 = time.perf_counter()
+    rep["b_first_step"], *_ = mesh_first_step(
+        cm, bundle, kw, m4, "b", aug="hardtoken", qat="int4")
+    torch.cuda.empty_cache()
+    rep["b"] = {}
+    for name, over in (("hardtoken_int4", dict(
+            aug="hardtoken", qat="int4", save_period=MESH_TRAIN_STEPS_AUG)),
+                       ("mixup", dict(aug="mixup"))):
+        cfg = mesh_train_cfg(kw, f"mesh_{name}", MESH_TRAIN_STEPS_AUG,
+                             MESH_TRAIN_STEPS_AUG, **over)
+        wall, counts, _, lines = mesh_train_run(cm, cfg, m4)
+        vals = list(lines.values())
+        check(len(vals) >= 4 and all(np.isfinite(v) for v in vals),
+              f"phase 24 (b) {name}: finite losses and metrics")
+        rep["b"][name] = {"wall_s": wall, "launches": counts,
+                          "last": {f"{k[1]}@{k[0]}": v for k, v in
+                                   lines.items()
+                                   if k[0] == MESH_TRAIN_STEPS_AUG}}
+        if name == "hardtoken_int4":
+            rep["b"][name]["artifact"] = qat_artifact_serves(cm, cfg, bundle)
+    t_b = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"phase 24 (b): first step {rep['b_first_step']}; runs {rep['b']}; "
+        f"{t_b:.1f} s")
+
+    # (c) two processes on the one card over gloo
+    cfg_c, t_c = mesh_processes_train(kw, work, root)
+    lines_c = run_lines(cfg_c, "shift")
+    early = {k: v for k, v in lines_a.items() if k[0] <= MESH_PROC_STEPS}
+    common = set(early) & set(lines_c)
+    drift_c = series_drift(early, lines_c)
+    check(len(common) >= 4 and drift_c["loss_rel"] <= MESH_LOSS_RTOL
+          and drift_c["metric_abs"] <= MESH_METRIC_ATOL,
+          f"phase 24 (c): process 0's train.log equals (a)'s first "
+          f"{MESH_PROC_STEPS} steps ({sorted(common)}): {drift_c}")
+    rep["c"] = {"wall_s": t_c, "compared": len(common), "drift": drift_c}
+    log(f"phase 24 (c) two CLI processes (gloo, 2 shards each): "
+        f"{rep['c']}")
+
+    # (d) NCCL in one process
+    if torch.cuda.is_available():
+        nccl, ref, t_d = mesh_train_nccl(kw)
+        drift_d = series_drift(ref, nccl)
+        check(set(nccl) == set(ref) and drift_d["loss_rel"] <= MESH_LOSS_RTOL
+              and drift_d["metric_abs"] <= MESH_METRIC_ATOL,
+              f"phase 24 (d): the NCCL group's run equals the one-process "
+              f"mesh's: {drift_d}")
+        rep["d"] = {"wall_s": t_d, "bit_equal": nccl == ref,
+                    "drift": drift_d}
+        log(f"phase 24 (d) NCCL group of 1 process x 2 shards: {rep['d']}")
+    rep["times_s"] = {"a": t_a, "b": t_b, "c": t_c,
+                      "all": time.perf_counter() - t_start}
+    log(f"phase 24: {rep['times_s']['all']:.1f} s ((a) {t_a:.1f}, (b) "
+        f"{t_b:.1f}, (c) {t_c:.1f} s)")
+    n = counts_a["maxsim_cuda_f32"]
+    return rep, {"launches": n, "shards": MESH_SHARDS,
+                 "per_shard": n // MESH_SHARDS, "shapes": shapes}
+
+
 # ------------------------------------------------- training, the rest (18)
 
 
@@ -3718,12 +4121,12 @@ def main(argv=None) -> int:
     del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs
     torch.cuda.empty_cache()
 
-    # 7-10. training; its fixture stays on disk for phase 18
+    # 7-10. training; its fixture stays on disk for phases 18 and 24
     work = Path(root) / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        train_kernels, bundle = training_phases(cm, ct, gen, args.seed, smi,
-                                                work)
+        train_kernels, bundle, phase8 = training_phases(cm, ct, gen,
+                                                        args.seed, smi, work)
         kernels += train_kernels
         torch.cuda.empty_cache()
 
@@ -3742,67 +4145,76 @@ def main(argv=None) -> int:
 
         # 18. the rest of training
         rest_of_training(cm, work, args.seed, bundle)
+        torch.cuda.empty_cache()
+
+        # 19. every query length and width
+        shapes_phase(cm, gen)
+        torch.cuda.empty_cache()
+
+        # 20. every token width: the wide functions
+        kernels += wide_phase(cm, ct, gen, smi)
+        torch.cuda.empty_cache()
+
+        # 21. pruned two-stage search; stage 1's launches at Lp = PRUNE_K join
+        # the entries of the kernels it ran
+        reports, stage1 = pruned_phase(gen, smi, Path(root))
+        log("phase 21 report: " + json.dumps(reports))
+        by_name = {"maxsim_cuda": "maxsim_bf16", "maxsim_cuda_int8":
+                   "maxsim_int8", "maxsim_cuda_int8full": "maxsim_int8full",
+                   "maxsim_cuda_int4": "maxsim_int4"}
+        for (wrapper, func), shapes in stage1.items():
+            entry = next(k for k in kernels if k["name"] == by_name[wrapper])
+            entry.setdefault("pruned_stage1_launches", []).extend(
+                dict(x, func=func) for x in shapes)
+        check(set(stage1) == {("maxsim_cuda", "evdr_maxsim_bf16"),
+                              ("maxsim_cuda_int8", "evdr_maxsim_int8"),
+                              ("maxsim_cuda_int8full", "evdr_maxsim_int8full"),
+                              ("maxsim_cuda_int4", "evdr_maxsim_int4")},
+              f"stage 1 ran K1, K2 (both modes) and K4 at Lp {PRUNE_K}: "
+              f"{sorted(stage1)}")
+        torch.cuda.empty_cache()
+
+        # 22. incremental serving; the merged searches' launches join the
+        # entries of the kernels they ran
+        reports, inc_launches = incremental_phase(cm, gen, args.seed, smi,
+                                                  Path(root))
+        log("phase 22 report: " + json.dumps(reports))
+        for kname, shapes in inc_launches.items():
+            entry = next(k for k in kernels if k["name"] == kname)
+            entry["incremental_launches"] = shapes
+            check(sum(x["launches"] for x in shapes) >= 2,
+                  f"{kname} ran on the merged main + tail path")
+        check(set(inc_launches) == {"maxsim_bf16", "maxsim_int8",
+                                    "maxsim_int8full", "maxsim_int4",
+                                    "maxsim_pq"},
+              f"phase 22 ran K1, K2 (both modes), K4 and K3: "
+              f"{sorted(inc_launches)}")
+        torch.cuda.empty_cache()
+
+        # 23. multi-device serving; the mesh searches' launches join the
+        # entries of the kernels they ran
+        reports, mesh_launches = mesh_phase(cm, gen, smi, Path(root))
+        log("phase 23 report: " + json.dumps(reports))
+        for kname, tiers in mesh_launches.items():
+            entry = next(k for k in kernels if k["name"] == kname)
+            entry["sharded_launches"] = tiers
+        check(set(mesh_launches) == {"maxsim_bf16", "maxsim_int8",
+                                     "maxsim_int8full", "maxsim_int4",
+                                     "maxsim_pq"},
+              f"phase 23 ran K1, K2 (both modes), K4 and K3 on the mesh: "
+              f"{sorted(mesh_launches)}")
+
+        # 24. multi-GPU training on phase 8's fixture; its K1 float32
+        # launches join that kernel's entry
+        torch.cuda.empty_cache()
+        report, mesh_train = mesh_train_phase(cm, bundle, phase8["kw"],
+                                              phase8, smi, work, Path(root))
+        log("phase 24 report: " + json.dumps(report))
+        entry = next(k for k in kernels if k["name"] == "maxsim_f32")
+        entry["mesh_train_launches"] = mesh_train
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
-
-    # 19. every query length and width
-    shapes_phase(cm, gen)
-    torch.cuda.empty_cache()
-
-    # 20. every token width: the wide functions
-    kernels += wide_phase(cm, ct, gen, smi)
-    torch.cuda.empty_cache()
-
-    # 21. pruned two-stage search; stage 1's launches at Lp = PRUNE_K join
-    # the entries of the kernels it ran
-    reports, stage1 = pruned_phase(gen, smi, Path(root))
-    log("phase 21 report: " + json.dumps(reports))
-    by_name = {"maxsim_cuda": "maxsim_bf16", "maxsim_cuda_int8":
-               "maxsim_int8", "maxsim_cuda_int8full": "maxsim_int8full",
-               "maxsim_cuda_int4": "maxsim_int4"}
-    for (wrapper, func), shapes in stage1.items():
-        entry = next(k for k in kernels if k["name"] == by_name[wrapper])
-        entry.setdefault("pruned_stage1_launches", []).extend(
-            dict(x, func=func) for x in shapes)
-    check(set(stage1) == {("maxsim_cuda", "evdr_maxsim_bf16"),
-                          ("maxsim_cuda_int8", "evdr_maxsim_int8"),
-                          ("maxsim_cuda_int8full", "evdr_maxsim_int8full"),
-                          ("maxsim_cuda_int4", "evdr_maxsim_int4")},
-          f"stage 1 ran K1, K2 (both modes) and K4 at Lp {PRUNE_K}: "
-          f"{sorted(stage1)}")
-    torch.cuda.empty_cache()
-
-    # 22. incremental serving; the merged searches' launches join the
-    # entries of the kernels they ran
-    reports, inc_launches = incremental_phase(cm, gen, args.seed, smi,
-                                              Path(root))
-    log("phase 22 report: " + json.dumps(reports))
-    for kname, shapes in inc_launches.items():
-        entry = next(k for k in kernels if k["name"] == kname)
-        entry["incremental_launches"] = shapes
-        check(sum(x["launches"] for x in shapes) >= 2,
-              f"{kname} ran on the merged main + tail path")
-    check(set(inc_launches) == {"maxsim_bf16", "maxsim_int8",
-                                "maxsim_int8full", "maxsim_int4",
-                                "maxsim_pq"},
-          f"phase 22 ran K1, K2 (both modes), K4 and K3: "
-          f"{sorted(inc_launches)}")
-    torch.cuda.empty_cache()
-
-    # 23. multi-device serving; the mesh searches' launches join the
-    # entries of the kernels they ran
-    reports, mesh_launches = mesh_phase(cm, gen, smi, Path(root))
-    log("phase 23 report: " + json.dumps(reports))
-    for kname, tiers in mesh_launches.items():
-        entry = next(k for k in kernels if k["name"] == kname)
-        entry["sharded_launches"] = tiers
-    check(set(mesh_launches) == {"maxsim_bf16", "maxsim_int8",
-                                 "maxsim_int8full", "maxsim_int4",
-                                 "maxsim_pq"},
-          f"phase 23 ran K1, K2 (both modes), K4 and K3 on the mesh: "
-          f"{sorted(mesh_launches)}")
-    log(f"phases 1-23: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 1-24: {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     n_k = 15 + 16

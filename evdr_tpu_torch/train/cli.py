@@ -14,8 +14,12 @@ student is always scored by the plain differentiable ``maxsim_torch``.
 ``--device cpu`` runs the plain PyTorch path on the host. ``--aug
 qnoise|mixup|hardtoken`` and ``--qat int8|int4|pq|opq`` (with
 ``--qat_start_frac``, ``--qat_select_all``, ``--qat_pq_m``) run as in the
-JAX trainer. Settings not ported yet (``--mesh_docs > 1``,
-``--checkpoint_backend orbax``, multi-host flags) raise
+JAX trainer. ``--mesh_docs N`` trains doc-sharded over the first N GPUs
+(``parallel/train_sharded.py``). One process per GPU (or several on one
+card over gloo) joins with ``--coordinator host:port --num_processes P
+--process_id I --dist_backend nccl|gloo [--local_shards S]``, where
+``--mesh_docs`` is the global shard count (P x S); only process 0 writes.
+``--checkpoint_backend orbax`` is not ported and raises
 ``NotImplementedError``.
 """
 
@@ -101,9 +105,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--qat_start_frac", type=float,
                    default=defaults.qat_start_frac)
     p.add_argument("--mesh_docs", type=int, default=defaults.mesh_docs)
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host training: process 0's host:port. "
+                        "Requires --mesh_docs == the GLOBAL shard count and "
+                        "shared storage for --out_root")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="multi-host: the process group's backend (default "
+                        "nccl on a GPU, gloo on the CPU; several processes "
+                        "on one GPU need gloo)")
+    p.add_argument("--local_shards", type=int, default=1,
+                   help="multi-host: doc shards a process holds")
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (raises when there is "
                         "none), 'cpu' runs the plain PyTorch path")
@@ -121,13 +134,39 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.coordinator is not None or args.num_processes is not None:
-        raise NotImplementedError(
-            "multi-host training is not ported to evdr_tpu_torch yet "
-            "(ROADMAP.md queue 1, 'Multi-GPU')")
     from evdr_tpu_torch.train.harness import run_training
 
-    run_training(cfg, device=args.device)
+    if args.coordinator is None and args.num_processes is None:
+        run_training(cfg, device=args.device)
+        return
+    if cfg.mesh_docs <= 1:
+        # without this, N processes would each silently run a FULL
+        # duplicate unsharded training (followers discarding all writes)
+        # while the user believes they launched one multi-host run
+        raise SystemExit(
+            "--coordinator/--num_processes requires --mesh_docs set to "
+            "the GLOBAL device count (multi-host training shards the "
+            "doc axis over every device)")
+    import torch.distributed as dist
+
+    from evdr_tpu_torch.engine import resolve_device
+    from evdr_tpu_torch.parallel.multihost import (global_doc_mesh,
+                                                   init_multihost)
+
+    backend = args.dist_backend or (
+        "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+    # join the group before any device use
+    init_multihost(args.coordinator, args.num_processes, args.process_id,
+                   backend)
+    try:
+        mesh = global_doc_mesh(args.local_shards, device=args.device)
+        if mesh.size != cfg.mesh_docs:
+            raise SystemExit(
+                f"multi-host training shards over ALL global shards: pass "
+                f"--mesh_docs {mesh.size} (got {cfg.mesh_docs})")
+        run_training(cfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -34,10 +34,23 @@ As in the JAX package:
   :func:`virtual_query_noise` (other numbers than JAX's; the parity tests
   hand both packages the same draws).
 
-Not ported yet (``check_ported`` raises ``NotImplementedError``):
-``mesh_docs > 1`` and orbax checkpoints (they need the
-``orbax-checkpoint`` package, which the port does not depend on; npz is
-what both packages read).
+``mesh_docs > 1`` trains doc-sharded (``parallel/train_sharded.py``): the
+student, its mask and the teacher shard over a ``DeviceMesh`` in the JAX
+package's layout (the doc axis padded to a multiple of the shard count),
+queries stay on the first shard's device, the teacher tables are
+precomputed shard by shard with ``score_impl`` and the evaluation scores
+shard by shard with ``eval_impl`` (K1's float32 mode on every shard of a
+GPU mesh). ``run_training(..., mesh=)`` takes the mesh (a one-process
+``mesh_of([...])`` or a ``multihost.global_doc_mesh``); without it,
+``make_mesh`` over the first ``mesh_docs`` GPUs. Across processes only
+process 0 writes (logs, artifacts, checkpoints); the others compute
+everything and write nothing. A mesh checkpoint keeps the padded layout, so
+it resumes in either package at the same mesh size, and a one-device
+checkpoint is zero-padded onto the mesh.
+
+Not ported (``check_ported`` raises ``NotImplementedError``): orbax
+checkpoints (they need the ``orbax-checkpoint`` package, which the port
+does not depend on; npz is what both packages read).
 The JAX package's persistent compilation cache
 (``utils/timing.enable_persistent_cache``) has no counterpart: PyTorch runs
 eagerly and the kernels are built once per source hash.
@@ -104,10 +117,6 @@ def check_ported(cfg: TrainConfig) -> None:
             "checkpoint_backend='orbax' is not ported to evdr_tpu_torch yet "
             f"({_ROADMAP_TRAINING}): it needs the orbax-checkpoint package; "
             "npz checkpoints resume in both packages")
-    if cfg.mesh_docs > 1:
-        raise NotImplementedError(
-            "mesh_docs > 1 (multi-device training) is not ported to "
-            "evdr_tpu_torch yet (ROADMAP.md queue 1, 'Multi-GPU')")
 
 
 def _needs_query_chunking(loss: str) -> bool:
@@ -365,9 +374,12 @@ def make_loss_fn(cfg: TrainConfig):
 # train step
 # =============================================================================
 
-def make_optimizer(cfg: TrainConfig, param: torch.Tensor) -> torch.optim.AdamW:
-    """``optax.adamw(lr, weight_decay=wd)``: the same update rule."""
-    return torch.optim.AdamW([param], lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+def make_optimizer(cfg: TrainConfig, param) -> torch.optim.AdamW:
+    """``optax.adamw(lr, weight_decay=wd)``: the same update rule, over the
+    parameter or a list of them (a mesh's shards: AdamW is elementwise, so
+    per-shard state is the global state)."""
+    params = list(param) if isinstance(param, (list, tuple)) else [param]
+    return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay)
 
 
@@ -488,22 +500,29 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
         return parts
 
     def run_step(idx, seed):
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
-        gen = generator_for(seed, device)
-        host_rng = np.random.default_rng(seed)
-        if idx.dim() == 1:
-            return step(idx, gen, host_rng)
-        # K steps per loop turn: the parts come from the last step, plus
-        # the sum of all K totals (the JAX package's scan, harness.py:476-483)
-        total_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for row in idx:
-            parts = step(row, gen, host_rng)
-            total_sum = total_sum + parts["total_loss"]
-        parts["total_loss_sum"] = total_sum
-        return parts
+        return dispatch_steps(step, idx, seed, device)
 
     run_step.data = data
     return run_step
+
+
+def dispatch_steps(step, idx, seed, device):
+    """One loop turn of a train step ``step(idx, gen, host_rng) -> parts``:
+    ``idx`` is one batch (B,), or (K, B) for K steps, on a generator on
+    ``device`` and a host generator both seeded by ``seed``. K steps return
+    the last step's parts plus the sum of all K totals (the JAX package's
+    scan, harness.py:476-483)."""
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
+    gen = generator_for(seed, device)
+    host_rng = np.random.default_rng(seed)
+    if idx.dim() == 1:
+        return step(idx, gen, host_rng)
+    total_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for row in idx:
+        parts = step(row, gen, host_rng)
+        total_sum = total_sum + parts["total_loss"]
+    parts["total_loss_sum"] = total_sum
+    return parts
 
 
 def _stable_argsort_desc(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -724,16 +743,28 @@ def save_checkpoint(path: Path, param, optimizer, step: int, best_r1,
     """npz in the JAX package's leaf layout: leaf_0 the parameter, leaf_1
     the Adam step count (int32), leaf_2 / leaf_3 the first / second
     moments (optax's ScaleByAdamState order). Crash-atomic (tmp + rename)."""
+    count, mu, nu = _adam_state(param, optimizer)
+    write_checkpoint(path, {"leaf_0": param.detach().cpu().numpy(),
+                            "leaf_1": np.asarray(count, dtype=np.int32),
+                            "leaf_2": mu.cpu().numpy(),
+                            "leaf_3": nu.cpu().numpy()},
+                     step, best_r1, best_nd5)
+
+
+def _adam_state(param, optimizer):
+    """(step count, first moment, second moment) of one parameter; zeros
+    before the first step."""
     state = optimizer.state.get(param, {})
     if state:
-        count = np.asarray(int(state["step"]), dtype=np.int32)
-        mu = state["exp_avg"].cpu().numpy()
-        nu = state["exp_avg_sq"].cpu().numpy()
-    else:  # no step taken yet
-        count = np.asarray(0, dtype=np.int32)
-        mu = nu = np.zeros(tuple(param.shape), np.float32)
-    arrays = {"leaf_0": param.detach().cpu().numpy(), "leaf_1": count,
-              "leaf_2": mu, "leaf_3": nu}
+        return int(state["step"]), state["exp_avg"], state["exp_avg_sq"]
+    zeros = torch.zeros_like(param.detach())
+    return 0, zeros, zeros
+
+
+def write_checkpoint(path: Path, arrays: Dict[str, np.ndarray], step: int,
+                     best_r1, best_nd5) -> None:
+    """The npz of :func:`save_checkpoint` from its leaves (a mesh gathers
+    them first)."""
     meta = {"step": step, "best_r1": best_r1, "best_nd5": best_nd5,
             "n_leaves": len(arrays)}
     path = Path(path)
@@ -752,14 +783,210 @@ def load_checkpoint(path: Path, device):
     checkpoint of either package (``convert.train_state_from_numpy``)."""
     from evdr_tpu_torch.convert import train_state_from_numpy
 
+    z, meta = checkpoint_leaves(path)
+    param, state = train_state_from_numpy(
+        z["leaf_0"], z["leaf_2"], z["leaf_3"], z["leaf_1"], device)
+    return param, state, meta["step"], meta["best_r1"], meta["best_nd5"]
+
+
+def checkpoint_leaves(path: Path):
+    """-> (the npz's leaves, its meta dict), checked to be (param, adamw
+    state)."""
     z = np.load(path, allow_pickle=True)
     meta = z["meta"].item()
     if meta["n_leaves"] != 4:
         raise ValueError(f"{path}: expected the 4 leaves of (param, adamw "
                          f"state), got {meta['n_leaves']}")
-    param, state = train_state_from_numpy(
-        z["leaf_0"], z["leaf_2"], z["leaf_3"], z["leaf_1"], device)
-    return param, state, meta["step"], meta["best_r1"], meta["best_nd5"]
+    return z, meta
+
+
+# =============================================================================
+# doc-sharded training (mesh_docs > 1)
+# =============================================================================
+
+class MeshStudent:
+    """The mesh half of :func:`train_dataset_mf` (the JAX loop's mesh
+    branches, ``evdr_tpu/train/harness.py:794-981``, ``:1092-1175``).
+
+    The student parameter and its mask shard over ``mesh`` in the JAX
+    package's layout (``n_pad`` rows, a multiple of the shard count, the
+    padding at the end), the teacher through ``build_sharded_index``
+    (each process builds only the shards it owns); the teacher tables
+    (test, and train unless qnoise rescores it) are precomputed shard by
+    shard through ``maxsim(impl=cfg.score_impl)``. Every method that
+    gathers is a collective: every process of the mesh calls it."""
+
+    def __init__(self, cfg: TrainConfig, bundle: DatasetBundle, mesh,
+                 param: torch.Tensor, pmask_student: torch.Tensor):
+        from evdr_tpu_torch.parallel.multihost import shard_docs_global
+        from evdr_tpu_torch.parallel.sharded_index import build_sharded_index
+        from evdr_tpu_torch.parallel.train_sharded import (
+            build_sharded_eval_loss, precompute_teacher_scores_sharded)
+
+        self.cfg, self.bundle, self.mesh = cfg, bundle, mesh
+        self.dev0 = mesh.devices[0]
+        self.n_docs = bundle.n_docs
+        teacher = build_sharded_index(bundle.P_teacher_norm,
+                                      bundle.pmask_teacher, mesh,
+                                      pad_docs_to=1)
+        self.n_pad = teacher.n_pad
+        self.Pt = [t.P for t in teacher.parts]
+        self.pmt = [t.pmask for t in teacher.parts]
+        self.params = [x.detach().clone().requires_grad_(True) for x in
+                       shard_docs_global(param, mesh, n_pad=self.n_pad)]
+        self.pms = shard_docs_global(pmask_student, mesh, n_pad=self.n_pad)
+        self.sct_test = self.sct_train = None
+        if cfg.loss != "infonce_sup":
+            kw = dict(chunk_q=256, chunk_p=cfg.chunk_p, impl=cfg.score_impl)
+            self.sct_test = precompute_teacher_scores_sharded(
+                bundle.Q_test, bundle.qmask_test, self.Pt, self.pmt, mesh,
+                **kw)
+            if cfg.precompute_teacher and cfg.aug != "qnoise":
+                self.sct_train = precompute_teacher_scores_sharded(
+                    bundle.Q_train, bundle.qmask_train, self.Pt, self.pmt,
+                    mesh, **kw)
+        self.eval_loss_fn = build_sharded_eval_loss(cfg, mesh, self.n_docs)
+        self.pos_test = (_test_pos_idx(bundle) if cfg.loss == "infonce_sup"
+                         else None)
+        self.eval_qsel = None  # supervised eval: drop queries with no gt
+        if self.pos_test is not None and (self.pos_test < 0).any():
+            keep = np.flatnonzero(self.pos_test >= 0)
+            self.eval_qsel = torch.as_tensor(keep, device=self.dev0)
+            self.pos_test = self.pos_test[keep] if keep.size else None
+
+    def _host(self, xs) -> np.ndarray:
+        from evdr_tpu_torch.parallel.multihost import gather_to_host
+
+        return gather_to_host([x.detach() for x in xs], self.mesh)
+
+    def student(self):
+        """(param, pmask) of the real docs, gathered (for the exports)."""
+        n = self.n_docs
+        return (torch.from_numpy(self._host(self.params)[:n]),
+                torch.from_numpy(self._host(self.pms)[:n]))
+
+    def score_fn(self) -> torch.Tensor:
+        """The test queries against every shard of the current student in
+        float32 through ``maxsim(impl=cfg.eval_impl)`` (the serving form
+        under QAT int8/int4: per-token, so shard-local), the score blocks
+        gathered: (Q_test, n_docs) on the first device."""
+        from evdr_tpu_torch.parallel.mesh import gather_blocks
+
+        cfg, b = self.cfg, self.bundle
+        blocks, copies = [], {}
+        for p, pm, (_, _, dev) in zip(self.params, self.pms,
+                                      self.mesh.local_shards()):
+            if dev not in copies:
+                copies[dev] = (b.Q_test.to(dev), b.qmask_test.to(dev))
+            Q, qm = copies[dev]
+            Ps = l2_normalize(p.detach() * pm[..., None].to(torch.float32))
+            if cfg.qat in ("int8", "int4"):
+                Ps = qat_apply(Ps, cfg.qat, pmask=pm)
+            blocks.append(maxsim(Q, Ps, qm, pm, chunk_p=cfg.chunk_p,
+                                 impl=cfg.eval_impl,
+                                 compute_dtype=torch.float32))
+        sc = torch.cat(gather_blocks(blocks, self.mesh, self.dev0), dim=1)
+        return sc[:, :self.n_docs]
+
+    def eval_loss(self) -> Dict[str, float]:
+        """The distillation loss on the test queries through the collective
+        forms (no index-sized gather)."""
+        cfg, b = self.cfg, self.bundle
+        if cfg.loss == "infonce_sup" and self.pos_test is None:
+            return {"total_loss": 0.0}
+        pos = (torch.as_tensor(self.pos_test, dtype=torch.long,
+                               device=self.dev0)
+               if self.pos_test is not None else None)
+        Q, qm = b.Q_test, b.qmask_test
+        if self.eval_qsel is not None:
+            Q, qm = Q[self.eval_qsel], qm[self.eval_qsel]
+
+        def run(st, ed):
+            sct = (None if self.sct_test is None
+                   else [s[st:ed] for s in self.sct_test])
+            return self.eval_loss_fn(
+                self.params, self.pms, self.Pt, self.pmt, Q[st:ed],
+                qm[st:ed], sct_rows=sct,
+                pos=None if pos is None else pos[st:ed])
+
+        total, parts = _query_chunked_loss(int(Q.shape[0]), cfg.loss, run)
+        out = {"total_loss": total}
+        out.update({f"loss_{k}": v for k, v in parts.items()})
+        return out
+
+    def build_step(self, cfg: TrainConfig, optimizer):
+        from evdr_tpu_torch.parallel.train_sharded import (
+            build_sharded_train_step)
+
+        b = self.bundle
+        step, _ = build_sharded_train_step(
+            cfg, self.mesh, params=self.params, pmask_student=self.pms,
+            P_teacher=self.Pt, pmask_teacher=self.pmt, n_docs=self.n_docs,
+            Q_all=b.Q_train, qm_all=b.qmask_train, sct_all=self.sct_train,
+            pos_all=b.pos_idx, optimizer=optimizer)
+        return step
+
+    def masked_param_absmax(self) -> float:
+        from evdr_tpu_torch.parallel.mesh import gather_blocks
+
+        with torch.no_grad():
+            m = [(p * ~pm[..., None]).abs().amax() for p, pm in
+                 zip(self.params, self.pms)]
+        return float(torch.stack(gather_blocks(m, self.mesh,
+                                               self.dev0)).max())
+
+    def resume_decision(self, resuming: bool) -> bool:
+        """Process 0's decision on every process (a fork would desynchronize
+        the collectives)."""
+        if not self.mesh.multiprocess:
+            return resuming
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(resuming)], dtype=torch.int32)
+        dist.broadcast(flag, src=0, group=self.mesh.ctrl_group)
+        return bool(flag.item())
+
+    def save_checkpoint(self, path, optimizer, step, best_r1, best_nd5,
+                        write: bool) -> None:
+        """The JAX package's mesh checkpoint: the leaves in the padded
+        layout, gathered; only ``write`` (process 0) writes them."""
+        states = [_adam_state(p, optimizer) for p in self.params]
+        arrays = {"leaf_0": self._host(self.params),
+                  "leaf_1": np.asarray(states[0][0], dtype=np.int32),
+                  "leaf_2": self._host([s[1] for s in states]),
+                  "leaf_3": self._host([s[2] for s in states])}
+        if write:
+            write_checkpoint(path, arrays, step, best_r1, best_nd5)
+
+    def load_checkpoint(self, path):
+        """Resume the shards from a checkpoint of either package: a mesh's
+        (``n_pad`` rows) or a one-device run's (``n_docs`` rows,
+        zero-padded onto the mesh). Sets the parameters; returns (the AdamW
+        states by shard, step, best_r1, best_nd5)."""
+        from evdr_tpu_torch.parallel.multihost import shard_docs_global
+
+        z, meta = checkpoint_leaves(path)
+        like = tuple(self.params[0].shape[1:])
+
+        def shards(x):
+            x = np.asarray(x, dtype=np.float32)
+            if x.shape[1:] != like or x.shape[0] > self.n_pad:
+                raise ValueError(f"checkpoint leaf shape {x.shape} "
+                                 f"incompatible with the mesh state "
+                                 f"({self.n_pad},) + {like}")
+            if x.shape[0] < self.n_pad:
+                x = np.pad(x, ((0, self.n_pad - x.shape[0]),)
+                           + ((0, 0),) * (x.ndim - 1))
+            return [t.clone() for t in
+                    shard_docs_global(x, self.mesh, n_pad=self.n_pad)]
+
+        self.params = [p.requires_grad_(True) for p in shards(z["leaf_0"])]
+        count = torch.tensor(float(np.asarray(z["leaf_1"])),
+                             dtype=torch.float32)
+        states = [{"step": count.clone(), "exp_avg": mu, "exp_avg_sq": nu}
+                  for mu, nu in zip(shards(z["leaf_2"]),
+                                    shards(z["leaf_3"]))]
+        return states, meta["step"], meta["best_r1"], meta["best_nd5"]
 
 
 # =============================================================================
@@ -784,10 +1011,11 @@ def index_stream(n: int, batch: int, seed: int) -> Iterator[np.ndarray]:
 # =============================================================================
 
 def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
-                     mf: int, batch_stream: Optional[Iterator] = None
-                     ) -> Dict[str, Any]:
-    """Train one (dataset, mf) cell on the bundle's device; returns the
-    final summary dict.
+                     mf: int, batch_stream: Optional[Iterator] = None,
+                     mesh=None) -> Dict[str, Any]:
+    """Train one (dataset, mf) cell on the bundle's device, or doc-sharded
+    over ``mesh`` (a ``DeviceMesh`` of ``cfg.mesh_docs`` shards whose first
+    device holds the bundle); returns the final summary dict.
 
     ``batch_stream`` (testing/parity hook) replaces the shuffled index
     stream with an externally supplied iterator of index batches."""
@@ -795,17 +1023,31 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
     rngs = PRNGSequence(cfg.seed)
     param, pmask_student, (doc_attn_in, doc_img_in) = init_student(
         cfg, dataset, bundle, mf)
+    # the mesh: the student and the teacher shard over the doc axis
+    # (parallel/train_sharded.py); across processes every process computes
+    # everything and only process 0 writes (its out_dir may be shared)
+    ms = (None if mesh is None else
+          MeshStudent(cfg, bundle, mesh, param, pmask_student))
+    is_main = mesh is None or mesh.rank == 0
 
     out_dir = Path(cfg.out_root) / cfg.name / f"mf{mf}" / dataset
-    out_dir.mkdir(parents=True, exist_ok=True)
-    logger, writer = get_logger(out_dir)
-    cfg_path = out_dir / "config.json"
-    if not cfg_path.exists():
-        cfg_path.write_text(
-            json.dumps({"dataset": dataset, "mf": mf,
-                        **dataclasses.asdict(cfg)}, ensure_ascii=False,
-                       indent=2),
-            encoding="utf-8")
+    if is_main:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        logger, writer = get_logger(out_dir)
+        cfg_path = out_dir / "config.json"
+        if not cfg_path.exists():
+            cfg_path.write_text(
+                json.dumps({"dataset": dataset, "mf": mf,
+                            **dataclasses.asdict(cfg)}, ensure_ascii=False,
+                           indent=2),
+                encoding="utf-8")
+    else:
+        import logging
+
+        logger = logging.getLogger(f"evdr_follower_{os.getpid()}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        writer = None
 
     evaluator = CustomRetrievalEvaluator()
     pm_f = pmask_student[..., None].to(torch.float32)
@@ -821,7 +1063,15 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
 
     def eval_now(step):
         nonlocal qat_books
-        if cfg.qat != "none":
+        if ms is not None:
+            # every process scores and computes the metrics (identical
+            # inputs, so identical best-tracking decisions)
+            metrics = eval_retrieval(
+                evaluator, bundle.Q_test, bundle.qmask_test, None, None,
+                bundle.relevant_docs_test, bundle.docidx_2_docid_test,
+                bundle.qsidx_2_query_test, score_fn=ms.score_fn)
+            ev_loss = ms.eval_loss()
+        elif cfg.qat != "none":
             # QAT: evaluate (and select best checkpoints by) the serving
             # reconstruction, not the raw f32 student (harness.py:982-1021)
             with torch.no_grad():
@@ -846,14 +1096,16 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
                 evaluator, bundle.Q_test, bundle.qmask_test, None, None,
                 bundle.relevant_docs_test, bundle.docidx_2_docid_test,
                 bundle.qsidx_2_query_test, score_fn=qat_score_fn)
+            ev_loss = evaluation_loss(cfg, bundle, param.detach(),
+                                      pmask_student, qat_books=qat_books)
         else:
             metrics = eval_retrieval(
                 evaluator, bundle.Q_test, bundle.qmask_test, param.detach(),
                 pmask_student, bundle.relevant_docs_test,
                 bundle.docidx_2_docid_test, bundle.qsidx_2_query_test,
                 chunk_p=cfg.chunk_p, impl=cfg.eval_impl)
-        ev_loss = evaluation_loss(cfg, bundle, param.detach(), pmask_student,
-                                  qat_books=qat_books)
+            ev_loss = evaluation_loss(cfg, bundle, param.detach(),
+                                      pmask_student, qat_books=qat_books)
         scalars = {
             "dataset": dataset, "mf": mf, "step": int(step),
             "eval/eval loss": ev_loss["total_loss"],
@@ -872,6 +1124,8 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
     step0 = 0
     ckpt_path = out_dir / "ckpt.npz"
     resuming = cfg.resume and ckpt_path.exists()
+    if ms is not None and cfg.resume:
+        resuming = ms.resume_decision(resuming)
     adam_state = None
     # QAT fine-tune selection window (cfg.qat_select_post): best-checkpoint
     # updates only from the STE switch on, so a QAT artifact is never a
@@ -894,30 +1148,45 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
             best_r1, _ = update_best(None, metrics0, 0, "r1")
             best_nd5, _ = update_best(None, metrics0, 0, "nd5")
         last_metrics = metrics0
+    elif ms is not None:
+        adam_state, step0, best_r1, best_nd5 = ms.load_checkpoint(ckpt_path)
+        log_json(logger, {"note": "resumed", "step": step0})
     else:
         param, adam_state, step0, best_r1, best_nd5 = load_checkpoint(
             ckpt_path, bundle.device)
+        adam_state = [adam_state]
         log_json(logger, {"note": "resumed", "step": step0})
 
-    param.requires_grad_(True)
-    optimizer = make_optimizer(cfg, param)
+    if ms is None:
+        param.requires_grad_(True)
+    optimizer = make_optimizer(cfg, param if ms is None else ms.params)
     if adam_state:
         sd = optimizer.state_dict()
-        sd["state"] = {0: adam_state}
+        sd["state"] = dict(enumerate(adam_state))
         optimizer.load_state_dict(sd)
     if resuming:
         # one eval of the RESTORED state: seeds last_metrics with numbers
         # that reflect the resumed index, not the discarded init
         last_metrics = eval_now(step0)
 
-    train_step = build_train_step(cfg, bundle, pmask_student, optimizer,
-                                  qat_books=qat_books)
+    def build_step(c):
+        if ms is not None:
+            return ms.build_step(c, optimizer)
+        return build_train_step(c, bundle, pmask_student, optimizer,
+                                qat_books=qat_books)
+
+    def student():
+        """(param, pmask) to export: the mesh's real docs, gathered."""
+        if ms is not None:
+            return ms.student()
+        return param.detach(), pmask_student
+
+    train_step = build_step(cfg)
     step_phase1 = None
     if cfg.qat != "none" and cfg.qat_start_frac > 0:
         # QAT fine-tune phase 1: the plain (no-STE) step, the trajectory of
         # a qat='none' run under the same seed
-        step_phase1 = build_train_step(dataclasses.replace(cfg, qat="none"),
-                                       bundle, pmask_student, optimizer)
+        step_phase1 = build_step(dataclasses.replace(cfg, qat="none"))
 
     n_train = int(bundle.Q_train.shape[0])
     if cfg.trainer == "iter":
@@ -1022,9 +1291,12 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
         if cfg.debug_invariants and step % log_every == 0:
             # masked-token invariants (mainv1.py:74-87): gradients AND
             # parameters at masked-out positions must stay exactly 0
-            with torch.no_grad():
-                masked_abs = float((param * ~pmask_student[..., None])
-                                   .abs().amax())
+            if ms is not None:
+                masked_abs = ms.masked_param_absmax()
+            else:
+                with torch.no_grad():
+                    masked_abs = float((param * ~pmask_student[..., None])
+                                       .abs().amax())
             rec = {
                 "dataset": dataset, "mf": mf, "step": step,
                 "debug/masked_param_absmax": masked_abs,
@@ -1035,13 +1307,17 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
             log_json(logger, rec)
 
         if save_every and step % save_every == 0:
-            # periodic compressed export (mainv1.py:375-395)
-            save_best_npz(out_dir, f"compressed_ep{step}.npz", cfg=cfg,
-                          dataset=dataset, mf=mf, step=step,
-                          best={"step": step}, metrics=last_metrics,
-                          param=param.detach(), pmask_student=pmask_student,
-                          docid=bundle.docid_teacher,
-                          doc_attn_in=doc_attn_in, doc_img_in=doc_img_in)
+            # periodic compressed export (mainv1.py:375-395); a mesh gathers
+            # first (every process), process 0 writes
+            p_exp, pm_exp = student()
+            if is_main:
+                save_best_npz(out_dir, f"compressed_ep{step}.npz", cfg=cfg,
+                              dataset=dataset, mf=mf, step=step,
+                              best={"step": step}, metrics=last_metrics,
+                              param=p_exp, pmask_student=pm_exp,
+                              docid=bundle.docid_teacher,
+                              doc_attn_in=doc_attn_in,
+                              doc_img_in=doc_img_in)
 
         if (step % eval_every == 0) or (step == max_steps):
             metrics = eval_now(step)
@@ -1055,32 +1331,44 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
                 best_r1, upd_r1 = update_best(best_r1, metrics, step, "r1")
                 best_nd5, upd_nd5 = update_best(best_nd5, metrics, step,
                                                 "nd5")
+            if upd_r1 or upd_nd5:
+                # identical decisions on every process, so the mesh's
+                # gathers run everywhere; only process 0 writes
+                p_exp, pm_exp = student()
             if upd_r1:
                 logger.info(
                     f"best recall step| {step} | nDCG@5={best_r1['NDCG@5']:.5f} | "
                     f"Recall@1={best_r1['Recall@1']:.5f} | Latency {metrics['latency']:.5f}")
-                save_best_npz(out_dir, "best_recall.npz", cfg=cfg, dataset=dataset,
-                              mf=mf, step=step, best=best_r1, metrics=metrics,
-                              param=param.detach(), pmask_student=pmask_student,
-                              docid=bundle.docid_teacher,
-                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in,
-                              qat_books=qat_books)
+                if is_main:
+                    save_best_npz(out_dir, "best_recall.npz", cfg=cfg,
+                                  dataset=dataset, mf=mf, step=step,
+                                  best=best_r1, metrics=metrics, param=p_exp,
+                                  pmask_student=pm_exp,
+                                  docid=bundle.docid_teacher,
+                                  doc_attn_in=doc_attn_in,
+                                  doc_img_in=doc_img_in, qat_books=qat_books)
             if upd_nd5:
                 logger.info(
                     f"best nDCG@5 step| {step} | nDCG@5={best_nd5['NDCG@5']:.5f} | "
                     f"Recall@1={best_nd5['Recall@1']:.5f} | Latency {metrics['latency']:.5f}")
-                save_best_npz(out_dir, "best_ndcg5.npz", cfg=cfg, dataset=dataset,
-                              mf=mf, step=step, best=best_nd5, metrics=metrics,
-                              param=param.detach(), pmask_student=pmask_student,
-                              docid=bundle.docid_teacher,
-                              doc_attn_in=doc_attn_in, doc_img_in=doc_img_in,
-                              qat_books=qat_books)
+                if is_main:
+                    save_best_npz(out_dir, "best_ndcg5.npz", cfg=cfg,
+                                  dataset=dataset, mf=mf, step=step,
+                                  best=best_nd5, metrics=metrics, param=p_exp,
+                                  pmask_student=pm_exp,
+                                  docid=bundle.docid_teacher,
+                                  doc_attn_in=doc_attn_in,
+                                  doc_img_in=doc_img_in, qat_books=qat_books)
 
         if checkpoint_every and step % checkpoint_every == 0:
-            save_checkpoint(ckpt_path, param, optimizer, step, best_r1,
-                            best_nd5)
+            if ms is not None:
+                ms.save_checkpoint(ckpt_path, optimizer, step, best_r1,
+                                   best_nd5, write=is_main)
+            else:
+                save_checkpoint(ckpt_path, param, optimizer, step, best_r1,
+                                best_nd5)
 
-    if cfg.export_packed != "none":
+    if cfg.export_packed != "none" and is_main:
         # train -> serve in one run: convert the best artifact into the
         # packed serving format (tools/convert_packed.py); 'opq' is the pq
         # tier with an OPQ rotation folded into expanded books
@@ -1116,11 +1404,29 @@ def train_dataset_mf(cfg: TrainConfig, bundle: DatasetBundle, dataset: str,
     return summary
 
 
-def run_training(cfg: TrainConfig, device=None) -> Dict[str, Dict[str, Any]]:
+def run_training(cfg: TrainConfig, device=None,
+                 mesh=None) -> Dict[str, Dict[str, Any]]:
     """Outer loop: datasets x mfs (reference main() skeleton), on
-    ``device`` (None: the GPU, raising when there is none)."""
+    ``device`` (None: the GPU, raising when there is none). With
+    ``cfg.mesh_docs > 1`` it trains doc-sharded over ``mesh`` (a
+    ``DeviceMesh`` of that many shards, e.g. ``mesh_of(["cpu"] * 4)`` or
+    ``multihost.global_doc_mesh``), by default ``make_mesh`` over the
+    first ``mesh_docs`` GPUs; the data then lie on the mesh's first
+    device."""
     cfg.validate()
     check_ported(cfg)
+    if cfg.mesh_docs > 1:
+        if mesh is None:
+            from evdr_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(cfg.mesh_docs, device=device or "cuda")
+        if mesh.size != cfg.mesh_docs or mesh.dp != 1:
+            raise ValueError(f"mesh_docs={cfg.mesh_docs} needs a 1D doc mesh "
+                             f"of that many shards, got {mesh.shape}")
+        device = mesh.devices[0]
+    elif mesh is not None:
+        raise ValueError("a mesh trains with mesh_docs equal to its size "
+                         f"(> 1), got mesh_docs={cfg.mesh_docs}")
     device = resolve_device(device)
     set_seed(cfg.seed)
     results = {}
@@ -1129,20 +1435,23 @@ def run_training(cfg: TrainConfig, device=None) -> Dict[str, Dict[str, Any]]:
                                      need_pos_idx=(cfg.loss == "infonce_sup"),
                                      device=device)
         # qnoise scores the teacher with the noisy queries inline each step
-        # (noisev1:305), so clean-query precomputed rows would be dead weight
+        # (noisev1:305), so clean-query precomputed rows would be dead
+        # weight; a mesh precomputes its tables shard by shard
+        # (MeshStudent)
         if (cfg.precompute_teacher and cfg.loss != "infonce_sup"
-                and cfg.aug != "qnoise"):
+                and cfg.aug != "qnoise" and mesh is None):
             bundle.sc_t_train = _precompute_teacher_scores(
                 bundle.Q_train, bundle.qmask_train, bundle.P_teacher_norm,
                 bundle.pmask_teacher, chunk_q=256, chunk_p=cfg.chunk_p,
                 impl=cfg.score_impl)
-        if cfg.loss != "infonce_sup":
+        if cfg.loss != "infonce_sup" and mesh is None:
             # the supervised eval loss uses gt labels, never teacher scores
             bundle.sc_t_test = _precompute_teacher_scores(
                 bundle.Q_test, bundle.qmask_test, bundle.P_teacher_norm,
                 bundle.pmask_teacher, chunk_q=256, chunk_p=cfg.chunk_p,
                 impl=cfg.score_impl)
         for mf in cfg.mfs:
-            results[f"{dataset}/mf{mf}"] = train_dataset_mf(cfg, bundle, dataset, mf)
+            results[f"{dataset}/mf{mf}"] = train_dataset_mf(
+                cfg, bundle, dataset, mf, mesh=mesh)
             print(f"[done] {dataset} mf{mf}")
     return results

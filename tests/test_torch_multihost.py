@@ -9,6 +9,11 @@ the one-process engine on the same file does: ids equal and scores bit
 for bit (every shard scores its rows through the same plain versions,
 whose numerics on a doc do not depend on the launch's other docs).
 
+Training (``parallel/train_sharded.py``): two processes x two CPU shards
+take one sharded train step whose gradient must equal the one-device
+step's (not world x it), and ``evdr_tpu_torch.train.cli`` runs as two
+processes whose train.log equals a one-process 4-shard run's.
+
 The workers are this file run as a script. Every spawned process writes
 to a file (a worker blocked on a full pipe while its peer waits in a
 collective would turn a failure into a silent timeout) and has its own
@@ -200,6 +205,96 @@ def test_serve_http_multihost_answers_search_add_delete_save(tmp_path):
         v2, want[-1][1])
 
 
+@pytest.mark.parametrize("loss", ["liscore", "liscore_std", "ranknet",
+                                  "hardtoken"])
+def test_gloo_processes_sharded_train_step_gradient(tmp_path, loss):
+    """Two gloo processes x two CPU shards take one sharded train step:
+    each shard's gradient (gathered) equals the one-device step's
+    gradient, not world x it, for a psum consumed by the replicated loss
+    (liscore), psums fed back into shard-local terms (liscore_std's means
+    and variances), the (B, N) row-gather fallback (ranknet) and the
+    hard-token augmentation; and the updated rows equal the one-device
+    step's."""
+    addr = f"localhost:{_free_port()}"
+    logs = [tmp_path / f"g{i}.log" for i in range(2)]
+    cmds = [[sys.executable, __file__, "train_worker", str(i), "2", addr,
+             loss] for i in range(2)]
+    outs = _wait(_spawn(cmds, logs, _env()), logs,
+                 time.monotonic() + SPAWN_TIMEOUT)
+    for i, out in enumerate(outs):
+        assert f"TRAIN_STEP_OK {i}" in out, f"worker {i}:\n{out}"
+
+
+def test_two_process_training_cli_matches_one_process_mesh(tmp_path):
+    """``evdr_tpu_torch.train.cli`` as two gloo processes x two CPU shards
+    (``--mesh_docs 4 --local_shards 2``): process 0's train.log (every
+    train and eval line) and final checkpoint equal a one-process 4-shard
+    run's, and the follower (its own --out_root) writes nothing."""
+    from evdr_tpu_torch.data import registry
+    from evdr_tpu_torch.data.synthetic import write_dataset_fixture
+    from evdr_tpu_torch.parallel import mesh_of
+    from evdr_tpu_torch.train.config import TrainConfig
+    from evdr_tpu_torch.train.harness import run_training
+
+    root = tmp_path / "data"
+    root.mkdir()
+    snap = {k: dict(v) for k, v in registry.DATASETMAP.items()}
+    try:
+        # stem shiftproject_test: the built-in dataset key 'shift' names
+        # these files, so the CLI processes find them
+        write_dataset_fixture(root, key="shiftproject", n_docs=21,
+                              n_test_queries=8, n_train_queries=32, dim=32,
+                              mfs=(5,), seed=0, init_noise=2.0)
+    finally:
+        registry.DATASETMAP.clear()
+        registry.DATASETMAP.update(snap)
+    flags = ["--datasets", "shift", "--loss", "liscore", "--mfs", "5",
+             "--max_steps", "20", "--eval_every", "10", "--print_every", "5",
+             "--q_batch", "8", "--k", "6", "--temp", "0.1", "--chunk_p", "8",
+             "--query_root", str(root), "--teacher_root", str(root),
+             "--init_root", str(root / "S3E_init"), "--name", "mh",
+             "--mesh_docs", "4", "--checkpoint_every", "20"]
+    addr = f"localhost:{_free_port()}"
+    logs = [tmp_path / f"c{i}.log" for i in range(2)]
+    cmds = [[sys.executable, "-m", "evdr_tpu_torch.train.cli", *flags,
+             "--out_root", str(tmp_path / f"out{i}"), "--device", "cpu",
+             "--coordinator", addr, "--num_processes", "2", "--process_id",
+             str(i), "--dist_backend", "gloo", "--local_shards", "2"]
+            for i in range(2)]
+    procs = _spawn(cmds, logs, _env())
+    outs = _wait(procs, logs, time.monotonic() + SPAWN_TIMEOUT)
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(outs)
+    assert not (tmp_path / "out1").exists()
+
+    kw = dict(datasets=["shift"], loss="liscore", mfs=[5], max_steps=20,
+              eval_every=10, print_every=5, q_batch=8, k=6, temp=0.1,
+              chunk_p=8, query_root=str(root), teacher_root=str(root),
+              init_root=str(root / "S3E_init"), name="one",
+              out_root=str(tmp_path / "out0"), mesh_docs=4,
+              checkpoint_every=20)
+    run_training(TrainConfig(**kw), device="cpu",
+                 mesh=mesh_of(["cpu"] * 4))
+
+    def series(name):
+        d = tmp_path / "out0" / name / "mf5" / "shift"
+        recs = [json.loads(ln[ln.index("{"):]) for ln in
+                (d / "train.log").read_text().splitlines()
+                if ln.rstrip().endswith("}") and '"step"' in ln]
+        z = np.load(d / "ckpt.npz", allow_pickle=True)
+        return recs, z["leaf_0"]
+
+    (got, p_got), (want, p_want) = series("mh"), series("one")
+    keys = ("train/total loss", "eval/eval loss", "eval/NDCG@5",
+            "eval/Recall@1")
+    got = {(r["step"], k): r[k] for r in got for k in keys if k in r}
+    want = {(r["step"], k): r[k] for r in want for k in keys if k in r}
+    assert set(got) == set(want) and len(want) >= 10, sorted(want)
+    for key, v in want.items():
+        np.testing.assert_allclose(got[key], v, rtol=1e-5, atol=1e-7,
+                                   err_msg=str(key))
+    np.testing.assert_allclose(p_got, p_want, rtol=0, atol=1e-5)
+
+
 def _tails(logs):
     return "\n".join(Path(x).read_text(errors="replace")[-3000:]
                      for x in logs if Path(x).exists())
@@ -331,6 +426,82 @@ def _worker(rank, world, addr, tmp):
     assert ids == wids and np.array_equal(v, wv)
     print(f"WORKER_OK {rank}", flush=True)
 
+
+def _train_worker(rank, world, addr, loss):
+    """One sharded train step on a 2-process x 2-shard gloo mesh against
+    the one-device step of the same inputs (computed here, locally)."""
+    import torch
+
+    from evdr_tpu_torch.parallel.multihost import (gather_to_host,
+                                                   global_doc_mesh,
+                                                   init_multihost,
+                                                   shard_docs_global)
+    from evdr_tpu_torch.parallel.train_sharded import (
+        build_sharded_train_step)
+    from evdr_tpu_torch.train.config import TrainConfig
+    from evdr_tpu_torch.train.harness import (DatasetBundle,
+                                              build_train_step,
+                                              make_optimizer)
+
+    init_multihost(addr, world, rank, "gloo")
+    mesh = global_doc_mesh(2, device="cpu")
+    rng = np.random.default_rng(9)
+    n, nt, b, lq, lp, ls, d = 19, 16, 8, 5, 12, 6, 32
+    Q = _unit(rng.normal(size=(nt, lq, d))).astype(np.float32)
+    qm = rng.random((nt, lq)) > 0.15
+    qm[:, 0] = True
+    pm_t = rng.random((n, lp)) > 0.15
+    P_t = _unit(rng.normal(size=(n, lp, d)) * pm_t[..., None]
+                + 1e-12).astype(np.float32)
+    pm_s = rng.random((n, ls)) > 0.1
+    Pbar = (rng.normal(size=(n, ls, d)) * pm_s[..., None]).astype(np.float32)
+    idx = rng.permutation(nt)[:b].astype(np.int32)
+    aug = "hardtoken" if loss == "hardtoken" else "none"
+    cfg = TrainConfig(loss="liscore" if aug != "none" else loss, aug=aug,
+                      k=6, temp=0.3, lambda_list=1.0, lambda_score=0.5,
+                      lr=1e-3, chunk_p=8, aux_docs=3, virt_noise_std=0.0)
+
+    def shards(x):
+        return [t.clone() for t in shard_docs_global(
+            torch.from_numpy(x), mesh, n_pad=20)]
+
+    params = [x.requires_grad_(True) for x in shards(Pbar)]
+    step, _ = build_sharded_train_step(
+        cfg, mesh, params=params, pmask_student=shards(pm_s),
+        P_teacher=shards(P_t), pmask_teacher=shards(pm_t), n_docs=n,
+        Q_all=torch.from_numpy(Q), qm_all=torch.from_numpy(qm))
+    parts = step(idx, 5)
+    grad = gather_to_host([p.grad for p in params], mesh)
+    new = gather_to_host([p.detach() for p in params], mesh)
+
+    tb = DatasetBundle(
+        dataset="x", Q_train=torch.from_numpy(Q),
+        qmask_train=torch.from_numpy(qm), pos_idx=None,
+        Q_test=torch.from_numpy(Q), qmask_test=torch.from_numpy(qm),
+        P_teacher_norm=torch.from_numpy(P_t),
+        pmask_teacher=torch.from_numpy(pm_t),
+        docid_teacher=np.array(["d"] * n, dtype=object),
+        relevant_docs_test={}, docidx_2_docid_test={},
+        qsidx_2_query_test=None)
+    param = torch.from_numpy(Pbar.copy()).requires_grad_(True)
+    want = build_train_step(cfg, tb, torch.from_numpy(pm_s),
+                            make_optimizer(cfg, param))(idx, 5)
+    g1 = param.grad.numpy()
+    np.testing.assert_allclose(float(parts["total_loss"]),
+                               float(want["total_loss"]), rtol=1e-5)
+    scale = float(np.abs(g1).max())
+    assert scale > 0
+    np.testing.assert_allclose(grad[:n], g1, rtol=1e-4, atol=1e-5 * scale)
+    assert not grad[n:].any()
+    np.testing.assert_allclose(new[:n], param.detach().numpy(), rtol=0,
+                               atol=2e-5)
+    print(f"TRAIN_STEP_OK {rank}", flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["train_worker"]:
+    sys.path.insert(0, str(ROOT))
+    _train_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
     sys.path.insert(0, str(ROOT))
