@@ -56,6 +56,7 @@ from evdr_tpu_torch.parallel.topk import (_mesh_topk,
                                           _single_device_merged_topk,
                                           sharded_maxsim, sharded_rerank,
                                           sharded_topk)
+from evdr_tpu_torch.utils.timing import span
 
 DTYPES = (None, "float32", "bfloat16", "int8", "int4", "pq")
 SUMMARY_DTYPES = (None, "bfloat16", "float32", "int8", "int4")
@@ -672,9 +673,10 @@ class RetrievalEngine:
         parts_v, parts_i = [vals], [idx]
         if self.tail is not None:
             kt = min(_ceil32(k + len(self._tombstones)), self.tail.n_docs)
-            tv, ti = sharded_topk(Qd, qmd, self.tail, k=kt, impl=self.impl)
-            parts_v.append(tv.cpu().numpy())
-            parts_i.append(ti.cpu().numpy() + n_main)
+            tv, ti = _fetch(*sharded_topk(Qd, qmd, self.tail, k=kt,
+                                          impl=self.impl))
+            parts_v.append(tv)
+            parts_i.append(ti + n_main)
         v = np.concatenate(parts_v, axis=1)
         gi = np.concatenate(parts_i, axis=1)
         if self._tombstones:
@@ -697,14 +699,18 @@ class RetrievalEngine:
             # approx_max_k is a TPU selection); stage 2 reranks each
             # shard's candidates where they lie
             c = int(n_candidates) + (_ceil32(n_tomb) if n_tomb else 0)
-            Qs = pad_queries(as_tensor(Q, self.device, torch.float32),
-                             self.summary)
-            _, cand = _mesh_topk(Qs, qmd, self.summary, min(c, ix.n_docs),
-                                 self.impl, drop_empty=True)
-            vals, idx = sharded_rerank(Qd, qmd, ix, cand, k_main)
+            with span("evdr.engine.queries"):
+                Qs = pad_queries(as_tensor(Q, self.device, torch.float32),
+                                 self.summary)
+            with span("evdr.pruned.stage1"):
+                _, cand = _mesh_topk(Qs, qmd, self.summary,
+                                     min(c, ix.n_docs), self.impl,
+                                     drop_empty=True)
+            with span("evdr.pruned.stage2"):
+                vals, idx = sharded_rerank(Qd, qmd, ix, cand, k_main)
         else:
             vals, idx = sharded_topk(Qd, qmd, ix, k=k_main, impl=self.impl)
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        vals, idx = _fetch(vals, idx)
         if merging:
             return self._merge_tail(Qd, qmd, vals, idx, k)
         if n_candidates:
@@ -823,9 +829,10 @@ class RetrievalEngine:
             raise RuntimeError("engine has no index; call build() first")
         # queries at the index's true dim meet its padded width here, per
         # call; the index itself was padded once, at build
-        return (pad_queries(as_tensor(Q, self.device, torch.float32),
-                            self.index),
-                as_tensor(qmask, self.device, torch.bool))
+        with span("evdr.engine.queries"):
+            return (pad_queries(as_tensor(Q, self.device, torch.float32),
+                                self.index),
+                    as_tensor(qmask, self.device, torch.bool))
 
     def search_dense(self, Q, qmask, k: int = 10,
                      n_candidates: Optional[int] = None
@@ -836,57 +843,59 @@ class RetrievalEngine:
         engine built with ``prune_centroids > 0``): two-stage pruned
         search, (nq, min(k, n_candidates, n_docs)) without incremental
         state."""
-        if n_candidates and self.summary is None:
-            raise ValueError(
-                "n_candidates requires a pruning summary index: construct "
-                "the engine with prune_centroids>0 and build() from float "
-                "embeddings (build_from_codes has no summary)")
-        Qd, qmd = self._queries(Q, qmask)
-        self._ensure_tail()  # pending adds materialize on first search
-        ix, tail = self.index, self.tail
-        merging = tail is not None or bool(self._tombstones)
-        if self._sharded:
-            return self._search_mesh(Q, Qd, qmd, k, n_candidates, merging)
-        if merging and not n_candidates:
-            # main + tail + the tombstone mask + top-k on the device
-            vals, idx = _single_device_merged_topk(
-                Qd, qmd, ix.P, ix.pmask, None if tail is None else tail.P,
-                None if tail is None else tail.pmask, self._alive_mask(), k,
-                self.impl, ix.n_docs, 0 if tail is None else tail.n_docs,
-                scales_m=ix.scales,
-                scales_t=None if tail is None else tail.scales,
-                books=ix.books)
-            k_out = min(k, self.n_docs)
-            return (vals[:, :k_out].cpu().numpy(),
-                    idx[:, :k_out].cpu().numpy())
-        if n_candidates:
-            from evdr_tpu_torch.ops.pruned import pruned_topk_fused
+        with span("evdr.engine.search"):
+            if n_candidates and self.summary is None:
+                raise ValueError(
+                    "n_candidates requires a pruning summary index: "
+                    "construct the engine with prune_centroids>0 and build() "
+                    "from float embeddings (build_from_codes has no summary)")
+            Qd, qmd = self._queries(Q, qmask)
+            self._ensure_tail()  # pending adds materialize on first search
+            ix, tail = self.index, self.tail
+            merging = tail is not None or bool(self._tombstones)
+            if self._sharded:
+                return self._search_mesh(Q, Qd, qmd, k, n_candidates, merging)
+            if merging and not n_candidates:
+                # main + tail + the tombstone mask + top-k on the device
+                vals, idx = _single_device_merged_topk(
+                    Qd, qmd, ix.P, ix.pmask, None if tail is None else tail.P,
+                    None if tail is None else tail.pmask, self._alive_mask(),
+                    k, self.impl, ix.n_docs,
+                    0 if tail is None else tail.n_docs,
+                    scales_m=ix.scales,
+                    scales_t=None if tail is None else tail.scales,
+                    books=ix.books)
+                k_out = min(k, self.n_docs)
+                return _fetch(vals[:, :k_out], idx[:, :k_out])
+            if n_candidates:
+                from evdr_tpu_torch.ops.pruned import pruned_topk_fused
 
-            # over-fetch from the main index so tombstoned rows can be
-            # dropped without shrinking the caller's k, and stage-1
-            # candidates by the tombstone count (dead docs still take
-            # candidate slots), both bucketed to multiples of 32 as in the
-            # JAX engine (they change which candidates are reranked)
-            n_tomb = len(self._tombstones)
-            k_main = min(_ceil32(k + n_tomb), ix.n_docs) if merging else k
-            c = int(n_candidates) + (_ceil32(n_tomb) if n_tomb else 0)
-            # PQ candidates decode by a gather of book rows: the same f32
-            # tokens as the reference's one-hot products (its form for a
-            # TPU, which has no gather unit), in one pass
-            Q_true = as_tensor(Q, self.device, torch.float32)
-            vals, idx = pruned_topk_fused(
-                Qd, qmd, ix.P, ix.pmask, self.summary.P, self.summary.pmask,
-                k=k_main, n_cand=min(c, ix.n_docs), impl=self.impl,
-                scales=ix.scales, sscales=self.summary.scales,
-                books=ix.books, pq_decode="take",
-                Qs=pad_queries(Q_true, self.summary))
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-            if merging:
-                return self._merge_tail(Qd, qmd, vals, idx, k)
-            return vals, idx
-        vals, idx = sharded_topk(Qd, qmd, ix, k=k, impl=self.impl)
-        k_out = min(k, self.n_docs)
-        return vals[:, :k_out].cpu().numpy(), idx[:, :k_out].cpu().numpy()
+                # over-fetch from the main index so tombstoned rows can be
+                # dropped without shrinking the caller's k, and stage-1
+                # candidates by the tombstone count (dead docs still take
+                # candidate slots), both bucketed to multiples of 32 as in the
+                # JAX engine (they change which candidates are reranked)
+                n_tomb = len(self._tombstones)
+                k_main = min(_ceil32(k + n_tomb), ix.n_docs) if merging else k
+                c = int(n_candidates) + (_ceil32(n_tomb) if n_tomb else 0)
+                # PQ candidates decode by a gather of book rows: the same f32
+                # tokens as the reference's one-hot products (its form for a
+                # TPU, which has no gather unit), in one pass
+                with span("evdr.engine.queries"):
+                    Qs = pad_queries(as_tensor(Q, self.device, torch.float32),
+                                     self.summary)
+                vals, idx = _fetch(*pruned_topk_fused(
+                    Qd, qmd, ix.P, ix.pmask, self.summary.P,
+                    self.summary.pmask, k=k_main, n_cand=min(c, ix.n_docs),
+                    impl=self.impl, scales=ix.scales,
+                    sscales=self.summary.scales,
+                    books=ix.books, pq_decode="take", Qs=Qs))
+                if merging:
+                    return self._merge_tail(Qd, qmd, vals, idx, k)
+                return vals, idx
+            vals, idx = sharded_topk(Qd, qmd, ix, k=k, impl=self.impl)
+            k_out = min(k, self.n_docs)
+            return _fetch(vals[:, :k_out], idx[:, :k_out])
 
     def ids_for(self, idx) -> List[List[str]]:
         """Doc-index matrix -> per-query docid string lists (tail docs
@@ -951,6 +960,12 @@ def _ceil32(n: int) -> int:
 
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _fetch(*ts):
+    """A search's results to the host (span ``evdr.engine.fetch``)."""
+    with span("evdr.engine.fetch"):
+        return tuple(map(_host, ts))
 
 
 def _pad_tokens(x: np.ndarray, lp: int, fill) -> np.ndarray:

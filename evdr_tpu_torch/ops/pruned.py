@@ -35,6 +35,7 @@ from evdr_tpu_torch.ops.batched_kmeans import batched_kmeans
 from evdr_tpu_torch.ops.cuda_maxsim import unpack_int4_torch
 from evdr_tpu_torch.ops.maxsim import NEG_FILL
 from evdr_tpu_torch.parallel.topk import _local_scores, _select_topk
+from evdr_tpu_torch.utils.timing import span
 
 
 def _host(x) -> np.ndarray:
@@ -203,15 +204,18 @@ def pruned_topk_fused(Q, qmask, P, pmask, S, smask, k: int, n_cand: int,
     ``n_cand`` docs per query, stage 2 reranks them exactly over the full
     index (``P``, ``pmask``, ``scales`` / ``books``). ``Qs``: the queries
     at the summary's stored width, where it differs from the index's (a PQ
-    index pads its queries per subspace); default ``Q``."""
-    sc = candidate_scores(Q if Qs is None else Qs, qmask, S, smask, impl,
-                          sscales)
-    _, cand = _select_topk(sc, n_cand)
-    chunk_q = rerank_chunk_q(n_cand, pmask.shape[-1], Q.shape[-1], books,
-                             pq_decode)
-    return rerank_candidates(Q, qmask, P, pmask, cand, k=k, scales=scales,
-                             chunk_q=chunk_q, books=books,
-                             pq_decode=pq_decode)
+    index pads its queries per subspace); default ``Q``. Spans
+    ``evdr.pruned.stage1`` and ``evdr.pruned.stage2``."""
+    with span("evdr.pruned.stage1"):
+        sc = candidate_scores(Q if Qs is None else Qs, qmask, S, smask, impl,
+                              sscales)
+        _, cand = _select_topk(sc, n_cand)
+    with span("evdr.pruned.stage2"):
+        chunk_q = rerank_chunk_q(n_cand, pmask.shape[-1], Q.shape[-1], books,
+                                 pq_decode)
+        return rerank_candidates(Q, qmask, P, pmask, cand, k=k,
+                                 scales=scales, chunk_q=chunk_q, books=books,
+                                 pq_decode=pq_decode)
 
 
 def pruned_recall(exact_idx, pruned_idx) -> float:

@@ -37,32 +37,37 @@ from evdr_tpu_torch.ops.cuda_maxsim import (maxsim_cuda, maxsim_cuda_int4,
                                             maxsim_cuda_pqfull)
 from evdr_tpu_torch.parallel.mesh import gather_blocks
 from evdr_tpu_torch.parallel.sharded_index import ShardedIndex
+from evdr_tpu_torch.utils.timing import span
 
 
 def _local_scores(Q, qmask, P, pmask, impl: str, scales=None, books=None):
     q8 = impl.endswith("_q8")
-    if books is not None:
-        # product-quantized index: P holds (N, Lp, M) uint8 codes, books the
-        # compact (M, K, D/M) or expanded OPQ (M, K, D) codebooks (ops/pq.py)
-        kernel = maxsim_cuda_pqfull if q8 else maxsim_cuda_pq
-        return kernel(Q, P, qmask, pmask, books)
-    if scales is not None and P.dtype == torch.uint8:
-        # packed-int4 index (ops/int4.py): token-pair uint8 codes + scales
-        kernel = maxsim_cuda_int4full if q8 else maxsim_cuda_int4
-        return kernel(Q, P, scales, qmask, pmask)
-    if scales is not None:
-        # int8-quantized index (ops/quantize.py)
-        kernel = maxsim_cuda_int8full if q8 else maxsim_cuda_int8
-        return kernel(Q, P, scales, qmask, pmask)
-    return maxsim_cuda(Q, P, qmask, pmask)
+    with span("evdr.topk.score"):
+        if books is not None:
+            # product-quantized index: P holds (N, Lp, M) uint8 codes, books
+            # the compact (M, K, D/M) or expanded OPQ (M, K, D) codebooks
+            # (ops/pq.py)
+            kernel = maxsim_cuda_pqfull if q8 else maxsim_cuda_pq
+            return kernel(Q, P, qmask, pmask, books)
+        if scales is not None and P.dtype == torch.uint8:
+            # packed-int4 index (ops/int4.py): token-pair uint8 codes +
+            # scales
+            kernel = maxsim_cuda_int4full if q8 else maxsim_cuda_int4
+            return kernel(Q, P, scales, qmask, pmask)
+        if scales is not None:
+            # int8-quantized index (ops/quantize.py)
+            kernel = maxsim_cuda_int8full if q8 else maxsim_cuda_int8
+            return kernel(Q, P, scales, qmask, pmask)
+        return maxsim_cuda(Q, P, qmask, pmask)
 
 
 def _select_topk(sc: torch.Tensor, k: int):
     """Exact top-k in ``lax.top_k``'s order: descending, and among equal
     scores the lower column first. A stable descending sort gives exactly
     that; ``torch.topk`` leaves the order of ties unspecified."""
-    vals, idx = torch.sort(sc, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
+    with span("evdr.topk.select"):
+        vals, idx = torch.sort(sc, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
 
 
 def _single_device_topk(Q, qmask, P, pmask, k: int, impl: str, scales=None,

@@ -61,6 +61,7 @@ from evdr_tpu_torch.losses.distill import (COMBINED_RECIPES, _component_kwargs,
 from evdr_tpu_torch.ops.maxsim import maxsim_torch
 from evdr_tpu_torch.ops.qat import qat_apply
 from evdr_tpu_torch.parallel.mesh import DeviceMesh, gather_blocks
+from evdr_tpu_torch.utils.timing import span
 
 if TYPE_CHECKING:  # the train package imports the engine, which imports this
     from evdr_tpu_torch.train.config import TrainConfig
@@ -602,16 +603,19 @@ def build_sharded_train_step(cfg: TrainConfig, mesh: DeviceMesh, *, params,
     scale = 1.0 / mesh.world
 
     def step(idx, gen, host_rng):
-        Qb, qmb = Q_all[idx], qm_all[idx]
-        sct_rows = ([s[idx.to(s.device)] for s in sct_all] if use_sct
-                    else None)
-        pos_b = pos_t[idx] if needs_labels else None
-        optimizer.zero_grad(set_to_none=True)
-        total, parts = objective(params, Qb, qmb, (gen, host_rng),
-                                 pmask_student, P_teacher, pmask_teacher,
-                                 sct_rows, pos_b)
-        (total * scale if mesh.world > 1 else total).backward()
-        optimizer.step()
+        with span("evdr.train.forward"):
+            Qb, qmb = Q_all[idx], qm_all[idx]
+            sct_rows = ([s[idx.to(s.device)] for s in sct_all] if use_sct
+                        else None)
+            pos_b = pos_t[idx] if needs_labels else None
+            optimizer.zero_grad(set_to_none=True)
+            total, parts = objective(params, Qb, qmb, (gen, host_rng),
+                                     pmask_student, P_teacher,
+                                     pmask_teacher, sct_rows, pos_b)
+        with span("evdr.train.backward"):
+            (total * scale if mesh.world > 1 else total).backward()
+        with span("evdr.train.optimizer"):
+            optimizer.step()
         parts = {k: v.detach() for k, v in parts.items()}
         parts["total_loss"] = total.detach()
         return parts

@@ -44,6 +44,15 @@ API:
   path)
 
 ``n_docs`` counts live docs (main + added - deleted).
+
+Where the time of a request goes: each request carries its submit time
+and the start time of its dispatch (``_BatchReq.t_submit``,
+``t_start``); ``GET /metrics`` shows the queue wait ``t_start -
+t_submit`` as ``evdr_queue_wait_ms``. ``utils/timing.trace_ctx`` around
+a server run records the ``evdr.`` spans of every thread: the
+dispatcher's ``evdr.batcher.wait`` and ``evdr.batcher.dispatch`` (with
+``assemble``, the engine's search and ``scatter`` inside), beside the
+handlers' threads.
 """
 
 from __future__ import annotations
@@ -55,6 +64,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from evdr_tpu_torch.utils.timing import span
 
 
 def _batch_bucket(n: int) -> int:
@@ -84,7 +95,9 @@ class ServeStats:
     in the Prometheus text exposition format (stdlib-only, like the rest
     of the daemon). Tracks request latency (which includes queue wait in a
     coalesced group — the number an operator tunes ``--batch_wait_ms``
-    against), per-dispatch group sizes, query counts, and error classes."""
+    against), the queue wait alone (submit to the start of the request's
+    dispatch), per-dispatch group sizes, query counts, and error
+    classes."""
 
     LAT_MS = (5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0)
     GROUP = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
@@ -97,6 +110,8 @@ class ServeStats:
         self.dispatches = 0
         self._lat = [0] * (len(self.LAT_MS) + 1)
         self._lat_sum = 0.0
+        self._wait = [0] * (len(self.LAT_MS) + 1)
+        self._wait_sum = 0.0
         self._grp = [0] * (len(self.GROUP) + 1)
         self._grp_sum = 0
 
@@ -108,12 +123,15 @@ class ServeStats:
                 return
         hist[-1] += 1
 
-    def observe_request(self, n_queries: int, ms: float) -> None:
+    def observe_request(self, n_queries: int, ms: float,
+                        wait_ms: float) -> None:
         with self._lock:
             self.requests += 1
             self.queries += int(n_queries)
             self._lat_sum += ms
             self._bucketize(self._lat, self.LAT_MS, ms)
+            self._wait_sum += wait_ms
+            self._bucketize(self._wait, self.LAT_MS, wait_ms)
 
     def observe_error(self, code: int) -> None:
         with self._lock:
@@ -152,6 +170,10 @@ class ServeStats:
                 "# TYPE evdr_request_latency_ms histogram",
                 *self._hist_lines("evdr_request_latency_ms", self._lat,
                                   self.LAT_MS, self._lat_sum, self.requests),
+                "# TYPE evdr_queue_wait_ms histogram",
+                *self._hist_lines("evdr_queue_wait_ms", self._wait,
+                                  self.LAT_MS, self._wait_sum,
+                                  self.requests),
                 "# TYPE evdr_dispatch_group_size histogram",
                 *self._hist_lines("evdr_dispatch_group_size", self._grp,
                                   self.GROUP, self._grp_sum,
@@ -161,16 +183,24 @@ class ServeStats:
 
 
 class _BatchReq:
-    """One in-flight /search request awaiting a coalesced dispatch."""
+    """One in-flight /search request awaiting a coalesced dispatch. Its
+    counters: ``t_submit`` (``time.perf_counter()`` at ``submit``) and
+    ``t_start`` (at the start of its dispatch; None until then)."""
 
     __slots__ = ("Q", "qmask", "k", "n_cand", "done", "vals", "idx", "err",
-                 "batched_with")
+                 "batched_with", "t_submit", "t_start")
 
     def __init__(self, Q, qmask, k, n_cand):
         self.Q, self.qmask, self.k, self.n_cand = Q, qmask, k, n_cand
         self.done = threading.Event()
         self.vals = self.idx = self.err = None
         self.batched_with = 1
+        self.t_submit = self.t_start = None
+
+    @property
+    def wait_ms(self) -> float:
+        """The queue wait: submit to the start of the request's dispatch."""
+        return (self.t_start - self.t_submit) * 1000.0
 
 
 class MicroBatcher:
@@ -226,6 +256,7 @@ class MicroBatcher:
         shared dispatch."""
         req = _BatchReq(np.asarray(Q), np.asarray(qmask), int(k),
                         n_candidates)
+        req.t_submit = time.perf_counter()
         with self._cv:
             self._pending.append(req)
             self._cv.notify()
@@ -243,8 +274,9 @@ class MicroBatcher:
     # ---------------------------------------------------------- dispatcher
     def _take_group(self) -> list[_BatchReq]:
         """Block until work exists, optionally linger ``wait_s`` for
-        followers, then remove and return one compatible group."""
-        with self._cv:
+        followers, then remove and return one compatible group (span
+        ``evdr.batcher.wait``: the dispatcher's idle time)."""
+        with span("evdr.batcher.wait"), self._cv:
             while not self._pending:
                 if self._closed:
                     return []
@@ -266,40 +298,47 @@ class MicroBatcher:
         return group
 
     def _dispatch(self, group: list[_BatchReq]) -> None:
+        t_start = time.perf_counter()
+        for r in group:
+            r.t_start = t_start
         if self.stats is not None:
             self.stats.observe_dispatch(len(group))
-        try:
-            lq = max(r.Q.shape[1] for r in group)
-            parts_q, parts_m = [], []
-            for r in group:
-                pad = lq - r.Q.shape[1]
-                parts_q.append(np.pad(r.Q, ((0, 0), (0, pad), (0, 0)))
-                               if pad else r.Q)
-                parts_m.append(np.pad(r.qmask, ((0, 0), (0, pad)))
-                               if pad else r.qmask)
-            # mixed query dims raise out of np.concatenate and scatter to
-            # the whole group as a 500 (one engine serves one index dim)
-            Q = np.concatenate(parts_q, axis=0)
-            qmask = np.concatenate(parts_m, axis=0)
-            Q, qmask = bucket_queries(Q, qmask)
-            k = max(r.k for r in group)
-            with self.engine_lock:
-                vals, idx = self.engine.search_dense(
-                    Q, qmask, k=k, n_candidates=group[0].n_cand)
-            vals, idx = np.asarray(vals), np.asarray(idx)
-            row = 0
-            for r in group:
-                nq = r.Q.shape[0]
-                r.vals = vals[row:row + nq, : r.k]
-                r.idx = idx[row:row + nq, : r.k]
-                r.batched_with = len(group)
-                row += nq
-        except Exception as e:  # noqa: BLE001 — scatter, don't kill the loop
-            for r in group:
-                r.err = e
-        finally:
-            for r in group:
-                r.done.set()
+        with span("evdr.batcher.dispatch"):
+            try:
+                with span("evdr.batcher.assemble"):
+                    lq = max(r.Q.shape[1] for r in group)
+                    parts_q, parts_m = [], []
+                    for r in group:
+                        pad = lq - r.Q.shape[1]
+                        parts_q.append(np.pad(r.Q, ((0, 0), (0, pad), (0, 0)))
+                                       if pad else r.Q)
+                        parts_m.append(np.pad(r.qmask, ((0, 0), (0, pad)))
+                                       if pad else r.qmask)
+                    # mixed query dims raise out of np.concatenate and
+                    # scatter to the whole group as a 500 (one engine
+                    # serves one index dim)
+                    Q = np.concatenate(parts_q, axis=0)
+                    qmask = np.concatenate(parts_m, axis=0)
+                    Q, qmask = bucket_queries(Q, qmask)
+                    k = max(r.k for r in group)
+                with self.engine_lock:
+                    vals, idx = self.engine.search_dense(
+                        Q, qmask, k=k, n_candidates=group[0].n_cand)
+                with span("evdr.batcher.scatter"):
+                    vals, idx = np.asarray(vals), np.asarray(idx)
+                    row = 0
+                    for r in group:
+                        nq = r.Q.shape[0]
+                        r.vals = vals[row:row + nq, : r.k]
+                        r.idx = idx[row:row + nq, : r.k]
+                        r.batched_with = len(group)
+                        row += nq
+            except Exception as e:  # noqa: BLE001 — scatter, keep the loop
+                for r in group:
+                    r.err = e
+            finally:
+                for r in group:
+                    r.done.set()
 
     def _loop(self) -> None:
         while True:
@@ -436,7 +475,8 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8080,
                     raise breq.err
                 vals, idx = breq.vals, breq.idx
                 total_ms = (time.perf_counter() - t0) * 1000.0
-                stats.observe_request(len(queries), total_ms)
+                stats.observe_request(len(queries), total_ms,
+                                      breq.wait_ms)
                 ms = total_ms / len(queries)
                 reply = {"docids": engine.ids_for(idx),
                          "scores": np.asarray(vals).tolist(),

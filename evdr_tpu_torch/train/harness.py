@@ -96,6 +96,7 @@ from evdr_tpu_torch.ops.qat import qat_apply
 from evdr_tpu_torch.train.config import TrainConfig
 from evdr_tpu_torch.utils.logging_utils import get_logger, log_json
 from evdr_tpu_torch.utils.prng import PRNGSequence, generator_for, set_seed
+from evdr_tpu_torch.utils.timing import span
 
 # loss components whose eval computation materializes (Q, N, N) pairwise
 # tensors — these get the reference's >600-query chunking
@@ -202,8 +203,8 @@ def _derive_pos_idx(qid, relevant_docs, docidx_2_docid) -> Tuple[np.ndarray, np.
 def _precompute_teacher_scores(Q, qmask, P, pmask, chunk_q: int, chunk_p: int,
                                impl: str) -> torch.Tensor:
     """Score every query against the frozen teacher index in float32,
-    chunking queries."""
-    with torch.no_grad():
+    chunking queries (span ``evdr.train.teacher_table``)."""
+    with span("evdr.train.teacher_table"), torch.no_grad():
         outs = [maxsim(Q[qs:qs + chunk_q], P, qmask[qs:qs + chunk_q], pmask,
                        chunk_p=chunk_p, impl=impl, compute_dtype=torch.float32)
                 for qs in range(0, Q.shape[0], chunk_q)]
@@ -433,61 +434,63 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
                           torch.as_tensor(qat_books, device=device))}
 
     def step(idx, gen, host_rng):
-        Qb = Q_all[idx]
-        qmb = qm_all[idx]
-        labels = pos_all[idx] if needs_labels else None
+        with span("evdr.train.forward"):
+            Qb = Q_all[idx]
+            qmb = qm_all[idx]
+            labels = pos_all[idx] if needs_labels else None
 
-        if aug == "qnoise":
-            # train-only Gaussian noise on valid query tokens, then mask-
-            # multiply + re-L2-normalize (mainv3_iter_liscore_noisev1.py:296-299)
-            noise = torch.randn(Qb.shape, generator=gen, device=device,
-                                dtype=Qb.dtype) * cfg.q_noise_std
-            qmf = qmb[..., None].to(Qb.dtype)
-            Qb = l2_normalize((Qb + noise * qmf) * qmf)
+            if aug == "qnoise":
+                # train-only Gaussian noise on valid query tokens, then mask-
+                # multiply + re-L2-normalize (mainv3_iter_liscore_noisev1.py:296-299)
+                noise = torch.randn(Qb.shape, generator=gen, device=device,
+                                    dtype=Qb.dtype) * cfg.q_noise_std
+                qmf = qmb[..., None].to(Qb.dtype)
+                Qb = l2_normalize((Qb + noise * qmf) * qmf)
 
-        if needs_labels:
-            sc_t = None
-        elif sct_all is not None and aug != "qnoise":
-            # precomputed rows are clean-query scores; qnoise must score the
-            # teacher with the noisy queries (noisev1:305)
-            sc_t = sct_all[idx]
-        else:
-            with torch.no_grad():
-                sc_t = maxsim_torch(Qb, P_t, qmb, pm_t, chunk_p=chunk_p)
+            if needs_labels:
+                sc_t = None
+            elif sct_all is not None and aug != "qnoise":
+                # precomputed rows are clean-query scores; qnoise must score the
+                # teacher with the noisy queries (noisev1:305)
+                sc_t = sct_all[idx]
+            else:
+                with torch.no_grad():
+                    sc_t = maxsim_torch(Qb, P_t, qmb, pm_t, chunk_p=chunk_p)
 
-        optimizer.zero_grad(set_to_none=True)
-        P_masked = param * pmask_f
-        Ps = l2_normalize(P_masked)
-        if cfg.qat != "none":
-            # quantization-aware distillation: score the exact serving
-            # reconstruction (STE gradients); hardtoken mining below sees
-            # the same form (harness.py:398-409)
-            Ps = qat_apply(Ps, cfg.qat, data["qat_books"], pmask=pmask_s)
-        # the student is scored by the plain differentiable op, as the JAX
-        # step does (harness.py:372-373)
-        sc_s = maxsim_torch(Qb, Ps, qmb, pmask_s, chunk_p=chunk_p)
-        total, parts = loss_fn(sc_s, sc_t, labels)
+            optimizer.zero_grad(set_to_none=True)
+            P_masked = param * pmask_f
+            Ps = l2_normalize(P_masked)
+            if cfg.qat != "none":
+                # quantization-aware distillation: score the exact serving
+                # reconstruction (STE gradients); hardtoken mining below sees
+                # the same form (harness.py:398-409)
+                Ps = qat_apply(Ps, cfg.qat, data["qat_books"], pmask=pmask_s)
+            # the student is scored by the plain differentiable op, as the JAX
+            # step does (harness.py:372-373)
+            sc_s = maxsim_torch(Qb, Ps, qmb, pmask_s, chunk_p=chunk_p)
+            total, parts = loss_fn(sc_s, sc_t, labels)
 
-        if aug == "mixup" and n_docs > 1:
-            # document mixup (mainv3_iter_liscore_mixup.py:313-331)
-            lam, perm = mixup_draws(cfg.mixup_alpha, n_docs, host_rng, gen)
-            pmask_mix = pmask_s & pmask_s[perm]
-            P_mix = lam * P_masked + (1.0 - lam) * P_masked[perm]
-            Ps_mix = l2_normalize(P_mix * pmask_mix[..., None].to(P_mix.dtype))
-            sc_s_mix = maxsim_torch(Qb, Ps_mix, qmb, pmask_mix,
-                                    chunk_p=chunk_p)
-            sc_t_mix = lam * sc_t + (1.0 - lam) * sc_t[:, perm]
-            loss_score_mix = torch.mean((sc_s_mix - sc_t_mix.detach()) ** 2)
-            loss_mix = cfg.lambda_score * loss_score_mix
-            total = total + cfg.lambda_mix * loss_mix
-            parts = dict(parts, mix=loss_mix, score_mix=loss_score_mix)
+            if aug == "mixup" and n_docs > 1:
+                # document mixup (mainv3_iter_liscore_mixup.py:313-331)
+                lam, perm = mixup_draws(cfg.mixup_alpha, n_docs, host_rng, gen)
+                pmask_mix = pmask_s & pmask_s[perm]
+                P_mix = lam * P_masked + (1.0 - lam) * P_masked[perm]
+                Ps_mix = l2_normalize(P_mix * pmask_mix[..., None].to(P_mix.dtype))
+                sc_s_mix = maxsim_torch(Qb, Ps_mix, qmb, pmask_mix,
+                                        chunk_p=chunk_p)
+                sc_t_mix = lam * sc_t + (1.0 - lam) * sc_t[:, perm]
+                loss_score_mix = torch.mean((sc_s_mix - sc_t_mix.detach()) ** 2)
+                loss_mix = cfg.lambda_score * loss_score_mix
+                total = total + cfg.lambda_mix * loss_mix
+                parts = dict(parts, mix=loss_mix, score_mix=loss_score_mix)
 
-        if aug == "hardtoken":
-            total, parts = _hardtoken_aux(cfg, total, parts, Ps, sc_s, sc_t,
-                                          Qb, qmb, P_t, pm_t, pmask_s,
-                                          chunk_p, gen, loss_fn)
+            if aug == "hardtoken":
+                total, parts = _hardtoken_aux(cfg, total, parts, Ps, sc_s, sc_t,
+                                              Qb, qmb, P_t, pm_t, pmask_s,
+                                              chunk_p, gen, loss_fn)
 
-        total.backward()
+        with span("evdr.train.backward"):
+            total.backward()
         parts = {k: v.detach() for k, v in parts.items()}
         if cfg.debug_invariants:
             # masked-GRADIENT invariant (mainv1.py:74-87): gradients at
@@ -495,7 +498,8 @@ def build_train_step(cfg: TrainConfig, bundle: DatasetBundle,
             g_abs = param.grad.abs().amax(dim=-1)  # (N, L)
             parts["_grad_valid_absmax"] = (g_abs * pmask_s).amax()
             parts["_grad_invalid_absmax"] = (g_abs * ~pmask_s).amax()
-        optimizer.step()
+        with span("evdr.train.optimizer"):
+            optimizer.step()
         parts["total_loss"] = total.detach()
         return parts
 
@@ -511,18 +515,30 @@ def dispatch_steps(step, idx, seed, device):
     ``idx`` is one batch (B,), or (K, B) for K steps, on a generator on
     ``device`` and a host generator both seeded by ``seed``. K steps return
     the last step's parts plus the sum of all K totals (the JAX package's
-    scan, harness.py:476-483)."""
-    idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
-    gen = generator_for(seed, device)
-    host_rng = np.random.default_rng(seed)
-    if idx.dim() == 1:
-        return step(idx, gen, host_rng)
+    scan, harness.py:476-483). Spans: ``evdr.train.step`` around each step
+    row, ``evdr.train.feed`` around the indices' copy to the device and
+    the generators (inside the step's span for one batch, before the
+    first row's for K)."""
+    if np.ndim(idx) == 1:
+        with span("evdr.train.step"):
+            return step(*_feed(idx, seed, device))
+    idx, gen, host_rng = _feed(idx, seed, device)
     total_sum = torch.zeros((), dtype=torch.float32, device=device)
     for row in idx:
-        parts = step(row, gen, host_rng)
+        with span("evdr.train.step"):
+            parts = step(row, gen, host_rng)
         total_sum = total_sum + parts["total_loss"]
     parts["total_loss_sum"] = total_sum
     return parts
+
+
+def _feed(idx, seed, device):
+    """A dispatch's inputs: its indices on ``device`` and its device and
+    host generators (span ``evdr.train.feed``)."""
+    with span("evdr.train.feed"):
+        return (torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                                device=device),
+                generator_for(seed, device), np.random.default_rng(seed))
 
 
 def _stable_argsort_desc(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -94,6 +94,25 @@ def test_search_matches_engine_and_metrics_count_it(server, corpus):
     assert n >= 7
 
 
+def _metric(text, name):
+    return float(next(line.split()[1] for line in text.splitlines()
+                      if line.startswith(name + " ")))
+
+
+def test_metrics_histogram_the_queue_wait_of_every_request(server, corpus):
+    _, url = server
+    q = np.asarray(corpus["query"][0], np.float32).tolist()
+    for _ in range(2):
+        assert _post(url + "/search", {"queries": [q], "k": 2})[0] == 200
+    code, metrics = _get(url + "/metrics")
+    assert code == 200 and "# TYPE evdr_queue_wait_ms histogram" in metrics
+    n = _metric(metrics, "evdr_requests_total")
+    assert n >= 2
+    assert _metric(metrics, "evdr_queue_wait_ms_count") == n
+    assert _metric(metrics, 'evdr_queue_wait_ms_bucket{le="+Inf"}') == n
+    assert _metric(metrics, "evdr_queue_wait_ms_sum") >= 0.0
+
+
 def _obj(arrs):
     o = np.empty(len(arrs), dtype=object)
     for i, a in enumerate(arrs):
