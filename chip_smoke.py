@@ -121,7 +121,12 @@ line each:
     with int4 summaries (K4) and pq (bf16 summaries, K1); at 512 and
     2,500 candidates (1% and 5%) each engine's q/s, recall@1 and @10
     against its exact search, stage 1 and stage 2 timed apart by CUDA
-    events, stage 1's launches by shape (Lp 4) and its bound; gates: the
+    events, stage 1's launches by shape (Lp 4) and its bound; stage 2's
+    kernel (``rerank_int8``, the int8 engines' stage 2, one launch a
+    search) at the pruned benchmark cell's shape (256 x 32 queries, 416
+    candidates from the quantize_queries engine's stage 1) against its
+    plain version, with its time, its bound by bytes and by operations,
+    and the plain version's time; gates: the
     rerank's scores equal plain exact f32 MaxSim of the returned docs, no
     index >= n_docs, and at n_candidates = n_docs (the first 2,000 pages,
     int8 and pq) the top-10 equal to exact MaxSim's at every untied rank;
@@ -159,7 +164,7 @@ line each:
     (2 shards each) serving a 25,000-page int8 file: /healthz, /search,
     /add, /delete, /search, /save. Gates: top-10 ids equal and scores
     bit-equal to the one-shard engine after the same calls, one launch a
-    shard, both servers exit 0. Times: q/s of each mesh beside its
+    shard (pruned: one a stage), both servers exit 0. Times: q/s of each mesh beside its
     one-shard engine's, the merge's share of a mesh top-k (CUDA events),
     the processes' start and HTTP times;
 24. multi-GPU training on phase 8's fixture: (a) phase 8's run (200
@@ -198,7 +203,9 @@ tail searches (counts set to 0 just before each) those of K1 bf16, K2,
 K4 and K3 (compact books) as ``incremental_launches``, and phase 23's
 mesh searches (counts set to 0 just before each) as
 ``sharded_launches``, and phase 24 (a)'s mesh run (counts set to 0 just
-before it) K1 float32's as ``mesh_train_launches``.
+before it) K1 float32's as ``mesh_train_launches``. Stage 2's kernel
+(``rerank_int8``) counts the launches of phase 21's pruned searches on the
+int8 engines (counts set to 0 just before each).
 """
 
 from __future__ import annotations
@@ -258,6 +265,9 @@ PLAIN_WIDE_DOCS = 1_000
 # candidates; the full-cover gate and the files on the first 2,000 pages
 PRUNE_DOCS, PRUNE_K, PRUNE_CANDS = 50_000, 4, (512, 2_500)
 PRUNE_FULL_DOCS = 2_000
+# stage 2's kernel timed at the pruned benchmark cell's shape: 256 x 32
+# queries, 416 candidates (1% of M3DocVQA's 41,005 pages) of 768 x 128
+PRUNE_CELL_CANDS = 416
 # incremental serving (phase 22): main indexes of 49,000 pages (bf16
 # 10,000), 1,000 pages added in four calls (the last two of 701 tokens),
 # 50 of them upserting main docids, 250 main and 250 tail docs deleted;
@@ -2212,12 +2222,18 @@ def pruned_engine(label, kw, P, pm, Q, qm, smi):
               "stage1_bound_by": s_by, "stage1_share": s_bound / s1_ms,
               "by_candidates": {}}
     stage1 = Counter()
+    on_kernel = ix.scales is not None and ix.P.dtype == torch.int8
     for nc in PRUNE_CANDS:
         cm.reset_launch_counts()
         eng.search_dense(Q, qm, k=K, n_candidates=nc)
         torch.cuda.synchronize()
         shapes = sorted(k_ + (v_,) for k_, v_ in cm.launch_shapes.items())
         stage1.update(cm.launch_shapes)
+        n_rr = pruned.rerank_int8_cuda.launches
+        report["stage2_launches"] = report.get("stage2_launches", 0) + n_rr
+        check(n_rr == int(on_kernel), f"{label}: stage 2 launched the "
+              f"rerank kernel {n_rr} times in one search (want "
+              f"{int(on_kernel)})")
         t0 = time.perf_counter()
         vals, idx = eng.search_dense(Q, qm, k=K, n_candidates=nc)
         qps = Q.shape[0] / (time.perf_counter() - t0)
@@ -2250,9 +2266,74 @@ def pruned_engine(label, kw, P, pm, Q, qm, smi):
               and shapes, f"{label}: stage 1 ran the kernels on the summary")
     log(f"phase 21 {label}: build {t_build:.1f} s (summaries "
         f"{report['summary_dtype']}, {tensor_bytes(sx.P) / 1e6:.1f} MB)")
+    if kw.get("quantize_queries"):
+        # the benchmark cell's engine: stage 2's kernel at its shape
+        report["rerank_kernel"] = rerank_kernel_entry(
+            ix, Q, qm, _select_topk(sc, PRUNE_CELL_CANDS)[1], smi)
     del eng
     torch.cuda.empty_cache()
     return report, stage1
+
+
+def rerank_kernel_entry(ix, Q, qm, cand, smi):
+    """Stage 2's kernel (ops/pruned.rerank_int8_cuda) at the pruned
+    benchmark cell's shape, on stage 1's candidates ``cand`` (nq, 416) of
+    the int8 index ``ix``: median of 7 CUDA-event timings beside its bound
+    (every input byte once: the candidates' codes, scales and mask,
+    repeats counted, the queries, the ids, the scores; or three f16
+    products per dim of each valid token pair at the f16 peak, 989 TFLOP/s
+    as bf16's) and its
+    plain version's time (_rerank_scores in rerank_chunk_q's blocks,
+    median of 3), and the largest gap between the two (finite scores; the
+    -inf ones equal). Returns the kernel table's entry (launches filled in
+    by the caller)."""
+    from evdr_tpu_torch.ops import pruned
+
+    lp, d = ix.pmask.shape[1], Q.shape[-1]
+    args = (Q, qm, ix.P, ix.pmask, cand, ix.scales)
+    ms, lo, hi = cuda_ms(lambda: pruned.rerank_int8_cuda(*args), 7)
+    chunk = pruned.rerank_chunk_q(cand.shape[1], lp, d)
+
+    def plain():
+        with pruned._f32_products():
+            return torch.cat([pruned._rerank_scores(
+                Q[s:s + chunk], qm[s:s + chunk], ix.P, ix.pmask,
+                cand[s:s + chunk], ix.scales)
+                for s in range(0, Q.shape[0], chunk)])
+
+    plain_ms, _, _ = cuda_ms(plain, 3)
+    got, want = pruned.rerank_int8_cuda(*args), plain()
+    dead = want == -torch.inf
+    check(torch.equal(got == -torch.inf, dead),
+          "rerank kernel: -inf exactly where the plain version has it")
+    err = float((got[~dead] - want[~dead]).abs().max())
+    n_pick = cand.numel()
+    nbytes = (n_pick * lp * (d + ix.scales.element_size() + 1)
+              + tensor_bytes(Q, qm, cand) + n_pick * 4)
+    pairs = float((qm.sum(1).float()[:, None]
+                   * ix.pmask[cand].sum(-1).float()).sum())
+    ops = 3 * 2.0 * d * pairs
+    bms, by = bound(nbytes, ops, "bf16")
+    distinct = int(cand.unique().numel())
+    log(f"phase 21 time rerank_int8 (stage 2) at {Q.shape[0]}x{Q.shape[1]} "
+        f"queries x {cand.shape[1]} candidates of {lp} x {d}: {ms:.3f} ms "
+        f"median of 7 (spread {lo:.3f}-{hi:.3f}); bound {bms:.3f} ms by {by} "
+        f"({bms / ms:.1%}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+        f"operations {ops / PEAK_OPS['bf16'] * 1e3:.3f} ms at the f16 "
+        f"peak); plain {plain_ms:.3f} ms (median of 3); max abs err "
+        f"{err:.3e} (tol 1e-4); {distinct} distinct pages of {n_pick}; "
+        f"library: none; {smi}")
+    check(err <= 1e-4, "rerank kernel equals its plain version")
+    return {"name": "rerank_int8", "route": "cuda",
+            "source": "evdr_tpu_torch/csrc/rerank_int8.cu",
+            "replaces": "none (XLA gather + einsum, "
+                        "evdr_tpu/ops/pruned.py:81-147)",
+            "launches": 0, "max_abs_err": err, "tol": 1e-4, "ms": ms,
+            "ms_min": lo, "ms_max": hi, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / PEAK_OPS["bf16"] * 1e3,
+            "library_ms": None, "distinct_pages": distinct}
 
 
 def pruned_full_cover(label, kw, P, pm, Q, qm):
@@ -3160,7 +3241,8 @@ def mesh_int8(cm, gen, m4, m22):
 def mesh_pruned(cm, gen, m4):
     """Phase 23 (a), pruned int8 on PRUNE_FULL_DOCS pages: the mesh engine
     over the one-shard engine's codes and summaries; at INC_PRUNE_CANDS
-    candidates and at all of them ids and scores bit-equal."""
+    candidates and at all of them ids and scores bit-equal, each shard
+    launching stage 1 (K2) and stage 2 (the rerank kernel) once."""
     from evdr_tpu_torch import RetrievalEngine
     from evdr_tpu_torch.parallel.sharded_index import (build_sharded_index,
                                                        pad_index_dim)
@@ -3180,8 +3262,9 @@ def mesh_pruned(cm, gen, m4):
     for nc in (INC_PRUNE_CANDS, n):
         ref = one.search_dense(Q, qm, k=K, n_candidates=nc)
         vals, idx, counts, _ = mesh_search(cm, em, Q, qm, n_candidates=nc)
-        check(counts == {"maxsim_cuda_int8": 4}, f"pruned stage 1: one "
-              f"launch a shard: {counts}")
+        check(counts == {"maxsim_cuda_int8": 4, "rerank_int8_cuda": 4},
+              f"pruned: one stage-1 and one stage-2 launch a shard: "
+              f"{counts}")
         same_results(f"int8 pruned at {nc}", one, em, ref, (vals, idx))
         rep[f"qps_one_shard_{nc}"] = qps(one, Q, qm, n_candidates=nc)
         rep[f"qps_mesh_{nc}"] = qps(em, Q, qm, n_candidates=nc)
@@ -4156,8 +4239,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         # 21. pruned two-stage search; stage 1's launches at Lp = PRUNE_K join
-        # the entries of the kernels it ran
+        # the entries of the kernels it ran; stage 2's kernel is an entry of
+        # its own, with the int8 engines' launches
         reports, stage1 = pruned_phase(gen, smi, Path(root))
+        rerank = next(r.pop("rerank_kernel") for r in reports
+                      if "rerank_kernel" in r)
+        rerank["launches"] = sum(r["stage2_launches"] for r in reports)
+        kernels.append(rerank)
         log("phase 21 report: " + json.dumps(reports))
         by_name = {"maxsim_cuda": "maxsim_bf16", "maxsim_cuda_int8":
                    "maxsim_int8", "maxsim_cuda_int8full": "maxsim_int8full",
@@ -4217,7 +4305,7 @@ def main(argv=None) -> int:
     log(f"phases 1-24: {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
-    n_k = 15 + 16
+    n_k = 15 + 17
     check(len(kernels) == n_k and all(k["launches"] > 0 for k in kernels),
           f"{n_k} kernels, each launched on its path: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

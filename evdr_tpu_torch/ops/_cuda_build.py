@@ -81,6 +81,9 @@ LIBRARIES = {
         "evdr_maxsim_bwd_wide": [_P] * 10 + [_I] * 5 + [_P],
         "evdr_maxsim_bwd_f32_wide": [_P] * 10 + [_I] * 5 + [_P],
     },
+    "rerank_int8": {
+        "evdr_rerank_int8": [_P] * 7 + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

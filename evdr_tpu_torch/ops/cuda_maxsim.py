@@ -789,7 +789,7 @@ for _w in KERNEL_WRAPPERS:
 
 def reset_launch_counts() -> None:
     """Zero the launch counts of every kernel wrapper of the port (this
-    module's and ``cuda_maxsim_train``'s)."""
+    module's, ``cuda_maxsim_train``'s and ``pruned``'s stage 2)."""
     for w in all_wrappers():
         w.launches = 0
     launch_shapes.clear()
@@ -800,6 +800,7 @@ def launch_counts() -> dict:
 
 
 def all_wrappers() -> tuple:
-    from evdr_tpu_torch.ops import cuda_maxsim_train
+    from evdr_tpu_torch.ops import cuda_maxsim_train, pruned
 
-    return KERNEL_WRAPPERS + cuda_maxsim_train.KERNEL_WRAPPERS
+    return (KERNEL_WRAPPERS + cuda_maxsim_train.KERNEL_WRAPPERS
+            + pruned.KERNEL_WRAPPERS)

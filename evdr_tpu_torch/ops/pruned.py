@@ -9,9 +9,13 @@ Counterpart of ``evdr_tpu/ops/pruned.py``:
 2. STAGE 1: fused MaxSim over the summary index (the port's kernels K1, K2
    or K4 at Lp = k_centroids, through ``parallel/topk._local_scores``) ->
    the top ``n_candidates`` pages per query.
-3. STAGE 2: gather the candidates' full token sets and rerank them with
-   exact masked MaxSim in f32 (a gather plus an einsum, as in the
-   reference, which runs no Pallas kernel there).
+3. STAGE 2: rerank the candidates' full token sets with exact masked
+   MaxSim in f32. For an int8 index on the card one hand-written kernel
+   (``csrc/rerank_int8.cu``, :func:`rerank_int8_cuda`) reads each
+   candidate's codes, scales and mask straight from the index by its row
+   and scores every query in one launch; every other index, and every CPU
+   tensor, takes the plain version :func:`_rerank_scores`, a gather plus an
+   einsum as in the reference (which runs no Pallas kernel there).
 
 Stage 1 selects exactly (``_select_topk``), where the reference takes
 ``lax.approx_max_k`` above 128 candidates. Stage 2 keeps the reference's
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 
 from evdr_tpu_torch.ops.batched_kmeans import batched_kmeans
-from evdr_tpu_torch.ops.cuda_maxsim import unpack_int4_torch
+from evdr_tpu_torch.ops.cuda_maxsim import (_check_int8, _check_shapes,
+                                            _on_cuda, call_kernel, kernel_dim,
+                                            pad_dim, unpack_int4_torch)
 from evdr_tpu_torch.ops.maxsim import NEG_FILL
 from evdr_tpu_torch.parallel.topk import _local_scores, _select_topk
 from evdr_tpu_torch.utils.timing import span
@@ -124,16 +130,6 @@ def _decode_pq(codes, books, d: int, pq_decode: str) -> torch.Tensor:
     return full.reshape(*lead, -1)
 
 
-def _rerank_block(Q, qmask, P, pmask, cand_idx, k: int, scales=None,
-                  books=None, pq_decode: str = "onehot"):
-    """One query block of the exact candidate rerank (see
-    :func:`rerank_candidates`)."""
-    scores = _rerank_scores(Q, qmask, P, pmask, cand_idx, scales, books,
-                            pq_decode)
-    vals, pos = _select_topk(scores, min(k, scores.shape[-1]))
-    return vals, torch.gather(cand_idx, 1, pos)
-
-
 def _rerank_scores(Q, qmask, P, pmask, cand_idx, scales=None, books=None,
                    pq_decode: str = "onehot"):
     """(nq, C) exact f32 MaxSim of each query's candidates (rows
@@ -158,6 +154,69 @@ def _rerank_scores(Q, qmask, P, pmask, cand_idx, scales=None, books=None,
     return torch.where(any_valid, scores, -torch.inf)
 
 
+def _rerank_on_kernel(P, scales, books) -> bool:
+    """Whether stage 2 runs on :func:`rerank_int8_cuda`: an int8 index with
+    per-token scales on a CUDA device. Packed int4, PQ, float and bf16
+    indexes, and every index on the CPU, take the plain path."""
+    return (books is None and scales is not None and P.dtype == torch.int8
+            and P.device.type == "cuda")
+
+
+def rerank_int8_cuda(Q, qmask, P, pmask, cand_idx, scales):
+    """Stage 2's kernel (``csrc/rerank_int8.cu``): the (nq, C) scores of
+    :func:`_rerank_scores` over an int8 index with per-token scales, every
+    query in one launch, candidates read by row from the index (repeats
+    allowed). Each f32 query value enters as three f16 terms on its row's
+    power-of-two grid, so every code x term product and every partial sum
+    of the f16 tensor cores is exact (the source's note). D is zero-padded
+    to the kernel's granule where it is not on it (the engine stores its
+    index padded). Its plain version, for CPU tensors, is
+    :func:`_rerank_scores`."""
+    if not _on_cuda(Q, qmask, P, pmask, cand_idx, scales):
+        with _f32_products():
+            return _rerank_scores(Q, qmask, P, pmask, cand_idx, scales)
+    _check_shapes(Q, P, qmask, pmask, scales)
+    _check_int8(P, scales)
+    nq, lq, d = Q.shape
+    n, lp = pmask.shape
+    if (cand_idx.dim() != 2 or cand_idx.shape[0] != nq
+            or cand_idx.dtype.is_floating_point or cand_idx.shape[1] == 0):
+        raise ValueError(f"cand_idx must be ({nq}, C) integer row ids, got "
+                         f"{tuple(cand_idx.shape)} {cand_idx.dtype}")
+    dk = kernel_dim(d)
+    Pk = pad_dim(P, dk)
+    out = torch.empty((nq, cand_idx.shape[1]), dtype=torch.float32,
+                      device=Q.device)
+    call_kernel("rerank_int8", "evdr_rerank_int8",
+                (pad_dim(Q.float(), dk).contiguous(),
+                 qmask.float().contiguous(), Pk, scales, pmask,
+                 cand_idx.long().contiguous(), out),
+                nq, lq, cand_idx.shape[1], n, lp, dk, aligned=(Pk,))
+    rerank_int8_cuda.launches += 1
+    return out
+
+
+rerank_int8_cuda.launches = 0
+KERNEL_WRAPPERS = (rerank_int8_cuda,)
+
+
+def rerank_scores(Q, qmask, P, pmask, cand_idx, scales=None, books=None,
+                  pq_decode: str = "onehot", chunk_q=None):
+    """(nq, C) exact f32 MaxSim of each query's candidates (rows
+    ``cand_idx`` of ``P``), a candidate with no valid token at -inf: the
+    kernel for an int8 index on the card (every query in one launch), else
+    :func:`_rerank_scores` in blocks of ``chunk_q`` queries (default all at
+    once), which bound its f32 copies of the candidates."""
+    if _rerank_on_kernel(P, scales, books):
+        return rerank_int8_cuda(Q, qmask, P, pmask, cand_idx, scales)
+    step = chunk_q or max(1, Q.shape[0])
+    with _f32_products():
+        return torch.cat([_rerank_scores(
+            Q[s:s + step], qmask[s:s + step], P, pmask,
+            cand_idx[s:s + step], scales, books, pq_decode)
+            for s in range(0, Q.shape[0], step)])
+
+
 def rerank_candidates(Q, qmask, P, pmask, cand_idx, k: int, scales=None,
                       chunk_q: int = 32, books=None,
                       pq_decode: str = "onehot"):
@@ -165,17 +224,14 @@ def rerank_candidates(Q, qmask, P, pmask, cand_idx, k: int, scales=None,
 
     Q (nq, Lq, D); P (N, Lp, D) (int8 codes with ``scales``, packed int4
     uint8 with ``scales``, or PQ codes with ``books``); cand_idx (nq, C) ->
-    top-k (values, GLOBAL doc indices) among the candidates, in blocks of
-    ``chunk_q`` queries (the gathered candidates are f32 for the einsum)."""
-    with _f32_products():
-        blocks = [_rerank_block(Q[s:s + chunk_q], qmask[s:s + chunk_q], P,
-                                pmask, cand_idx[s:s + chunk_q], k, scales,
-                                books, pq_decode)
-                  for s in range(0, Q.shape[0], chunk_q)]
-    if len(blocks) == 1:
-        return blocks[0]
-    return (torch.cat([v for v, _ in blocks]),
-            torch.cat([i for _, i in blocks]))
+    top-k (values, GLOBAL doc indices) among the candidates, selected once
+    over all queries. The scores come from :func:`rerank_scores`: on the
+    plain path in blocks of ``chunk_q`` queries (the gathered candidates
+    are f32 for the einsum), on the kernel in one launch."""
+    scores = rerank_scores(Q, qmask, P, pmask, cand_idx, scales, books,
+                           pq_decode, chunk_q)
+    vals, pos = _select_topk(scores, min(k, scores.shape[-1]))
+    return vals, torch.gather(cand_idx, 1, pos)
 
 
 def candidate_scores(Q, qmask, S, smask, impl: str, sscales=None):

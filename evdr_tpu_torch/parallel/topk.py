@@ -187,8 +187,7 @@ def sharded_rerank(Q, qmask, index: ShardedIndex, cand: torch.Tensor,
     device (or are all-gathered) and every candidate takes its owner's
     score; one stable sort over the candidates in stage 1's order then
     breaks ties as the one-device rerank does."""
-    from evdr_tpu_torch.ops.pruned import (_f32_products, _rerank_scores,
-                                           rerank_chunk_q)
+    from evdr_tpu_torch.ops.pruned import rerank_chunk_q, rerank_scores
 
     mesh, rows = index.mesh, index.shard_rows
     per, groups = _row_queries(Q, qmask, mesh)
@@ -211,11 +210,8 @@ def sharded_rerank(Q, qmask, index: ShardedIndex, cand: torch.Tensor,
             lidx = torch.gather(local, 1, sel).clamp_(0, rows - 1)
             chunk = rerank_chunk_q(m, part.pmask.shape[-1], Qr.shape[-1],
                                    part.books, pq_decode)
-            with _f32_products():
-                sc = torch.cat([_rerank_scores(
-                    Qr[s:s + chunk], qmr[s:s + chunk], part.P, part.pmask,
-                    lidx[s:s + chunk], part.scales, part.books, pq_decode)
-                    for s in range(0, per, chunk)])
+            sc = rerank_scores(Qr, qmr, part.P, part.pmask, lidx,
+                               part.scales, part.books, pq_decode, chunk)
             sc = torch.where(torch.gather(owned, 1, sel), sc, -torch.inf)
             full.scatter_(1, sel, sc)
         blocks.append(full)

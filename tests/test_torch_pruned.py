@@ -207,12 +207,13 @@ RERANK_KINDS = ["float", "int8", "int4", "pq_onehot", "pq_take",
 
 @pytest.mark.parametrize("kind", RERANK_KINDS)
 def test_rerank_matches_jax(kind):
-    """_rerank_block and rerank_candidates (in blocks of 2 queries, the
-    last ragged) against the JAX functions on the same candidates: float,
-    int8 and int4 candidates (scales applied after the gather, int4
-    unpacked after it), PQ with compact and expanded books through both
-    decodes. Values 1e-5 (f32 on both sides), indices equal; a padding
-    candidate ranks last (-inf) and is never returned above a real doc."""
+    """rerank_candidates in one block (JAX's _rerank_block) and in blocks
+    of 2 queries, the last ragged, against the JAX functions on the same
+    candidates: float, int8 and int4 candidates (scales applied after the
+    gather, int4 unpacked after it), PQ with compact and expanded books
+    through both decodes. Values 1e-5 (f32 on both sides), indices equal;
+    a padding candidate ranks last (-inf) and is never returned above a
+    real doc."""
     rng = np.random.default_rng(7)
     Q, qm, P, pm, cand = _rerank_case()
     Pi, sc, books = _index(kind, P, pm, rng)
@@ -228,7 +229,8 @@ def test_rerank_matches_jax(kind):
                pq_decode=dec)
     for k in (3, 7):
         vj, ij = jpr._rerank_block(*jargs, k, **jkw)
-        v, i = pruned._rerank_block(*targs, k, **tkw)
+        v, i = pruned.rerank_candidates(*targs, k=k, chunk_q=Q.shape[0],
+                                        **tkw)
         np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=1e-5,
                                    atol=1e-5)
         np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
