@@ -50,6 +50,7 @@ from evdr_tpu_torch.data.packing import (l2_normalize, preprocess_docs,
                                          preprocess_queries)
 from evdr_tpu_torch.parallel.sharded_index import (ShardedIndex, as_tensor,
                                                    build_sharded_index,
+                                                   build_sharded_index_blocks,
                                                    pad_index_dim, pad_queries,
                                                    set_books)
 from evdr_tpu_torch.parallel.topk import (_mesh_topk,
@@ -235,6 +236,35 @@ class RetrievalEngine:
 
             self._build_summary(*build_summary_tokens(
                 P, pmask, self.prune_centroids, device=self.device))
+        return self
+
+    def build_blocks(self, source, n_docs: int,
+                     docids: Optional[Sequence[str]] = None,
+                     normalize: Optional[bool] = None) -> "RetrievalEngine":
+        """Index a corpus that no process holds whole, given as blocks:
+        ``source(lo, hi, device)`` returns the float tokens (hi - lo, Lp,
+        D) and the bool mask (hi - lo, Lp) of docs ``[lo, hi)`` on
+        ``device``. Each shard of the mesh (or the one device) asks only
+        for its own rows, ``sharded_index.BLOCK_ROWS`` at most at a time,
+        and normalizes
+        and quantizes (int8) or casts (bfloat16, float32) each block on
+        its own device; the shards' devices build at once
+        (``sharded_index.build_sharded_index_blocks``). The index equals
+        ``build`` of the whole array bit for bit. int4 and pq (which pack
+        or train over the whole array) and ``prune_centroids > 0`` (the
+        summaries' k-means) raise, as ``build(streaming=True)`` does."""
+        if self.dtype in ("int4", "pq") or self.prune_centroids > 0:
+            raise ValueError(
+                "build_blocks takes float32, bfloat16 and int8 engines "
+                f"without pruning, not dtype={self.dtype!r} with "
+                f"prune_centroids={self.prune_centroids} (int4 packing, "
+                "PQ training and the pruning summaries need the whole "
+                "array)")
+        self._reset_incremental()
+        normalize = self.normalize if normalize is None else normalize
+        self.index = pad_index_dim(build_sharded_index_blocks(
+            source, n_docs, self._place, dtype=self.dtype,
+            docids=_ids(docids), normalize=normalize))
         return self
 
     def build_from_codes(self, codes, scales, pmask,

@@ -14,6 +14,14 @@ processes, the ``torch.distributed`` groups. A mesh may repeat a device
 (four ``cuda:0`` shards, or four CPU shards): the shards are then separate
 tensors on one device, which is how one card or the CPU runs a mesh of
 several shards. :func:`make_mesh` itself never repeats a device.
+
+``TRANSFER_BYTES`` counts the bytes a search moves between devices, by
+kind: ``queries`` (what a search sends out to each shard's device: the
+queries, their masks, pruned search's candidate ids; ``parallel/topk.
+_on``), ``candidates`` (top-k candidates and rerank scores
+to the first device, :func:`gather_blocks`) and ``scores`` (whole score
+blocks, ``sharded_maxsim``). A copy whose source is its destination
+counts nothing.
 """
 
 from __future__ import annotations
@@ -23,8 +31,32 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from evdr_tpu_torch.utils.timing import span
+
 DOC_AXIS = "docs"
 DP_AXIS = "dp"
+
+# bytes moved between devices since the process started, by kind
+TRANSFER_BYTES = {"queries": 0, "candidates": 0, "scores": 0}
+
+
+def same_device(a, b) -> bool:
+    """Whether devices ``a`` and ``b`` are one (an index left out is 0:
+    a CPU tensor reports ``cpu`` whatever ``cpu:<n>`` made it)."""
+    a, b = torch.device(a), torch.device(b)
+    return (a.type, a.index or 0) == (b.type, b.index or 0)
+
+
+def count_transfer(kind: Optional[str], x: torch.Tensor, src, dst) -> None:
+    """Add ``x``'s bytes to ``TRANSFER_BYTES[kind]`` where it moves from
+    device ``src`` to another device ``dst`` (no ``kind``: not counted)."""
+    if kind is not None and not same_device(src, dst):
+        TRANSFER_BYTES[kind] += x.numel() * x.element_size()
+
+
+def transfer_bytes() -> int:
+    """Every kind's bytes moved between devices so far."""
+    return sum(TRANSFER_BYTES.values())
 
 
 @dataclass(frozen=True)
@@ -132,7 +164,7 @@ def mesh_of(devices: Sequence, dp: int = 1) -> DeviceMesh:
 
 
 def gather_blocks(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
-                  dst) -> List[torch.Tensor]:
+                  dst, kind: Optional[str] = None) -> List[torch.Tensor]:
     """Every shard's block on ``dst``, in global shard order: this
     process holds ``blocks``, one per local shard, all of one shape and
     dtype. One process moves them; across processes they are all-gathered
@@ -140,9 +172,19 @@ def gather_blocks(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
     blocks of the same shape). gloo takes host tensors, so CUDA blocks
     are staged through host memory there; NCCL takes them on the card.
     Blocks travel as their raw bytes, since neither backend carries every
-    dtype (gloo refuses int16, the bits of bf16 tokens)."""
-    if not mesh.multiprocess:
-        return [b.to(dst) for b in blocks]
+    dtype (gloo refuses int16, the bits of bf16 tokens). A search's
+    gathers name their ``kind``: the bytes that arrive from other devices
+    count there (``TRANSFER_BYTES``). The copies run in the span
+    ``evdr.mesh.gather``."""
+    with span("evdr.mesh.gather"):
+        if not mesh.multiprocess:
+            for dev, b in zip(mesh.devices, blocks):
+                count_transfer(kind, b, dev, dst)
+            return [b.to(dst) for b in blocks]
+        return _all_gather_blocks(blocks, mesh, dst, kind)
+
+
+def _all_gather_blocks(blocks, mesh: DeviceMesh, dst, kind: str):
     import torch.distributed as dist
 
     local = torch.stack([b.to(dst) for b in blocks])
@@ -152,5 +194,7 @@ def gather_blocks(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
         local = local.cpu()
     out = [torch.empty_like(local) for _ in range(mesh.world)]
     dist.all_gather(out, local, group=mesh.group)
+    if kind is not None:
+        TRANSFER_BYTES[kind] += (mesh.world - 1) * local.numel()
     full = torch.cat(out).to(dst).view(dtype)
     return list(full.unbind(0))

@@ -19,6 +19,11 @@ allocated once at the padded size, a bounded chunk of rows at a time
 anonymous host memory; on a mesh, one shard at a time. A mesh build reads
 only the rows of the shards this process owns. ``as_tensor`` takes the
 same route for any read-only array.
+
+Block builds (``build_sharded_index_blocks``) take a corpus that no
+process holds whole, as a function that gives any range of rows on a
+given device: each shard fills its padded tensors from its own rows, a
+block at a time, quantizing on its own device.
 """
 
 from __future__ import annotations
@@ -29,11 +34,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from evdr_tpu_torch.data.packing import l2_normalize
 from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, pad_dim,
                                             pad_pq_queries, pq_width)
 from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
 from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 from evdr_tpu_torch.parallel.mesh import DeviceMesh
+from evdr_tpu_torch.utils.timing import span
 
 _FLOAT_DTYPES = {None: torch.float32, "float32": torch.float32,
                  "bfloat16": torch.bfloat16}
@@ -282,6 +289,106 @@ def _build_on_mesh(P, pmask, mesh, dtype, quantum, scales, docids,
             None if scales is None else scales[lo:hi], None, streaming))
     return ShardedIndex(P=None, pmask=None, n_docs=n, docids=docids,
                         mesh=mesh, parts=parts)
+
+
+# rows a block build asks its source for at a time
+BLOCK_ROWS = 1024
+
+
+def build_sharded_index_blocks(source, n_docs: int, device, dtype=None,
+                               pad_docs_to: int = 64, docids=None,
+                               normalize: bool = False) -> ShardedIndex:
+    """Build an index from a corpus that no process holds whole:
+    ``source(lo, hi, device)`` gives the float tokens (hi - lo, Lp, D) and
+    the bool mask (hi - lo, Lp) of rows ``[lo, hi)``, on ``device``.
+
+    Each shard this process owns (or the one device) allocates its padded
+    tensors once on its device and fills them at most ``BLOCK_ROWS`` rows
+    at a time, each block normalized (``normalize``) and quantized
+    (int8) or cast (bfloat16, float32) there. Blocks go to the shards in
+    turn with no host sync, so the shards' devices build at once. The
+    rows and padding are laid out as :func:`build_sharded_index` lays them
+    out for the whole array, and per-token quantization makes the result
+    bit-equal to it. int4 (which packs token pairs) is refused."""
+    if dtype not in (None, "float32", "bfloat16", "int8"):
+        raise ValueError(f"a block build takes dtype None, 'float32', "
+                         f"'bfloat16' or 'int8', not {dtype!r}")
+    n = int(n_docs)
+    if n < 1:
+        raise ValueError("a block build needs at least one doc")
+    quantum = max(1, int(pad_docs_to))
+    mesh = device if isinstance(device, DeviceMesh) else None
+    if mesh is not None and mesh.size == 1:
+        mesh, device = None, mesh.devices[0]
+    if mesh is None:
+        rows = ((n + quantum - 1) // quantum) * quantum
+        shards = [(0, n, torch.device(device))]
+    else:
+        q = mesh.n_doc_shards * quantum
+        rows = ((n + q - 1) // q) * q // mesh.n_doc_shards
+        shards = [shard_range(rows, col, n) + (dev,)
+                  for _, col, dev in mesh.local_shards()]
+    step = BLOCK_ROWS
+    parts = [None] * len(shards)
+    todo = [[(s, min(s + step, hi)) for s in range(lo, hi, step)]
+            for lo, hi, _ in shards]
+    layout = None
+    for j in range(max(len(t) for t in todo)):
+        for i, (lo, _, dev) in enumerate(shards):
+            if j >= len(todo[i]):
+                continue
+            s, e = todo[i][j]
+            with span("evdr.index.build_block"):
+                Pb, mb = source(s, e, dev)
+                Pb = as_tensor(Pb, dev, torch.float32)
+                mb = as_tensor(mb, dev, torch.bool)
+                if layout is None:
+                    layout = tuple(Pb.shape[1:])
+                if (tuple(Pb.shape) != (e - s,) + layout
+                        or tuple(mb.shape) != (e - s, layout[0])):
+                    raise ValueError(
+                        f"source({s}, {e}) gave tokens {tuple(Pb.shape)} "
+                        f"and mask {tuple(mb.shape)}; want "
+                        f"{(e - s,) + layout} and {(e - s, layout[0])}")
+                if parts[i] is None:
+                    parts[i] = _empty_shard(rows, layout, dev, dtype)
+                _fill_block(parts[i], s - lo, Pb, mb, dtype, normalize)
+    for i, (lo, hi, dev) in enumerate(shards):
+        if parts[i] is None:
+            # a shard past the last doc: padding only
+            parts[i] = _empty_shard(rows, layout, dev, dtype)
+        parts[i].n_docs = hi - lo
+    if mesh is None:
+        parts[0].docids = docids
+        return parts[0]
+    return ShardedIndex(P=None, pmask=None, n_docs=n, docids=docids,
+                        mesh=mesh, parts=parts)
+
+
+def _empty_shard(rows: int, layout, device, dtype) -> ShardedIndex:
+    """A shard of ``rows`` padding rows (masked, zero tokens and scales)."""
+    lp, d = layout
+    code = torch.int8 if dtype == "int8" else _FLOAT_DTYPES[dtype]
+    return ShardedIndex(
+        P=torch.zeros((rows, lp, d), dtype=code, device=device),
+        pmask=torch.zeros((rows, lp), dtype=torch.bool, device=device),
+        n_docs=0,
+        scales=(torch.zeros((rows, lp), dtype=torch.float32, device=device)
+                if dtype == "int8" else None))
+
+
+def _fill_block(part: ShardedIndex, at: int, Pb, mb, dtype, normalize):
+    """Rows ``[at, at + len(Pb))`` of ``part`` from float tokens ``Pb``."""
+    if normalize:
+        Pb = l2_normalize(Pb * mb[..., None])
+    e = at + int(Pb.shape[0])
+    if dtype == "int8":
+        codes, scales = quantize_tokens_int8(Pb, mb)
+        part.P[at:e].copy_(codes)
+        part.scales[at:e].copy_(scales)
+    else:
+        part.P[at:e].copy_(Pb)
+    part.pmask[at:e].copy_(mb)
 
 
 def set_books(index: ShardedIndex, books, expanded: bool) -> ShardedIndex:

@@ -11,14 +11,16 @@ masks padding columns and selects top-k;
 incremental tail, with deleted docs masked by a device-side alive mask.
 The wrappers run their plain versions when the index lies on the CPU.
 
-On a mesh of several shards (``parallel/mesh.py``) each shard scores its
-own rows through the same ``_local_scores`` on its device, masks the
+On a mesh of several shards (``parallel/mesh.py``) the queries are first
+copied to every shard's device, then each shard (``shard_topk``) scores
+its own rows through the same ``_local_scores`` on its device, masks the
 columns past ``n_docs`` (padding, never an empty doc: that one keeps its
-exact 0), takes a local top-``min(k, shard)`` and adds its row offset;
-the candidates of every shard come to the first device (or are
-all-gathered across processes) and one stable sort merges them, so ties
-go to the lower global index, as ``lax.top_k`` orders the reference's
-gathered candidates. On a ``dp x docs`` mesh each dp group takes its
+exact 0), takes a local top-``min(k, shard)`` and adds its row offset,
+with no host sync, so the devices work at once; the candidates of every
+shard come to the first device (or are all-gathered across processes)
+and one stable sort merges them (``merge_shard_topk``), so ties go to
+the lower global index, as ``lax.top_k`` orders the reference's gathered
+candidates. On a ``dp x docs`` mesh each dp group takes its
 slice of the queries. ``sharded_rerank`` is stage 2 of pruned search on
 a mesh: each shard reranks the candidates it owns.
 """
@@ -35,7 +37,8 @@ from evdr_tpu_torch.ops.cuda_maxsim import (maxsim_cuda, maxsim_cuda_int4,
                                             maxsim_cuda_int8full,
                                             maxsim_cuda_pq,
                                             maxsim_cuda_pqfull)
-from evdr_tpu_torch.parallel.mesh import gather_blocks
+from evdr_tpu_torch.parallel.mesh import (count_transfer, gather_blocks,
+                                          same_device)
 from evdr_tpu_torch.parallel.sharded_index import ShardedIndex
 from evdr_tpu_torch.utils.timing import span
 
@@ -117,28 +120,52 @@ def _row_queries(Q, qmask, mesh):
 
 
 def _on(cache, key, dev, x):
-    """``x`` on ``dev``, copied once per (key, device)."""
+    """``x`` on ``dev``, copied once per (key, device); a copy to another
+    device runs in the span ``evdr.mesh.gather`` and its bytes count as
+    ``queries`` (what a search sends out to the shards)."""
     if (key, dev) not in cache:
-        cache[key, dev] = x.to(dev)
+        if same_device(x.device, dev):
+            cache[key, dev] = x.to(dev)
+        else:
+            with span("evdr.mesh.gather"):
+                count_transfer("queries", x, x.device, dev)
+                cache[key, dev] = x.to(dev)
     return cache[key, dev]
+
+
+def shard_queries(Q, qmask, mesh, cache=None):
+    """Each local shard's (Q, qmask) on its device, in
+    ``mesh.local_shards()`` order. Every copy is issued before any shard's
+    work: a copy between devices runs on its source device's stream, so a
+    copy issued after a shard's kernels there would wait for them and
+    serialize the shards."""
+    _, groups = _row_queries(Q, qmask, mesh)
+    cache = {} if cache is None else cache
+    return [(_on(cache, ("q", r), dev, groups[r][0]),
+             _on(cache, ("m", r), dev, groups[r][1]))
+            for r, _, dev in mesh.local_shards()]
+
+
+def _masked_scores(Q, qmask, part: ShardedIndex, col: int, rows: int,
+                   n_docs: int, impl: str):
+    """Doc shard ``col``'s (queries, rows) scores, the columns past
+    ``n_docs`` at -inf."""
+    sc = _local_scores(Q, qmask, part.P, part.pmask, impl, part.scales,
+                       part.books)
+    limit = n_docs - col * rows
+    if limit < rows:
+        sc[:, max(limit, 0):] = -torch.inf
+    return sc
 
 
 def _shard_scores(Q, qmask, index: ShardedIndex, impl: str):
     """Each local shard's doc column and its (rows a group, shard_rows)
     scores, the columns past ``n_docs`` at -inf."""
     mesh, rows = index.mesh, index.shard_rows
-    _, groups = _row_queries(Q, qmask, mesh)
-    cache, out = {}, []
-    for part, (r, c, dev) in zip(index.parts, mesh.local_shards()):
-        Qr = _on(cache, ("q", r), dev, groups[r][0])
-        qmr = _on(cache, ("m", r), dev, groups[r][1])
-        sc = _local_scores(Qr, qmr, part.P, part.pmask, impl, part.scales,
-                           part.books)
-        limit = index.n_docs - c * rows
-        if limit < rows:
-            sc[:, max(limit, 0):] = -torch.inf
-        out.append((c, sc))
-    return out
+    return [(c, _masked_scores(Qr, qmr, part, c, rows, index.n_docs, impl))
+            for part, (Qr, qmr), (_, c, _) in zip(
+                index.parts, shard_queries(Q, qmask, mesh),
+                mesh.local_shards())]
 
 
 def _by_group(blocks: List[torch.Tensor], mesh, dim: int):
@@ -149,33 +176,54 @@ def _by_group(blocks: List[torch.Tensor], mesh, dim: int):
             for r in range(mesh.dp)]
 
 
+def shard_topk(Q, qmask, index: ShardedIndex, i: int, k: int, impl: str,
+               drop_empty: bool = False):
+    """Local shard ``i``'s work of a mesh search (span
+    ``evdr.mesh.shard``): its scores of queries (Q, qmask) already on its
+    device, and their top-``min(k, shard_rows)`` as (values, global doc
+    ids). ``drop_empty`` also drops docs with no valid token (pruned
+    search's stage 1: such a summary is no candidate)."""
+    part, rows = index.parts[i], index.shard_rows
+    c = index.mesh.local_shards()[i][1]
+    with span("evdr.mesh.shard"):
+        sc = _masked_scores(Q, qmask, part, c, rows, index.n_docs, impl)
+        if drop_empty:
+            sc = torch.where(part.pmask.any(dim=-1)[None, :], sc,
+                             -torch.inf)
+        v, idx = _select_topk(sc, min(k, rows))
+        return v, idx + c * rows
+
+
+def merge_shard_topk(vals, gidx, mesh, k: int, nq: int):
+    """The mesh's top-k from every local shard's (values, global ids) of
+    :func:`shard_topk` (span ``evdr.mesh.merge``): the candidates come to
+    the first device (or are all-gathered across processes) and one
+    stable sort a dp group merges them, so ties go to the lower global
+    index, as ``lax.top_k`` orders the reference's gathered candidates."""
+    with span("evdr.mesh.merge"):
+        dst = mesh.devices[0]
+        vals = _by_group(gather_blocks(vals, mesh, dst, "candidates"),
+                         mesh, 1)
+        gidx = _by_group(gather_blocks(gidx, mesh, dst, "candidates"),
+                         mesh, 1)
+        out_v, out_i = [], []
+        for v, g in zip(vals, gidx):
+            mv, pos = _select_topk(v, min(k, v.shape[1]))
+            out_v.append(mv)
+            out_i.append(torch.gather(g, 1, pos))
+        return torch.cat(out_v)[:nq], torch.cat(out_i)[:nq]
+
+
 def _mesh_topk(Q, qmask, index: ShardedIndex, k: int, impl: str,
                drop_empty: bool = False):
     """sharded_topk on a mesh; ``drop_empty`` also drops docs with no
     valid token (pruned search's stage 1)."""
-    mesh, rows = index.mesh, index.shard_rows
-    k_local = min(k, rows)
     vals, gidx = [], []
-    for part, (c, sc) in zip(index.parts,
-                             _shard_scores(Q, qmask, index, impl)):
-        if drop_empty:
-            # stage 1 of pruned search (ops/pruned.candidate_scores): a
-            # doc whose summary has no valid token is no candidate
-            sc = torch.where(part.pmask.any(dim=-1)[None, :], sc,
-                             -torch.inf)
-        v, i = _select_topk(sc, k_local)
+    for i, (Qr, qmr) in enumerate(shard_queries(Q, qmask, index.mesh)):
+        v, g = shard_topk(Qr, qmr, index, i, k, impl, drop_empty)
         vals.append(v)
-        gidx.append(i + c * rows)
-    dst = mesh.devices[0]
-    vals = _by_group(gather_blocks(vals, mesh, dst), mesh, 1)
-    gidx = _by_group(gather_blocks(gidx, mesh, dst), mesh, 1)
-    out_v, out_i = [], []
-    for v, g in zip(vals, gidx):
-        mv, pos = _select_topk(v, min(k, v.shape[1]))
-        out_v.append(mv)
-        out_i.append(torch.gather(g, 1, pos))
-    nq = int(Q.shape[0])
-    return torch.cat(out_v)[:nq], torch.cat(out_i)[:nq]
+        gidx.append(g)
+    return merge_shard_topk(vals, gidx, index.mesh, k, int(Q.shape[0]))
 
 
 def sharded_rerank(Q, qmask, index: ShardedIndex, cand: torch.Tensor,
@@ -190,19 +238,26 @@ def sharded_rerank(Q, qmask, index: ShardedIndex, cand: torch.Tensor,
     from evdr_tpu_torch.ops.pruned import rerank_chunk_q, rerank_scores
 
     mesh, rows = index.mesh, index.shard_rows
-    per, groups = _row_queries(Q, qmask, mesh)
+    per = -(-int(Q.shape[0]) // mesh.dp)
     nq, C = int(Q.shape[0]), int(cand.shape[1])
     if per * mesh.dp != nq:
         cand = torch.cat([cand, cand.new_zeros((per * mesh.dp - nq, C))])
-    cache, blocks = {}, []
-    for part, (r, c, dev) in zip(index.parts, mesh.local_shards()):
-        Qr = _on(cache, ("q", r), dev, groups[r][0])
-        qmr = _on(cache, ("m", r), dev, groups[r][1])
+    # every copy, then every shard's count of its candidates (a host
+    # sync), before any shard's rerank is queued: neither may wait on
+    # another shard's work
+    cache = {}
+    shards = shard_queries(Q, qmask, mesh, cache)
+    owns = []
+    for r, c, dev in mesh.local_shards():
         local = _on(cache, ("c", r), dev,
                     cand[r * per:(r + 1) * per]) - c * rows
         owned = (local >= 0) & (local < rows)
+        owns.append((local, owned,
+                     int(owned.sum(dim=1).max()) if per else 0))
+    blocks = []
+    for part, (Qr, qmr), (local, owned, m), (_, _, dev) in zip(
+            index.parts, shards, owns, mesh.local_shards()):
         full = torch.full((per, C), -torch.inf, device=dev)
-        m = int(owned.sum(dim=1).max()) if per else 0
         if m:
             # this shard's candidates first, in stage 1's order
             sel = torch.sort((~owned).to(torch.uint8), dim=1,
@@ -217,7 +272,8 @@ def sharded_rerank(Q, qmask, index: ShardedIndex, cand: torch.Tensor,
         blocks.append(full)
     dst = mesh.devices[0]
     groups_sc = [torch.stack(b.split(C, dim=1)).amax(dim=0) for b in
-                 _by_group(gather_blocks(blocks, mesh, dst), mesh, 1)]
+                 _by_group(gather_blocks(blocks, mesh, dst, "candidates"),
+                           mesh, 1)]
     cand = cand.to(dst)
     out_v, out_i = [], []
     for r, sc in enumerate(groups_sc):
@@ -233,7 +289,7 @@ def sharded_maxsim(Q, qmask, index: ShardedIndex, impl: str) -> torch.Tensor:
     if index.parts is not None:
         mesh = index.mesh
         blocks = gather_blocks([sc for _, sc in _shard_scores(
-            Q, qmask, index, impl)], mesh, mesh.devices[0])
+            Q, qmask, index, impl)], mesh, mesh.devices[0], "scores")
         sc = torch.cat(_by_group(blocks, mesh, 1))
         return sc[:Q.shape[0], :index.n_docs]
     sc = _local_scores(Q, qmask, index.P, index.pmask, impl, index.scales,

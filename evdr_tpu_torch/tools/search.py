@@ -77,7 +77,10 @@ def run_search(index_path, queries_path, k: int = 10, dtype: str = "bfloat16",
 
     mesh = (make_mesh(mesh_docs, device=device or "cuda")
             if mesh_docs > 1 else None)
-    eng = RetrievalEngine.from_npz(index_path, dtype=dtype, impl=impl,
+    # on a mesh the packed file is mapped and each shard's rows stream to
+    # its device: the host never holds the whole index
+    eng = RetrievalEngine.from_npz(index_path, mmap=mesh is not None,
+                                   dtype=dtype, impl=impl,
                                    quantize_queries=quantize_queries,
                                    prune_centroids=prune_centroids,
                                    summary_dtype=summary_dtype,

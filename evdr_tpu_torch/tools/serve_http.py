@@ -674,8 +674,11 @@ def main(argv=None) -> None:
     from evdr_tpu_torch.engine import RetrievalEngine
 
     print(f"[serve] loading index {a.index}", flush=True)
+    # a mesh (across processes, or of several devices in this one) maps
+    # the packed file and streams each shard's rows to its device, so the
+    # host never holds the whole index
     eng = RetrievalEngine.from_npz(
-        a.index, mmap=a.multihost, dtype=a.dtype, impl=a.impl,
+        a.index, mmap=mesh is not None, dtype=a.dtype, impl=a.impl,
         quantize_queries=a.quantize_queries,
         device=None if mesh else a.device, mesh=mesh,
         prune_centroids=a.prune_centroids, summary_dtype=a.summary_dtype)

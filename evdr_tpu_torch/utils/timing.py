@@ -19,10 +19,21 @@ that encloses it on the same thread:
   kernel route and every selection;
 - ``evdr.pruned.stage1``, ``evdr.pruned.stage2``: the two stages of
   pruned search, on one device and on a mesh;
+- ``evdr.mesh.shard`` (one shard's scores and local top-k),
+  ``evdr.mesh.gather`` (copies between devices: the queries out to each
+  shard, ``parallel/topk._on``, and every ``parallel/mesh.gather_blocks``)
+  and ``evdr.mesh.merge`` (the candidates' gather and final sort,
+  ``parallel/topk.merge_shard_topk``): a search on a doc mesh;
+- ``evdr.index.build_block``: one block of a block build
+  (``parallel/sharded_index.build_sharded_index_blocks``);
 - ``evdr.train.step`` (children ``evdr.train.feed``,
   ``evdr.train.forward``, ``evdr.train.backward``,
   ``evdr.train.optimizer``) and ``evdr.train.teacher_table``:
   ``train/harness.py``.
+
+Counters beside the spans: ``parallel/mesh.TRANSFER_BYTES``, the bytes a
+search moves between devices (``queries`` out, ``candidates`` back,
+whole ``scores``; a copy within one device counts nothing), always on.
 
 ``enable_persistent_cache`` (JAX's compilation cache) has no counterpart:
 PyTorch runs eagerly and the kernels are built once per source hash

@@ -966,6 +966,62 @@ def test_device_token_quantizers_equal_host_on_the_card(tier):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_block_build_and_mesh_search_never_sync_the_host_on_the_cards(
+        dtype, monkeypatch):
+    """A 4-shard mesh (over four cards where the machine has them, else on
+    cuda:0): ``build_blocks`` from blocks already on each shard's card
+    equals ``build`` of the whole host array bit for bit, and neither the
+    block build nor a mesh search's own work (queries out, each shard's
+    kernel and local top-k, the merge) syncs the host, so the cards work
+    at once (``torch.cuda.set_sync_debug_mode('error')`` raises on a
+    sync)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.parallel import sharded_index, topk
+    from evdr_tpu_torch.parallel.mesh import mesh_of
+
+    monkeypatch.setattr(sharded_index, "BLOCK_ROWS", 100)
+    n_cards = torch.cuda.device_count()
+    devs = ([f"cuda:{i}" for i in range(4)] if n_cards >= 4
+            else ["cuda:0"] * 4)
+    rng = np.random.default_rng(11)
+    nd, lp, d, nq, lq, k = 700, 64, 128, 16, 32, 10
+    P = rng.normal(size=(nd, lp, d)).astype(np.float32)
+    P /= np.linalg.norm(P, axis=-1, keepdims=True)
+    pm = rng.random((nd, lp)) > 0.1
+    P *= pm[..., None]
+    on = {torch.device(x): (torch.as_tensor(P, device=x),
+                            torch.as_tensor(pm, device=x)) for x in devs}
+    Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    qm = np.ones((nq, lq), bool)
+    kw = dict(dtype=dtype, quantize_queries=dtype == "int8",
+              normalize=False, mesh=mesh_of(devs))
+    whole = RetrievalEngine(**kw).build(P, pm)
+    Qd = torch.as_tensor(Q, device=devs[0])
+    qmd = torch.as_tensor(qm, device=devs[0])
+    torch.cuda.synchronize()
+    blk = RetrievalEngine(**kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blk.build_blocks(lambda lo, hi, dev: (on[dev][0][lo:hi],
+                                              on[dev][1][lo:hi]), nd)
+        vals, ids = topk.sharded_topk(Qd, qmd, blk.index, k, blk.impl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(blk.index.parts, whole.index.parts, strict=True):
+        assert a.P.device == b.P.device
+        assert torch.equal(a.P.view(torch.int8), b.P.view(torch.int8))
+        assert torch.equal(a.pmask, b.pmask)
+        assert (a.scales is None) == (b.scales is None)
+        assert a.scales is None or torch.equal(a.scales, b.scales)
+    want = whole.search_dense(Q, qm, k=k)
+    np.testing.assert_array_equal(ids.cpu().numpy(), want[1])
+    np.testing.assert_array_equal(vals.cpu().numpy(), want[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,q8,func", [
     ("bfloat16", False, "evdr_maxsim_bf16"),
     ("int8", False, "evdr_maxsim_int8"),

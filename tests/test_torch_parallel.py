@@ -387,8 +387,11 @@ def test_from_index_of_a_jax_mesh_index(mesh_kind, tier):
 def test_clis_shard_over_mesh_docs(tmp_path, monkeypatch):
     """``--mesh_docs N`` of the search CLI (and the server) shards the
     index over ``make_mesh(N)``; here a mesh of repeated CPU devices stands
-    in for N GPUs, and the run equals the one-device run."""
+    in for N GPUs, and the run equals the one-device run. On a mesh both
+    load the packed file's doc arrays memory-mapped (a one-device load
+    reads them whole)."""
     from evdr_tpu_torch.parallel import mesh as mesh_mod
+    from evdr_tpu_torch.tools import convert_packed, serve_http
     from evdr_tpu_torch.tools.search import run_search
 
     P, pm, Q, qm = _corpus(7)
@@ -396,8 +399,34 @@ def test_clis_shard_over_mesh_docs(tmp_path, monkeypatch):
     np.savez(path, P_pad=P, pmask=pm, Q_norm=Q, qmask=qm)
     monkeypatch.setattr(mesh_mod, "make_mesh",
                         lambda n, device: mesh_of([device] * n))
+    mapped = []
+    load = convert_packed.load_packed_payload
+
+    def recording(npz_path, mmap_docs=False):
+        out = load(npz_path, mmap_docs=mmap_docs)
+        mapped.append(all(isinstance(out[k], np.memmap)
+                          for k in ("P_pad", "pmask")))
+        return out
+
+    monkeypatch.setattr(convert_packed, "load_packed_payload", recording)
     one = run_search(path, path, k=10, dtype="int8", device="cpu")
     two = run_search(path, path, k=10, dtype="int8", device="cpu",
                      mesh_docs=3)
     assert one[1] == two[1] and np.array_equal(one[2], two[2])
     assert (one[3]["shards"], two[3]["shards"]) == (1, 3)
+    # each run loads the file twice: its index, then its queries
+    assert mapped == [False, False, True, False]
+
+    class Served(Exception):
+        pass
+
+    def served(engine, *a, **kw):
+        assert engine.index.mesh.n_doc_shards == 3
+        raise Served
+
+    monkeypatch.setattr(serve_http, "make_server", served)
+    with pytest.raises(Served):
+        serve_http.main(["--index", str(path), "--dtype", "int8",
+                         "--device", "cpu", "--mesh_docs", "3",
+                         "--warm", "1"])
+    assert mapped[4:] == [True]
