@@ -27,8 +27,10 @@ line each:
    timings) beside its bound (its share of the data-sheet bound; the
    mma.sync kernels' share of the ceiling scripts/mma_sync_peak.cu
    measured, in the log only), its plain version's time (median of 3) and the
-   end-to-end search_dense rate; K1 bf16's design (query-token rows and
-   page tokens a tile, stages, warpgroups, registers, CTAs per SM);
+   end-to-end search_dense rate; K1 bf16's and K2 int8full's wgmma
+   designs (query-token rows and page tokens a tile, stages, warpgroups,
+   registers, CTAs per SM, shared bytes), and K2 int8full's mma.sync loop
+   timed on the same operands, its scores bit-equal to the wgmma kernel's;
 7. training-kernel parity: K1's float32 mode at the eval shape (1,000
    queries x 32 tokens against 1,000 student pages x 154 tokens), K5 and
    K6 at the train step's shape (32 queries x 32 tokens against the same
@@ -235,7 +237,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 # ceiling of the kernels that issue it (scripts/mma_sync_peak.cu, the top of
 # its 1-4 CTAs per SM; PERF.md section 3); not measured by this script, so
 # the shares it gives stand in the phase 6 log only, never in the kernels
-# line, and none for K1 bf16, which issues wgmma
+# line, and none for K1 bf16 and K2 int8full, which issue wgmma
 MMA_SYNC_OPS = {"bf16": 634.3e12, "int8": 1275.9e12, "tf32": 317.2e12}
 NQ, LQ, D, LP = 256, 32, 128, 768
 PARITY_DOCS, INT8_DOCS, BF16_DOCS = 1_000, 50_000, 10_000
@@ -488,6 +490,20 @@ def launch_shapes(cm, wrapper, func=None):
     return [{"nq": nq, "lq": lq, "nd": nd, "lp": lp, "launches": n}
             for (w, f, nq, lq, nd, lp), n in sorted(cm.launch_shapes.items())
             if w == wrapper and func in (None, f)]
+
+
+def int8full_mma(cm, Q, P_i8, scales, qmask, pmask):
+    """K2 int8full's mma.sync loop (``evdr_maxsim_int8full``) on the
+    operands ``maxsim_cuda_int8full`` hands its route, at D = 128 and Lq <=
+    256: the kernel the wgmma one is held to bit for bit."""
+    nq, lq, d = Q.shape
+    nd, lp = pmask.shape
+    qk, qw = cm.quantize_queries_int8(Q, qmask)
+    out = torch.empty((nq, nd), dtype=torch.float32, device=Q.device)
+    cm.call_kernel("maxsim_int8", "evdr_maxsim_int8full",
+                   (qk, qw, P_i8, scales, pmask, out), nq, lq, nd, lp, d,
+                   aligned=(qk, P_i8))
+    return out
 
 
 def ptxas_registers(build, lib, tag=""):
@@ -4171,6 +4187,11 @@ def main(argv=None) -> int:
     log(f"phase 6 K1 bf16 design at D = {D}: {design} (wgmma m64n"
         f"{design['tile_tokens']}k16 from TMA-loaded shared memory, one "
         f"producer warp; registers per instantiation, before setmaxnreg)")
+    wg_design = dict(cm.int8full_wg_config(D), registers=ptxas_registers(
+        _cuda_build, "maxsim_int8", "maxsim_int8full_wg"))
+    log(f"phase 6 K2 int8full design at D = {D}, Lp {LP}: "
+        f"{cm.int8full_func(LP, D)} {wg_design} (wgmma m64n"
+        f"{wg_design['tile_tokens']}k32 s8 from TMA-loaded shared memory)")
     for kname, kern, plain, kargs, peak, src, repl, wrapper in timed:
         ms, lo, hi = cuda_ms(lambda: kern(*kargs), 7)
         plain_ms, _, _ = cuda_ms(lambda: plain(*kargs), 3)
@@ -4178,7 +4199,7 @@ def main(argv=None) -> int:
         out_bytes = kargs[0].shape[0] * pmask.shape[0] * 4
         bms, by = bound(tensor_bytes(*kargs) + out_bytes,
                         valid_ops(qmask, pmask), peak)
-        if kname == "maxsim_bf16":
+        if kname in ("maxsim_bf16", "maxsim_int8full"):
             ceiling = "it issues wgmma, so no mma.sync ceiling"
         else:
             mma_ms = valid_ops(qmask, pmask) / MMA_SYNC_OPS[peak] * 1e3
@@ -4199,6 +4220,17 @@ def main(argv=None) -> int:
             "library_ms": None})
         if kname == "maxsim_bf16":
             kernels[-1]["design"] = design
+        if kname == "maxsim_int8full":
+            # the wgmma kernel beside the mma.sync loop it replaced at Lp
+            # >= 64, on the same operands
+            mma_ms, mlo, mhi = cuda_ms(lambda: int8full_mma(cm, *kargs), 7)
+            check(torch.equal(kern(*kargs), int8full_mma(cm, *kargs)),
+                  "K2 int8full's wgmma kernel equals the mma.sync loop bit "
+                  "for bit")
+            log(f"phase 6 time maxsim_int8full mma.sync loop: {mma_ms:.3f} "
+                f"ms median of 7 (spread {mlo:.3f}-{mhi:.3f}), the wgmma "
+                f"kernel {ms:.3f} ms ({mma_ms / ms:.2f}x), scores bit-equal")
+            kernels[-1].update(design=wg_design, mma_sync_ms=mma_ms)
     log("phase 6 search_dense end to end: " + ", ".join(
         f"{k} {v:.1f} q/s" for k, v in e2e.items()))
     del eng_q8, eng_i8, eng_bf, idx8, bfx, i8, bf, Q8, Qb, timed, kargs

@@ -185,18 +185,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, d) row-major bf16 tensor in boxes of 64 columns x box_rows rows,
-// 128-byte swizzled, zeros outside the tensor. Returns 0 or minus the
-// CUresult.
+// A (rows, d) row-major tensor of bf16 (elem_bytes 2) or int8 (1) in boxes
+// of 128 bytes of columns (kBoxK bf16 elements) x box_rows rows, 128-byte
+// swizzled, zeros outside the tensor. Returns 0 or minus the CUresult.
 inline int encode_rows(CUtensorMap* map, const void* base, int rows, int d,
-                       int box_rows) {
+                       int box_rows, int elem_bytes = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map,
+                        elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

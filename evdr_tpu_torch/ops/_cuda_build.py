@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each ``csrc/*.cu`` source becomes one shared library with a plain
+Each library is built from ``csrc/<library>.cu`` and the sources
+``EXTRA_SOURCES`` adds to it, into one shared library with a plain
 ``extern "C"`` interface, compiled for Hopper (``sm_90a``) at first use into
 ``build/evdr_tpu_torch_kernels/`` at the repository root. The build is keyed
 on a hash of every source and header plus the compiler flags, so an edited
@@ -42,6 +43,8 @@ LIBRARIES = {
     },
     "maxsim_int8": {
         "evdr_maxsim_int8full": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_maxsim_int8full_wg": [_P] * 6 + [_I] * 5 + [_P],
+        "evdr_int8full_wg_config": [_I, _P],
         "evdr_maxsim_int8": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8full_wide": [_P] * 6 + [_I] * 5 + [_P],
         "evdr_maxsim_int8_wide": [_P] * 6 + [_I] * 5 + [_P],
@@ -86,6 +89,10 @@ LIBRARIES = {
     },
 }
 
+# library -> the sources compiled into it beside csrc/<library>.cu: K2
+# int8full's wgmma kernel (a file of its own) joins K2's library
+EXTRA_SOURCES = {"maxsim_int8": ("maxsim_int8full_wg.cu",)}
+
 _lock = threading.Lock()
 _loaded: dict = {}
 
@@ -98,6 +105,12 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def sources(name: str) -> list:
+    """The ``.cu`` files library ``name`` is compiled from."""
+    return [CSRC / f"{name}.cu"] + [CSRC / f
+                                    for f in EXTRA_SOURCES.get(name, ())]
 
 
 def _source_hash() -> str:
@@ -130,7 +143,7 @@ def build_all(names=None) -> float:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = open(out.parent / "build.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(n))]
         procs.append((n, out, tmp, log,
                       subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT)))

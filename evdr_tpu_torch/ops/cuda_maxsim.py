@@ -18,7 +18,10 @@ Counterpart of ``evdr_tpu/ops/pallas_maxsim.py``'s forward kernels:
   :func:`f32_occupancy`).
 - ``maxsim_cuda_int8`` (K2, int8 mode): bf16 queries x int8 codes.
 - ``maxsim_cuda_int8full`` (K2, int8full mode): queries quantized per token
-  on the device (``quantize_queries_int8``), int8 x int8 -> int32.
+  on the device (``quantize_queries_int8``), int8 x int8 -> int32; pages of
+  at least ``WG_MIN_LP`` tokens go to a kernel of their own on wgmma and
+  TMA (``csrc/maxsim_int8full_wg.cu``, :func:`int8full_func`), bit-equal
+  to the mma.sync loop that shorter pages keep.
 - ``maxsim_cuda_int8_deferred`` / ``maxsim_cuda_int8full_deferred`` (K2b,
   reached as ``deferred=True`` of the two K2 wrappers, the JAX keyword):
   K2's scores bit for bit, with each doc's epilogue run one page tile late;
@@ -102,6 +105,11 @@ D_GRANULE = 16
 MAX_D = 256
 # K1/K5/K6 float32: the f32 query block and two page tiles in shared memory
 F32_MAX_D = 192
+# K2 int8full's wgmma kernel takes pages of at least this many tokens (at
+# 64, half of each of its 128-token tiles, it still beat the mma.sync loop
+# on the card, PERF.md section 6); shorter pages (pruned stage 1 scores 4
+# centroids a page) keep the mma.sync loop
+WG_MIN_LP = 64
 
 
 def is_wide(func: str, d: int) -> bool:
@@ -115,6 +123,16 @@ def kernel_func(func: str, d: int) -> str:
     """The function a launch of ``func`` at kernel width ``d`` calls:
     ``func`` itself, or ``func + '_wide'`` above its fast bound."""
     return func + "_wide" if is_wide(func, d) else func
+
+
+def int8full_func(lp: int, d: int) -> str:
+    """The function K2 int8full launches over pages of ``lp`` tokens at
+    kernel width ``d``: the wgmma kernel from ``WG_MIN_LP`` tokens up to
+    ``MAX_D``, else the mma.sync loop (``kernel_func`` then takes it to its
+    wide function above ``MAX_D``)."""
+    if lp >= WG_MIN_LP and not is_wide("evdr_maxsim_int8full", d):
+        return "evdr_maxsim_int8full_wg"
+    return "evdr_maxsim_int8full"
 
 
 def row_cap(lib: str, d: int) -> int:
@@ -547,8 +565,9 @@ def maxsim_cuda_int8full(Q, P_i8, scales, qmask, pmask, deferred=False):
     if not _on_cuda(Q, P_i8, scales, qmask, pmask):
         return maxsim_int8full_plain(Q, P_i8, scales, qmask, pmask)
     return _launch_int8(maxsim_cuda_int8full, "maxsim_int8",
-                        "evdr_maxsim_int8full", Q, P_i8, scales, qmask, pmask,
-                        int8_queries=True)
+                        int8full_func(pmask.shape[-1],
+                                      kernel_dim(Q.shape[-1])),
+                        Q, P_i8, scales, qmask, pmask, int8_queries=True)
 
 
 def maxsim_cuda_int8_deferred(Q, P_i8, scales, qmask, pmask):
@@ -631,17 +650,27 @@ def pq_occupancy(mode: str, d: int, m: int, cluster: int) -> tuple:
     return out[0], out[1]
 
 
+def _wgmma_config(lib, func, *args) -> dict:
+    out = (ctypes.c_int * 6)()
+    rc = _cuda_build.kernel(lib, func)(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{func} failed: cudaError {rc}")
+    return dict(zip(("ctas_per_sm", "rows", "tile_tokens", "stages",
+                     "consumer_warpgroups", "smem_bytes"), out))
+
+
 def bf16_config(d: int, train: bool = False) -> dict:
     """The configuration K1 bf16 (``train``: K5 bf16) runs at width ``d``
     (a multiple of 16), on the current GPU (``maxsim_bf16.cu``'s rule by
     D)."""
-    out = (ctypes.c_int * 6)()
-    rc = _cuda_build.kernel("maxsim_bf16", "evdr_bf16_config")(
-        d, int(train), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"evdr_bf16_config failed: cudaError {rc}")
-    return dict(zip(("ctas_per_sm", "rows", "tile_tokens", "stages",
-                     "consumer_warpgroups", "smem_bytes"), out))
+    return _wgmma_config("maxsim_bf16", "evdr_bf16_config", d, int(train))
+
+
+def int8full_wg_config(d: int) -> dict:
+    """The configuration K2 int8full's wgmma kernel runs at width ``d`` (a
+    multiple of 16, at most ``MAX_D``), on the current GPU
+    (``maxsim_int8full_wg.cu``)."""
+    return _wgmma_config("maxsim_int8", "evdr_int8full_wg_config", d)
 
 
 def f32_occupancy(d: int, train: bool = False) -> tuple:

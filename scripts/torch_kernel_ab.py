@@ -10,13 +10,18 @@ runs in a process of its own (the packages share a name), builds its
 kernels from its own ``csrc/`` into its own ``build/``, and prints one JSON
 line: the root, each library's ptxas register counts, a hash of each of
 its kernels' SASS (``cuobjdump -sass``; equal hashes across roots mean the
-same machine code), and, per kernel, the median of 7 CUDA-event timings and
-a hash of its output (equal hashes across roots mean bit-equal scores).
+same machine code), each wgmma kernel's configuration, and, per kernel,
+the median of 7 CUDA-event timings and a hash of its output (equal hashes
+across roots mean bit-equal scores).
 Inputs are made on the device from seed 0, with ~10% invalid tokens:
 - K1 bf16, K2 int8 and int8full, K2b's two modes where the checkout has
   them (whether each equals K2 bit for bit goes to ``checks``), and K4
   int4 and int4full over the same pages packed to int4, at 256 x 32
-  queries against N x LP pages (default 20,000 x 768; D = 128);
+  queries against N x LP pages (default 20,000 x 768; D = 128). Where the
+  checkout has K2 int8full's wgmma kernel, ``maxsim_int8full`` times the
+  wrapper's route and ``maxsim_int8full_mma`` the mma.sync loop on the same
+  operands, whether the two agree bit for bit goes to ``checks`` and the
+  wgmma kernel's configuration (``int8full_wg_config``) to ``designs``;
 - K3 over the same N x LP pages as PQ codes (M = 16): pq and pqfull with
   compact (16, 256, 8) books, pq with expanded (16, 256, 128) books;
 - K1 float32 at the trainer's two shapes: the eval (1,000 x 32 queries
@@ -195,7 +200,21 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
             calls[f"maxsim_bwd{sfx}_{name}"] = (
                 lambda a=(Qt, Pt, qmt, pmt, M, g, cd): ct.maxsim_cuda_bwd(*a))
             k6_out[f"maxsim_bwd{sfx}_{name}"] = Qt.numel()
-    checks = {}
+    checks, designs = {}, {"maxsim_bf16": cm.bf16_config(D)}
+    if hasattr(cm, "int8full_wg_config"):
+        def int8full_mma():
+            # the mma.sync loop on the operands the wrapper hands its route
+            qk, qw = cm.quantize_queries_int8(Q, qm)
+            out = torch.empty((NQ, docs), device="cuda")
+            cm.call_kernel("maxsim_int8", "evdr_maxsim_int8full",
+                           (qk, qw, codes, scales, pm, out), NQ, LQ, docs,
+                           lp, D, aligned=(qk, codes))
+            return out
+
+        calls["maxsim_int8full_mma"] = int8full_mma
+        checks[f"maxsim_int8full ({cm.int8full_func(lp, D)}) == mma.sync"] \
+            = bool(torch.equal(cm.maxsim_cuda_int8full(*i8), int8full_mma()))
+        designs["maxsim_int8full"] = cm.int8full_wg_config(D)
     if hasattr(cm, "maxsim_cuda_int8_deferred"):
         for k2, k2b in ((cm.maxsim_cuda_int8, cm.maxsim_cuda_int8_deferred),
                         (cm.maxsim_cuda_int8full,
@@ -228,7 +247,8 @@ def one(root: str, docs: int, lp: int, only=None, save=None) -> dict:
     if save:
         np.savez(save, **kept)
     return {"root": root, "docs": docs, "lp": lp, "registers": regs,
-            "sass": sass, "ms": times, "out_sha1": outs, "checks": checks}
+            "sass": sass, "designs": designs, "ms": times, "out_sha1": outs,
+            "checks": checks}
 
 
 def main(argv=None) -> int:

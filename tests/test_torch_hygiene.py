@@ -154,7 +154,9 @@ def test_kernel_build_is_keyed_on_every_source(tmp_path, monkeypatch):
         (csrc / "maxsim_tile.cuh").read_text() + "\n// edited\n")
     second = _cuda_build.library_path("maxsim_int8")
     assert first != second and second.parent.parent == tmp_path / "build"
-    assert set(_cuda_build.LIBRARIES) == {p.stem for p in csrc.glob("*.cu")}
+    built = [f.name for n in _cuda_build.LIBRARIES
+             for f in _cuda_build.sources(n)]
+    assert sorted(built) == sorted(p.name for p in csrc.glob("*.cu"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -163,14 +165,15 @@ def test_kernel_build_is_keyed_on_every_source(tmp_path, monkeypatch):
 
 def test_library_map_matches_each_sources_exports():
     """Each library's ctypes map (``_cuda_build.LIBRARIES``) names exactly
-    the ``extern "C"`` functions its source exports, each with one argtype
+    the ``extern "C"`` functions its sources export, each with one argtype
     per parameter: c_void_p for a pointer (the stream included), c_int for
-    an int (K5's exports live in K1's libraries, K6's in maxsim_train)."""
+    an int (K5's exports live in K1's libraries, K6's in maxsim_train, K2
+    int8full's wgmma kernel in K2's)."""
     import ctypes
     import re
 
     for lib, funcs in _cuda_build.LIBRARIES.items():
-        src = (_cuda_build.CSRC / f"{lib}.cu").read_text()
+        src = "".join(f.read_text() for f in _cuda_build.sources(lib))
         found = {name: [ctypes.c_void_p if "*" in p else ctypes.c_int
                         for p in params.split(",")]
                  for name, params in re.findall(
@@ -178,6 +181,7 @@ def test_library_map_matches_each_sources_exports():
         assert found == funcs, lib
     assert "evdr_maxsim_fwd_train" in _cuda_build.LIBRARIES["maxsim_bf16"]
     assert "evdr_maxsim_fwd_train_f32" in _cuda_build.LIBRARIES["maxsim_f32"]
+    assert "evdr_maxsim_int8full_wg" in _cuda_build.LIBRARIES["maxsim_int8"]
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):
@@ -481,6 +485,107 @@ def test_deferred_int8_kernels_equal_k2_on_the_card(nq, lq, nd, lp, d):
         n = cuda_maxsim.launch_counts()
         assert n[k2b.__name__] == n0[k2b.__name__] + 1
         assert n[k2.__name__] == n0[k2.__name__] + 1
+
+
+def _int8full_both(Q, codes, sc, qm, pm):
+    """K2 int8full's wgmma kernel and its mma.sync loop on the same
+    operands, each through ``call_kernel``: (wgmma scores, mma.sync
+    scores)."""
+    cm = cuda_maxsim
+    nq, lq, d = Q.shape
+    nd, lp = pm.shape
+    qk, qw = cm.quantize_queries_int8(Q, qm)
+    outs = []
+    for func in ("evdr_maxsim_int8full_wg", "evdr_maxsim_int8full"):
+        out = torch.full((nq, nd), float("nan"), device=Q.device)
+        cm.call_kernel("maxsim_int8", func, (qk, qw, codes, sc, pm, out),
+                       nq, lq, nd, lp, d, aligned=(qk, codes))
+        outs.append(out)
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp,d,lq,nq", [
+    (64, 128, 32, 9), (65, 96, 20, 13), (700, 256, 32, 17),
+    (768, 128, 20, 25), (768, 96, 32, 9), (65, 256, 32, 8),
+    (700, 128, 20, 13), (64, 256, 20, 5), (768, 256, 32, 33)])
+def test_int8full_wgmma_kernel_equals_mma_sync_loop_on_the_card(lp, d, lq,
+                                                                 nq):
+    """K2 int8full's wgmma kernel against its mma.sync loop on the same
+    operands: bit-equal scores (int32 sums exact in any k order, the
+    conversion folded into the accumulator exact, one rounding of the
+    scale, the Lq-sum in the same order), at Lp 64, 65, 700 and 768 (a
+    doc's ragged last tile beside the next doc's tokens, the last doc's
+    read past the tensor's end), D 96 (a zero-filled box), 128 and 256
+    (two column chunks), Lq 32 and 20 (12 whole queries a CTA, 16 rows
+    empty), nq off the queries a CTA, 37 docs (a partial doc block), with
+    masked page and query tokens, a valid token of scale 0 and a doc with
+    no valid token. The wrapper takes the wgmma kernel there (counted) and
+    stays within 1e-4 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
+
+    torch.set_float32_matmul_precision("highest")
+    cm = cuda_maxsim
+    rng = np.random.default_rng(lp + d + lq + nq)
+    nd, dev = 37, "cuda"
+    Q = torch.from_numpy(rng.normal(size=(nq, lq, d)).astype(np.float32))
+    Q = (Q / Q.norm(dim=-1, keepdim=True)).to(dev)
+    P = torch.from_numpy(rng.normal(size=(nd, lp, d)).astype(np.float32))
+    P = (P / P.norm(dim=-1, keepdim=True)).to(dev)
+    qm = torch.from_numpy(rng.random((nq, lq)) > 0.2).to(dev)
+    pm = torch.from_numpy(rng.random((nd, lp)) > 0.2).to(dev)
+    pm[nd // 2] = False
+    P[3, 0] = 0.0  # a valid token of scale 0
+    pm[3, 0] = True
+    codes, sc = quantize_tokens_int8(P, pm)
+    assert float(sc[3, 0]) == 0.0
+    wg, mma = _int8full_both(Q, codes, sc, qm, pm)
+    assert torch.equal(wg, mma)
+    assert wg[:, nd // 2].abs().max().item() == 0.0
+    cm.reset_launch_counts()
+    got = cm.maxsim_cuda_int8full(Q, codes, sc, qm, pm)
+    torch.cuda.synchronize()
+    assert cm.func_launches("evdr_maxsim_int8full_wg") == 1
+    assert torch.equal(got, wg)
+    torch.testing.assert_close(
+        got, cm.maxsim_int8full_plain(Q, codes, sc, qm, pm), rtol=0,
+        atol=1e-4)
+    cfg = cm.int8full_wg_config(d)
+    assert (cfg["rows"], cfg["tile_tokens"]) == (256, 128)
+    assert cfg["ctas_per_sm"] >= 1 and cfg["smem_bytes"] <= 232448
+
+
+@pytest.mark.gpu
+def test_int8full_wgmma_kernel_equals_mma_sync_loop_past_2gb_on_the_card():
+    """An index of more than 2^31 bytes (22,000 x 768 x 128 int8): the
+    wgmma kernel's scores equal the mma.sync loop's bit for bit, and its
+    last pages equal the plain version's (1e-4), so no byte offset wraps
+    at 32 bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.set_float32_matmul_precision("highest")
+    cm = cuda_maxsim
+    nd, lp, d, nq, lq, dev = 22_000, 768, 128, 9, 32, "cuda"
+    assert nd * lp * d > 2 ** 31
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(-127, 128, (nd, lp, d), dtype=torch.int8,
+                          device=dev, generator=gen)
+    sc = torch.rand((nd, lp), device=dev, generator=gen) / 127
+    pm = torch.rand((nd, lp), device=dev, generator=gen) > 0.1
+    pm[-2] = False
+    Q = torch.randn((nq, lq, d), device=dev, generator=gen)
+    Q = Q / Q.norm(dim=-1, keepdim=True)
+    qm = torch.rand((nq, lq), device=dev, generator=gen) > 0.15
+    wg, mma = _int8full_both(Q, codes, sc, qm, pm)
+    assert torch.equal(wg, mma)
+    tail = slice(nd - 64, nd)
+    torch.testing.assert_close(
+        wg[:, tail], cm.maxsim_int8full_plain(
+            Q, codes[tail], sc[tail], qm, pm[tail]), rtol=0, atol=1e-4)
+    assert wg[:, -2].abs().max().item() == 0.0
 
 
 @pytest.mark.gpu
@@ -921,6 +1026,7 @@ def test_pruned_engine_equals_exact_search_at_full_cover_on_the_card(
     cm.reset_launch_counts()
     vals, idx = eng.search_dense(Q, qm, k=k, n_candidates=nd)
     assert cm.func_launches(func) == 1
+    assert cm.func_launches("evdr_maxsim_int8full_wg") == 0  # Lp 4
     assert all(s[5] == 4 for s in cm.launch_shapes)
     assert idx.max() < nd and 5 not in idx[:, :-1]
     ix = eng.index
@@ -1025,7 +1131,7 @@ def test_block_build_and_mesh_search_never_sync_the_host_on_the_cards(
 @pytest.mark.parametrize("dtype,q8,func", [
     ("bfloat16", False, "evdr_maxsim_bf16"),
     ("int8", False, "evdr_maxsim_int8"),
-    ("int8", True, "evdr_maxsim_int8full"),
+    ("int8", True, "evdr_maxsim_int8full_wg"),
     ("int4", False, "evdr_maxsim_int4"),
     ("pq", False, "evdr_maxsim_pq")])
 def test_incremental_engine_on_the_card(dtype, q8, func, tmp_path):
@@ -1095,7 +1201,7 @@ def test_incremental_engine_on_the_card(dtype, q8, func, tmp_path):
 @pytest.mark.parametrize("dtype,q8,func", [
     ("bfloat16", False, "evdr_maxsim_bf16"),
     ("int8", False, "evdr_maxsim_int8"),
-    ("int8", True, "evdr_maxsim_int8full"),
+    ("int8", True, "evdr_maxsim_int8full_wg"),
     ("int4", False, "evdr_maxsim_int4"),
     ("pq", False, "evdr_maxsim_pq")])
 def test_four_shard_mesh_on_one_card_equals_one_shard_engine(dtype, q8,

@@ -272,3 +272,41 @@ def test_deferred_int8_routes_to_k2b_on_the_card(monkeypatch):
         cuda_maxsim.maxsim_cuda_int8, cuda_maxsim.maxsim_cuda_int8full,
         cuda_maxsim.maxsim_cuda_int8_deferred,
         cuda_maxsim.maxsim_cuda_int8full_deferred))
+
+
+@pytest.mark.parametrize("lp,d,func", [
+    (64, 32, "evdr_maxsim_int8full_wg"), (65, 96, "evdr_maxsim_int8full_wg"),
+    (768, 128, "evdr_maxsim_int8full_wg"),
+    (700, 256, "evdr_maxsim_int8full_wg"), (4, 128, "evdr_maxsim_int8full"),
+    (63, 128, "evdr_maxsim_int8full"), (64, 264, "evdr_maxsim_int8full_wide"),
+    (4, 320, "evdr_maxsim_int8full_wide")])
+def test_int8full_routes_by_page_width_on_the_card(monkeypatch, lp, d, func):
+    # with the device check and the launch stubbed: pages of at least one
+    # whole page tile at D <= MAX_D reach K2 int8full's wgmma kernel,
+    # shorter pages (pruned stage 1 at Lp 4) the mma.sync loop, D above
+    # MAX_D the wide function; deferred=True still reaches K2b. Each
+    # launch counts under its function's name.
+    calls = []
+    monkeypatch.setattr(cuda_maxsim, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_maxsim, "call_kernel",
+                        lambda lib, f, ops, *a, aligned=(): calls.append(
+                            (lib, f, ops[0].dtype, a)))
+    monkeypatch.setattr(cuda_maxsim, "launch_shapes", cuda_maxsim.Counter())
+    for w in cuda_maxsim.KERNEL_WRAPPERS:
+        monkeypatch.setattr(w, "launches", 0)
+    Q, P, qm, pm = _case(5, nq=3, lq=5, nd=4, lp=lp, d=d)
+    args = _t(Q, *quantize_tokens_int8(P, pm), qm, pm)
+    cuda_maxsim.maxsim_cuda_int8full(*args)
+    cuda_maxsim.maxsim_cuda_int8full(*args, deferred=True)
+    dk = cuda_maxsim.kernel_dim(d)
+    defer = "evdr_maxsim_int8full_defer" + ("_wide" if dk > 256 else "")
+    assert calls == [("maxsim_int8", func, torch.int8, (3, 5, 4, lp, dk)),
+                     ("maxsim_int8_defer", defer, torch.int8,
+                      (3, 5, 4, lp, dk))]
+    assert cuda_maxsim.int8full_func(lp, dk) == func.replace("_wide", "")
+    for f in {func, defer, "evdr_maxsim_int8full_wg",
+              "evdr_maxsim_int8full"}:
+        assert cuda_maxsim.func_launches(f) == (f in (func, defer)), f
+    counts = cuda_maxsim.launch_counts()
+    assert counts["maxsim_cuda_int8full"] == 1
+    assert counts["maxsim_cuda_int8full_deferred"] == 1
