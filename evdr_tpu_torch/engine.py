@@ -246,20 +246,19 @@ class RetrievalEngine:
         D) and the bool mask (hi - lo, Lp) of docs ``[lo, hi)`` on
         ``device``. Each shard of the mesh (or the one device) asks only
         for its own rows, ``sharded_index.BLOCK_ROWS`` at most at a time,
-        and normalizes
-        and quantizes (int8) or casts (bfloat16, float32) each block on
-        its own device; the shards' devices build at once
+        and normalizes and quantizes (int8), quantizes and packs (int4) or
+        casts (bfloat16, float32) each block on its own device; the
+        shards' devices build at once
         (``sharded_index.build_sharded_index_blocks``). The index equals
-        ``build`` of the whole array bit for bit. int4 and pq (which pack
-        or train over the whole array) and ``prune_centroids > 0`` (the
-        summaries' k-means) raise, as ``build(streaming=True)`` does."""
-        if self.dtype in ("int4", "pq") or self.prune_centroids > 0:
+        ``build`` of the whole array bit for bit. pq (whose books train
+        over the whole array) and ``prune_centroids > 0`` (the summaries'
+        k-means) raise."""
+        if self.dtype == "pq" or self.prune_centroids > 0:
             raise ValueError(
-                "build_blocks takes float32, bfloat16 and int8 engines "
-                f"without pruning, not dtype={self.dtype!r} with "
-                f"prune_centroids={self.prune_centroids} (int4 packing, "
-                "PQ training and the pruning summaries need the whole "
-                "array)")
+                "build_blocks takes float32, bfloat16, int8 and int4 "
+                f"engines without pruning, not dtype={self.dtype!r} with "
+                f"prune_centroids={self.prune_centroids} (PQ training and "
+                "the pruning summaries need the whole array)")
         self._reset_incremental()
         normalize = self.normalize if normalize is None else normalize
         self.index = pad_index_dim(build_sharded_index_blocks(

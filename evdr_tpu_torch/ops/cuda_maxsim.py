@@ -52,7 +52,10 @@ CPU tensors it returns its plain version. There is no other fallback.
 Each wrapper counts its launches in a plain integer attribute
 (``maxsim_cuda.launches`` ...), raised by one exactly where it launches,
 and by kernel function and shape in ``launch_shapes``, whose function name
-tells a wide launch from a fast one (``func_launches``).
+tells a wide launch from a fast one (``func_launches``). ``INDEX_BYTES_READ``
+counts, by library, the bytes of the index operands (codes or tokens,
+scales, mask) each launch covers: a query longer than a launch's rows
+reads the index once a slice.
 
 The plain versions reproduce the kernels' numerics: bf16 casts of the
 inputs, f32 sums, the -1e30 fill of an invalid doc token, the rule that a
@@ -155,6 +158,10 @@ MAX_CLUSTER = {"compact": 2, "full": 8}
 
 # (wrapper name, kernel function, nq, Lq, nd, Lp) -> launches
 launch_shapes: Counter = Counter()
+# library -> bytes of index operands its launches covered (_count_index)
+INDEX_BYTES_READ = {"maxsim_bf16": 0, "maxsim_f32": 0, "maxsim_int8": 0,
+                    "maxsim_int8_defer": 0, "maxsim_int4": 0,
+                    "maxsim_pq": 0}
 
 
 def quantize_queries_int8(Q: torch.Tensor, qmask: torch.Tensor):
@@ -163,7 +170,10 @@ def quantize_queries_int8(Q: torch.Tensor, qmask: torch.Tensor):
     round-half-even(Q / s) clipped to +-127. Returns (codes int8, the
     post-max weight qmask * s as f32)."""
     Qf = Q.float()
-    sq = Qf.abs().amax(dim=-1) / 127.0
+    # divide by a tensor: CUDA divides by a Python scalar as a product
+    # with its reciprocal, up to 1 ulp off the host quantizer's scales
+    amax = Qf.abs().amax(dim=-1)
+    sq = amax / torch.full_like(amax, 127.0)
     safe = torch.where(sq > 0, sq, torch.ones_like(sq))
     codes = torch.round(Qf / safe[..., None]).clamp_(-127, 127).to(torch.int8)
     return codes, qmask.float() * sq
@@ -291,7 +301,8 @@ def quantize_books_int8(books: torch.Tensor):
     a decoded token a plain int32 sum of book rows; it is folded into the
     post-max query weight."""
     books = books.float()
-    s = books.abs().amax() / 127.0
+    amax = books.abs().amax()
+    s = amax / torch.full_like(amax, 127.0)
     safe = torch.where(s > 0, s, torch.ones_like(s))
     return (torch.round(books / safe).clamp_(-127, 127).to(torch.int8),
             safe)
@@ -485,6 +496,7 @@ def _launch(wrapper, lib, func, q, qw, P, scales, pmask):
         call_kernel(lib, func, (qs, qws, P, scales, pmask, out), nq,
                     qs.shape[1], nd, lp, dk, aligned=(qs, P))
         _count(wrapper, func, nq, qs.shape[1], nd, lp)
+        _count_index(lib, P, scales, pmask)
         return out
 
     return split_queries(one, q, qw, row_cap(lib, dk))
@@ -690,6 +702,18 @@ def _count(wrapper, func, nq, lq, nd, lp):
     launch_shapes[(wrapper.__name__, func, nq, lq, nd, lp)] += 1
 
 
+def _count_index(lib, *operands):
+    """Add the bytes of one launch's index operands to
+    ``INDEX_BYTES_READ[lib]`` (None entries count nothing)."""
+    INDEX_BYTES_READ[lib] += sum(t.numel() * t.element_size()
+                                 for t in operands if t is not None)
+
+
+def index_bytes_read() -> int:
+    """Every library's index bytes covered by launches so far."""
+    return sum(INDEX_BYTES_READ.values())
+
+
 def func_launches(func: str) -> int:
     """Launches of kernel function ``func`` (e.g. a ``*_wide`` one) since
     the counts were last set to 0."""
@@ -736,6 +760,7 @@ def _launch_pq(Qk, qw, codes, qmask, pmask, books, int8_queries):
     call_kernel("maxsim_pq", func, (Qk, (qw * s).contiguous(), codes, kb,
                                     pmask, out),
                 nq, lq, nd, lp, d, m, cluster, aligned=(Qk, codes, kb))
+    _count_index("maxsim_pq", codes, pmask)
     return out, func
 
 

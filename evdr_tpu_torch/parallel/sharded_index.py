@@ -23,7 +23,8 @@ same route for any read-only array.
 Block builds (``build_sharded_index_blocks``) take a corpus that no
 process holds whole, as a function that gives any range of rows on a
 given device: each shard fills its padded tensors from its own rows, a
-block at a time, quantizing on its own device.
+block at a time, quantizing (int8) or quantizing and packing (int4) on
+its own device.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from evdr_tpu_torch.data.packing import l2_normalize
 from evdr_tpu_torch.ops.cuda_maxsim import (D_GRANULE, pad_dim,
                                             pad_pq_queries, pq_width)
-from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
+from evdr_tpu_torch.ops.int4 import packed_token_rows, quantize_tokens_int4
 from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 from evdr_tpu_torch.parallel.mesh import DeviceMesh
 from evdr_tpu_torch.utils.timing import span
@@ -304,15 +305,16 @@ def build_sharded_index_blocks(source, n_docs: int, device, dtype=None,
 
     Each shard this process owns (or the one device) allocates its padded
     tensors once on its device and fills them at most ``BLOCK_ROWS`` rows
-    at a time, each block normalized (``normalize``) and quantized
-    (int8) or cast (bfloat16, float32) there. Blocks go to the shards in
-    turn with no host sync, so the shards' devices build at once. The
-    rows and padding are laid out as :func:`build_sharded_index` lays them
-    out for the whole array, and per-token quantization makes the result
-    bit-equal to it. int4 (which packs token pairs) is refused."""
-    if dtype not in (None, "float32", "bfloat16", "int8"):
+    at a time, each block normalized (``normalize``) and quantized (int8),
+    quantized and packed (int4) or cast (bfloat16, float32) there. Blocks
+    go to the shards in turn with no host sync, so the shards' devices
+    build at once. The rows and padding are laid out as
+    :func:`build_sharded_index` lays them out for the whole array, and
+    per-token quantization makes the result bit-equal to it: int4 packs
+    token pairs within a page, so a block of whole pages packs alone."""
+    if dtype not in (None, "float32", "bfloat16", "int8", "int4"):
         raise ValueError(f"a block build takes dtype None, 'float32', "
-                         f"'bfloat16' or 'int8', not {dtype!r}")
+                         f"'bfloat16', 'int8' or 'int4', not {dtype!r}")
     n = int(n_docs)
     if n < 1:
         raise ValueError("a block build needs at least one doc")
@@ -366,15 +368,19 @@ def build_sharded_index_blocks(source, n_docs: int, device, dtype=None,
 
 
 def _empty_shard(rows: int, layout, device, dtype) -> ShardedIndex:
-    """A shard of ``rows`` padding rows (masked, zero tokens and scales)."""
+    """A shard of ``rows`` padding rows (masked, zero tokens and scales):
+    (rows, Lp, D) codes or float tokens, or (rows, ceil(Lp/2), D) packed
+    int4 codes."""
     lp, d = layout
-    code = torch.int8 if dtype == "int8" else _FLOAT_DTYPES[dtype]
+    quantized = dtype in _QUANTIZERS
+    code = _QUANTIZERS[dtype][1] if quantized else _FLOAT_DTYPES[dtype]
+    width = packed_token_rows(lp) if dtype == "int4" else lp
     return ShardedIndex(
-        P=torch.zeros((rows, lp, d), dtype=code, device=device),
+        P=torch.zeros((rows, width, d), dtype=code, device=device),
         pmask=torch.zeros((rows, lp), dtype=torch.bool, device=device),
         n_docs=0,
         scales=(torch.zeros((rows, lp), dtype=torch.float32, device=device)
-                if dtype == "int8" else None))
+                if quantized else None))
 
 
 def _fill_block(part: ShardedIndex, at: int, Pb, mb, dtype, normalize):
@@ -382,8 +388,8 @@ def _fill_block(part: ShardedIndex, at: int, Pb, mb, dtype, normalize):
     if normalize:
         Pb = l2_normalize(Pb * mb[..., None])
     e = at + int(Pb.shape[0])
-    if dtype == "int8":
-        codes, scales = quantize_tokens_int8(Pb, mb)
+    if dtype in _QUANTIZERS:
+        codes, scales = _QUANTIZERS[dtype][0](Pb, mb)
         part.P[at:e].copy_(codes)
         part.scales[at:e].copy_(scales)
     else:

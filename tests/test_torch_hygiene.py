@@ -1050,29 +1050,38 @@ def test_pruned_engine_equals_exact_search_at_full_cover_on_the_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("tier", ["int8", "int4", "queries", "books"])
 def test_device_token_quantizers_equal_host_on_the_card(tier):
-    """The int8 and int4 token quantizers give the host's codes and scales
-    bit for bit on the card, so an index quantized there (a tail, a
-    streamed chunk, a tensor build) equals one quantized from numpy."""
+    """The int8 and int4 token quantizers, the int8 query quantizer and the
+    int8 PQ book quantizer give the host's codes and scales bit for bit on
+    the card, so an index quantized there (a tail, a streamed chunk, a
+    tensor build) equals one quantized from numpy, and queries quantized
+    there equal the benchmark reference's (a true division)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from evdr_tpu_torch.ops.int4 import quantize_tokens_int4
     from evdr_tpu_torch.ops.quantize import quantize_tokens_int8
 
-    quantize = quantize_tokens_int8 if tier == "int8" else quantize_tokens_int4
+    quantize = {"int8": quantize_tokens_int8, "int4": quantize_tokens_int4,
+                "queries": cuda_maxsim.quantize_queries_int8,
+                "books": lambda B, _: cuda_maxsim.quantize_books_int8(B)}[tier]
     rng = np.random.default_rng(7)
     P = rng.normal(size=(64, 37, 128)).astype(np.float32)
     P /= np.linalg.norm(P, axis=-1, keepdims=True)
     pm = rng.random((64, 37)) > 0.1
-    codes, scales = quantize(P, pm)
+    if tier in ("queries", "books"):
+        P *= rng.uniform(1e-3, 1e3, size=(64, 37, 1)).astype(np.float32)
+        codes, scales = (t.numpy() for t in quantize(
+            torch.from_numpy(P), torch.from_numpy(pm)))
+    else:
+        codes, scales = quantize(P, pm)
     dc, ds = quantize(torch.from_numpy(P).cuda(), torch.from_numpy(pm).cuda())
     np.testing.assert_array_equal(dc.cpu().numpy(), codes)
     np.testing.assert_array_equal(ds.cpu().numpy(), scales)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "int4", "bfloat16"])
 def test_block_build_and_mesh_search_never_sync_the_host_on_the_cards(
         dtype, monkeypatch):
     """A 4-shard mesh (over four cards where the machine has them, else on
@@ -1102,7 +1111,7 @@ def test_block_build_and_mesh_search_never_sync_the_host_on_the_cards(
     Q = rng.normal(size=(nq, lq, d)).astype(np.float32)
     Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
     qm = np.ones((nq, lq), bool)
-    kw = dict(dtype=dtype, quantize_queries=dtype == "int8",
+    kw = dict(dtype=dtype, quantize_queries=dtype in ("int8", "int4"),
               normalize=False, mesh=mesh_of(devs))
     whole = RetrievalEngine(**kw).build(P, pm)
     Qd = torch.as_tensor(Q, device=devs[0])

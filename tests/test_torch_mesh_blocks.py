@@ -5,17 +5,22 @@ row range; the index it builds on a 4-shard mesh of repeated CPU devices
 (``parallel/mesh.mesh_of``) and on one device is held bit for bit to
 ``build`` of the whole array, with the build's blocks cutting across
 the source's own blocks and an uneven last shard. Exact search over it is
-held to the benchmark's plain reference (``evdr_bench/reference.py``:
+held to the benchmark's plain references (``evdr_bench/reference.py`` and,
+for int4 pages searched by int8 queries, ``evdr_bench/reference_int4q8.py``:
 quantized scores in f32, stable top-k). A mesh of ``cpu:0`` .. ``cpu:3``
-stands in for four devices where the byte counter needs distinct ones.
+stands in for four devices where the byte counter needs distinct ones. The
+kernels' count of index bytes (``cuda_maxsim.INDEX_BYTES_READ``) is driven
+through a stand-in launch, and the device query quantizer is held to the
+reference's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from evdr_bench import check, reference
+from evdr_bench import check, reference, reference_int4q8
 from evdr_tpu_torch import RetrievalEngine
+from evdr_tpu_torch.ops import cuda_maxsim
 from evdr_tpu_torch.parallel import mesh as mesh_mod
 from evdr_tpu_torch.parallel import sharded_index, topk
 from evdr_tpu_torch.parallel.mesh import mesh_of
@@ -37,10 +42,10 @@ def _unit(x):
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
 
 
-def _corpus(seed=0):
+def _corpus(seed=0, lp=LP):
     g = torch.Generator().manual_seed(seed)
-    P = _unit(torch.randn((N, LP, D), generator=g))
-    pm = torch.rand((N, LP), generator=g) > 0.15
+    P = _unit(torch.randn((N, lp, D), generator=g))
+    pm = torch.rand((N, lp), generator=g) > 0.15
     pm[:, 0] = True
     pm[5] = False
     P = P * pm[..., None]
@@ -89,12 +94,16 @@ def _assert_same_index(a, b):
 
 
 @pytest.mark.parametrize("place", ["mesh4", "one"])
-@pytest.mark.parametrize("dtype,normalize", [("int8", False),
-                                             ("int8", True),
-                                             ("bfloat16", False),
-                                             ("float32", True)])
-def test_block_build_is_bit_equal_to_a_whole_build(place, dtype, normalize):
-    P, pm, Q, qm = _corpus()
+@pytest.mark.parametrize("dtype,normalize,lp", [("int8", False, LP),
+                                                ("int8", True, LP),
+                                                ("bfloat16", False, LP),
+                                                ("float32", True, LP),
+                                                ("int4", False, LP),
+                                                ("int4", True, LP),
+                                                ("int4", True, LP - 1)])
+def test_block_build_is_bit_equal_to_a_whole_build(place, dtype, normalize,
+                                                   lp):
+    P, pm, Q, qm = _corpus(lp=lp)
     mesh = mesh_of(["cpu"] * 4) if place == "mesh4" else None
     kw = dict(dtype=dtype, device="cpu", mesh=mesh, quantize_queries=True)
     src = Source(P, pm)
@@ -131,14 +140,19 @@ def test_blocks_reach_the_shards_in_turn():
 
 
 @pytest.mark.parametrize("place", ["mesh4", "one"])
-def test_exact_search_over_blocks_equals_the_plain_reference(place):
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_exact_search_over_blocks_equals_the_plain_reference(place, dtype):
     P, pm, Q, qm = _corpus(3)
     mesh = mesh_of(["cpu"] * 4) if place == "mesh4" else None
-    eng = RetrievalEngine(dtype="int8", quantize_queries=True, device="cpu",
+    eng = RetrievalEngine(dtype=dtype, quantize_queries=True, device="cpu",
                           mesh=mesh, normalize=False)
     eng.build_blocks(Source(P, pm), N)
     vals, idx = eng.search_dense(Q, qm, k=K)
-    ref = reference.quantized_scores(Q, qm, P, pm, 127)
+    if dtype == "int8":
+        ref = reference.quantized_scores(Q, qm, P, pm, 127)
+    else:
+        with reference.precision():
+            ref = reference_int4q8.scores(Q, qm, P, pm)
     want_v, want_i = torch.sort(ref, dim=1, descending=True, stable=True)
     gaps = check.topk_gaps(vals, idx, ref, K, exact=True)
     assert gaps["score_gap"] <= 1e-6 and gaps["rank_gap"] <= 1e-6, gaps
@@ -152,7 +166,7 @@ def test_exact_search_over_blocks_equals_the_plain_reference(place):
     assert np.array_equal(idx[untied], want_i[:, :K].numpy()[untied])
 
 
-@pytest.mark.parametrize("kw", [dict(dtype="int4"), dict(dtype="pq"),
+@pytest.mark.parametrize("kw", [dict(dtype="pq"),
                                 dict(dtype="int8", prune_centroids=2)])
 def test_block_builds_refuse_what_needs_the_whole_array(kw):
     P, pm, _, _ = _corpus()
@@ -231,3 +245,51 @@ def test_the_merge_is_the_shards_candidates_in_one_stable_sort():
     _, i0 = topk.merge_shard_topk(dropped, [o[1] for o in outs], ix.mesh,
                                   K, NQ)
     assert not (i0.numpy() < ix.shard_rows).any()
+
+
+def _stand_in(lib, func, operands, *args, aligned=()):
+    """A launch that writes zero scores, as the kernel's host side sees it:
+    the output is the last operand."""
+    operands[-1].zero_()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4", "bfloat16"])
+@pytest.mark.parametrize("nq,lq,slices", [(32, 32, 1), (4, 1024, 4)])
+def test_the_index_byte_counter_counts_every_query_slice(dtype, nq, lq,
+                                                         slices,
+                                                         monkeypatch):
+    """A launch takes every query of a call, at most 256 tokens of each:
+    32 queries of 32 tokens make one launch, queries of 1,024 tokens four
+    slices, and each launch covers the whole index once."""
+    P, pm, _, _ = _corpus()
+    eng = RetrievalEngine(dtype=dtype, quantize_queries=True, device="cpu",
+                          normalize=False).build(P, pm)
+    ix = eng.index
+    want = sum(t.numel() * t.element_size()
+               for t in (ix.P, ix.scales, ix.pmask) if t is not None)
+    g = torch.Generator().manual_seed(7)
+    Q = _unit(torch.randn((nq, lq, D), generator=g))
+    qm = torch.ones((nq, lq), dtype=torch.bool)
+    before = cuda_maxsim.index_bytes_read()
+    eng.search_dense(Q, qm, k=K)
+    assert cuda_maxsim.index_bytes_read() == before, "the plain path counts"
+    monkeypatch.setattr(cuda_maxsim, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_maxsim, "call_kernel", _stand_in)
+    lib = {"int8": "maxsim_int8", "int4": "maxsim_int4",
+           "bfloat16": "maxsim_bf16"}[dtype]
+    by_lib = dict(cuda_maxsim.INDEX_BYTES_READ)
+    eng.search_dense(Q, qm, k=K)
+    assert cuda_maxsim.index_bytes_read() - before == slices * want
+    assert cuda_maxsim.INDEX_BYTES_READ[lib] - by_lib[lib] == slices * want
+
+
+@pytest.mark.parametrize("scale", [1.0, 3.7e-3, 251.0])
+def test_the_query_quantizer_is_the_reference_bit_for_bit(scale):
+    g = torch.Generator().manual_seed(11)
+    Q = torch.randn((16, 32, D), generator=g) * scale
+    Q[0, 3] = 0.0
+    qm = torch.ones((16, 32), dtype=torch.bool)
+    codes, qw = cuda_maxsim.quantize_queries_int8(Q, qm)
+    want_codes, want_scale = reference.quantize(Q, 127)
+    assert torch.equal(codes.float(), want_codes)
+    assert torch.equal(qw, want_scale)
